@@ -58,6 +58,8 @@ ACTION_TOL = 0.05  # env units (cartpole acts in [-3, 3]): kernel vs plain contr
 TIMED_LAUNCHES = 50
 TRACE_TICKS = 5  # controller ticks under torch.profiler
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet)
+TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (NVIDIA data sheet)
+SPLIT_PASSES = 3  # split TF32: hi*hi + hi*lo + lo*hi per product
 HBM_RATE = 3.35e12  # H100 SXM HBM3 bytes/s
 
 
@@ -114,28 +116,37 @@ def graph_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+def bounds(gemm_flops: float, other_flops: float, nbytes: float) -> dict:
+    """The least time the card could take, each the larger of an operations
+    time and the bytes time: the f32 bound (every FLOP at the f32 rate) and
+    the tensor-core bound (every matrix product's FLOPs three times at the
+    TF32 rate, as split TF32 needs, the rest at the f32 rate). Both count the
+    function's work, whatever unit the kernel runs each product on."""
+    t_bytes = nbytes / HBM_RATE
+    t_f32 = (gemm_flops + other_flops) / F32_PEAK
+    t_tc = SPLIT_PASSES * gemm_flops / TF32_PEAK + other_flops / F32_PEAK
+    return {"bound_ms": 1e3 * max(t_f32, t_bytes), "bound_by": "operations" if t_f32 >= t_bytes else "bytes",
+            "bound_tc_ms": 1e3 * max(t_tc, t_bytes), "bound_tc_by": "operations" if t_tc >= t_bytes else "bytes"}
 
 
-def forward_cost(B, n, A, in_dim, H, hid, D, terms, packed) -> tuple[float, float]:
-    """f32 multiply-add FLOPs and bytes the forward needs (transcendentals not counted)."""
-    per_row = (
+def forward_cost(B, n, A, in_dim, H, hid, D, terms, packed) -> tuple[float, float, float]:
+    """FLOPs of the forward's matrix products, its other FLOPs, and the bytes
+    it needs (multiply-adds as 2 FLOPs; transcendentals and the gates'
+    elementwise work not counted)."""
+    gemm = (
         A * 3 * H * (in_dim + 3 * H)  # two GRU layers, input and hidden products
         + 2 * H  # encoder head
         + hid * (n + 2) + hid * hid  # trunk
         + 2 * hid * D * terms  # theta/phi head, live columns
-        + 2 * D * terms  # fourier combine
     )
+    other = 2 * D * terms  # fourier combine
     nbytes = 4 * (B * (n + A * in_dim + D) + sum(p.numel() for p in packed))
-    return 2.0 * B * per_row, nbytes
+    return 2.0 * B * gemm, 2.0 * B * other, nbytes
 
 
-def head_cost(B, Hx, D, terms, packed) -> tuple[float, float]:
-    per_row = 2 * Hx * D * terms + 2 * D * terms
+def head_cost(B, Hx, D, terms, packed) -> tuple[float, float, float]:
     nbytes = 4 * (B * (Hx + D) + sum(p.numel() for p in packed))
-    return 2.0 * B * per_row, nbytes
+    return 2.0 * B * 2 * Hx * D * terms, 2.0 * B * 2 * D * terms, nbytes
 
 
 def load_nl(env_name: str, device):
@@ -171,10 +182,11 @@ def check_kernels(device) -> dict:
         hid = packed[13].shape[0]
         x = torch.tensor(np.tanh(rng.standard_normal((K, hid))), dtype=torch.float32, device=device)
         head = packed[15:]
+        head_hopper = torch.as_tensor(pallas_ilt.repack_head(head, n, terms), device=device)
 
-        got = pallas_nl.nl_forward_fused(obs, acts, packed, n, in_dim, terms=terms)
+        got = pallas_nl.nl_forward_fused(obs, acts, packed, n, in_dim, terms=terms, hopper=fused.hopper)
         exp = pallas_nl.nl_forward_plain(obs, acts, packed, n, in_dim)
-        got_h = pallas_ilt.nl_head_fused(x, head, n, terms=terms)
+        got_h = pallas_ilt.nl_head_fused(x, head, n, terms=terms, hopper=head_hopper)
         exp_h = pallas_ilt.nl_head_plain(x, head, n)
         torch.cuda.synchronize()
         for name, g, e in (("nl_forward", got, exp), ("nl_head", got_h, exp_h)):
@@ -188,16 +200,23 @@ def check_kernels(device) -> dict:
             if env_name == MAIN_ENV:  # time at the main path's shapes
                 if name == "nl_forward":
                     kernel = partial(pallas_nl.nl_forward_fused, obs, acts, packed, n, in_dim,
-                                     terms=terms)
+                                     terms=terms, hopper=fused.hopper)
                     plain = partial(pallas_nl.nl_forward_plain, obs, acts, packed, n, in_dim)
                     cost = forward_cost(K, n, A, in_dim, packed[1].shape[0], hid, n, terms, packed)
                 else:
-                    kernel = partial(pallas_ilt.nl_head_fused, x, head, n, terms=terms)
+                    kernel = partial(pallas_ilt.nl_head_fused, x, head, n, terms=terms,
+                                     hopper=head_hopper)
                     plain = partial(pallas_ilt.nl_head_plain, x, head, n)
                     cost = head_cost(K, hid, n, terms, head)
                 rec["ms"], rec["plain_ms"] = graph_ms(kernel), graph_ms(plain)
                 rec["eager_ms"], rec["plain_eager_ms"] = time_ms(kernel), time_ms(plain)
-                rec["bound_ms"], rec["bound_by"] = bound_ms(*cost)
+                rec.update(bounds(*cost))
+                rec["smem_bytes"] = nl_cuda.smem_bytes(name, (
+                    (K, n, A, in_dim, packed[1].shape[0], hid, n, terms, fused.hopper.numel())
+                    if name == "nl_forward" else (K, hid, n, terms, head_hopper.numel())))
+                # the kernel's share of the tighter of its bounds
+                tight = min(("bound_ms", "bound_tc_ms"), key=rec.get)
+                rec["bound_share"], rec["bound_share_of"] = rec[tight] / rec["ms"], tight
             records[name].append(rec)
             print(f"kernel {name} {env_name}: " + json.dumps(rec), flush=True)
     return records
@@ -342,6 +361,10 @@ def kernels_line(records: dict, launches: dict) -> dict:
             "plain_eager_ms": main["plain_eager_ms"],
             "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
+            "bound_tc_ms": main["bound_tc_ms"],
+            "bound_tc_by": main["bound_tc_by"],
+            "bound_share": main["bound_share"],
+            "bound_share_of": main["bound_share_of"],
             "library_ms": None,
         })
     return {"kernels": out}
@@ -369,7 +392,7 @@ def main() -> int:
         nl_cuda.library()
         log = (lib.parent / "build.log").read_text()
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line for w in ("entry function", "registers", "spill")) or "error" in line.lower():
                 print("ptxas " + line.strip(), flush=True)
 
     with phase("kernels"):

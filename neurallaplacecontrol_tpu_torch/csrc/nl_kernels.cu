@@ -1,44 +1,65 @@
 // Hand-written CUDA kernels for the planner-path Neural Laplace forward (sm_90a).
 //
 // nl_forward_kernel replaces neurallaplacecontrol_tpu/ops/pallas_nl.py::_nl_forward_kernel:
-// raw obs [B, n] and the raw flattened action buffer [B, A*in] -> state difference [B, D],
-// for operands folded on the host by pack_nl_forward. It runs a 2-layer GRU over the
-// buffer newest to oldest, the encoder head, the two tanh trunk layers and the
-// theta/phi head with the fourier ILT combine.
+// raw obs [B, n] and the raw flattened action buffer [B, A*in] -> state difference [B, D].
+// It runs a 2-layer GRU over the buffer newest to oldest, the encoder head, the two tanh
+// trunk layers and the theta/phi head with the fourier ILT combine.
 //
 // nl_head_kernel replaces neurallaplacecontrol_tpu/ops/pallas_ilt.py::_nl_head_kernel:
-// hidden [B, Hx] -> state difference [B, D]. Its math is nl_head_tile, the device function
+// hidden [B, Hx] -> state difference [B, D]. Its math is head_tile, the device function
 // that ends nl_forward_kernel as well.
 //
-// Design. One CTA of kThreads threads owns kRows batch rows and keeps every activation in
-// shared memory. Each GEMM gives one output column to a thread, which streams that column
-// of the weight matrix once (coalesced across the warp, served from L2 after the first
-// CTA: the weights are ~0.5 MB) and holds kRows accumulators in registers. The fourier
-// combine is the 17-term weighted sum per (row, d) that the TPU kernel wrote as a GEMM
-// against selection matrices; it reads the weights off the diagonal of those matrices,
-// so both kernels take pack_nl_forward's operands unchanged.
+// Both read their weights from one flat buffer laid out on the host (ops/pallas_nl.py
+// repack_nl_forward, ops/pallas_ilt.py repack_head): the GRU's and the trunk's matrices in
+// the register order of the A operand of mma.sync.m16n8k8.tf32, with the weights' output
+// columns as its M side; the head over its D*terms live columns only, theta and phi
+// interleaved, with a compact pair of combine weights, in chunks of at most kHeadChunkCols
+// columns that pass through shared memory one at a time.
 //
-// Bound. At B=1000 the forward does ~0.38 GFLOP of f32 multiply-adds against ~0.5 MB of
-// weights, so it is bound by operations (about 6 us at the H100's 67 TFLOP/s f32 peak).
-// This first version runs the FMAs on the CUDA cores with every weight re-read by each
-// CTA; wgmma tiles and weight reuse across more rows are later work.
+// Design. One CTA of 16 warps owns kRows = 8 batch rows, the N side of the MMA, so 125 CTAs
+// cover B = 1000, one per SM. The GRU's and the trunk's products run on the tensor cores in
+// split TF32 ("3xTF32", mma.sync.m16n8k8): x = hi + lo with hi a TF32 value, and
+// a*b ~ hi*hi + hi*lo + lo*hi, each of the three summed in its own f32 accumulator; one pass
+// of TF32 errs by up to 2^-10 per operand and misses the 1e-3 limit. The weights are split
+// in registers as they are loaded; each activation is split once, when it is computed, and
+// stored as two planes. The head's two products run in f32 on the CUDA cores (see
+// head_tile). The weights are staged in dynamic shared memory by bulk asynchronous copies
+// (cp.async.bulk, completion on an mbarrier): the small operands and GRU layer 1 first, GRU
+// layer 2 while layer 1 runs its first step, the trunk's second layer into layer 1's place
+// once layer 1 is done, and the head, chunk by chunk, into layer 2's place once the GRU is
+// done (one chunk up to 104 columns: 17 terms on every env take one). The GRU runs
+// as a wavefront: in phase p warps 0-7 compute layer 1 at step p and warps 8-15 layer 2 at
+// step p-1, warp w owning hidden units 8(w%8)..8(w%8)+7 with its r and z gates in one
+// 16-column tile over [x; h] and its candidate's input and hidden halves in another, so the
+// gate update happens in registers; A steps take A + 1 phases. The 64->2 encoder runs in f32
+// with shuffles. (wgmma at N = 8 rows, 64 output columns per instruction, ran the same
+// work slower than mma.sync on an H100.)
 //
-// Numerics: f32 throughout with the accurate tanhf/sinf/cosf/expf (no fast-math), since
+// Bound. At B = 1000 (cartpole) the forward does 0.375 GFLOP against ~0.5 MB of weights:
+// 5.6 us with every FLOP at the f32 peak of 67 TFLOP/s; 2.3 us with every product at
+// 495/3 TFLOP/s (split TF32) and the fourier combine at the f32 rate. The head's products
+// (0.044 GFLOP) run in f32, a cost the kernel pays against the second bound. What holds the
+// kernel back is latency, not rate: each CTA streams ~0.3 MB of weights from L2 into shared
+// memory (the first 64 KB before any product can start), and the A + 1 GRU phases and 3
+// further layers are dependent stages of short products with one CTA per SM.
+//
+// Numerics: accurate tanhf/sincosf/expf (no fast-math) and the per-hemisphere radius, since
 // the ILT tail amplifies error near phi ~ pi/2 (pallas_nl.py:46-60).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 8;         // batch rows per CTA
-constexpr int kThreads = 256;
-constexpr int kMaxObs = 16;      // state dim n
-constexpr int kMaxActs = 32;     // A * in
-constexpr int kMaxH = 64;        // GRU hidden size
-constexpr int kMaxHid = 128;     // trunk width (and the head's input width)
-constexpr int kMaxHeadCols = 192;  // D * terms
-constexpr int kLatent = 2;       // action latent
-constexpr int kScratch = (3 * kMaxHeadCols > 6 * kMaxH) ? 3 * kMaxHeadCols : 6 * kMaxH;
+constexpr int kRows = 8;  // batch rows per CTA: the N side of mma.m16n8k8
+constexpr int kWarps = 16;  // 8 for each GRU layer
+constexpr int kThreads = 32 * kWarps;
+static_assert(kWarps >= kRows, "the encoder gives a warp to each of the kRows rows");
+constexpr int kGroup = 8;   // GRU hidden units per warp
+constexpr int kHeadRows = 4;  // rows per thread in the head's f32 products
+constexpr int kLatent = 2;  // action latent
+constexpr int kBarFloats = 8;  // four mbarriers at the start of shared memory
+constexpr int kHeadChunkCols = 104;  // head columns per chunk (ops/pallas_ilt.py _HEAD_CHUNK_COLS)
 
 constexpr double kPi = 3.14159265358979323846;
 constexpr double kPhiMargin = 1e-4;  // ops/sphere.py _PHI_MARGIN
@@ -47,239 +68,559 @@ constexpr float kHalfPiF = static_cast<float>(kPi / 2.0);
 constexpr float kPhiLoF = static_cast<float>(-kPi / 2.0 + kPhiMargin);
 constexpr float kPhiHiF = static_cast<float>(kPi / 2.0 - kPhiMargin);
 
-struct HeadArgs {
-  const float* w_theta;  // [Hx, N], column d*Tp + t
-  const float* w_phi;    // [Hx, N]
-  const float* b_theta;  // [N]
-  const float* b_phi;    // [N]
-  const float* s_re;     // [N, Dp], weight of term t for output d at row d*Tp + t, column d
-  const float* s_im;     // [N, Dp]
-  int D, terms, Tp, N, Dp;
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// The head section of the weight buffer (ops/pallas_ilt.py repack_head): `chunks` chunks of
+// mc columns, each b_theta, b_phi, c_re, c_im [mc] | W [Hx][mc][2] (theta, phi). The D*terms
+// live columns are split evenly, mc a multiple of 4.
+struct HeadDims {
+  int Hx, D, terms, mc, chunks;
+  __host__ __device__ int chunk() const { return mc * (4 + 2 * Hx); }
+  __host__ __device__ int size() const { return chunks * chunk(); }
+  __host__ __device__ int cols() const { return chunks * mc; }
 };
 
-struct ForwardArgs {
-  const float* w_ih1; const float* w_hh1; const float* b_ih1; const float* b_hh1;
-  const float* w_ih2; const float* w_hh2; const float* b_ih2; const float* b_hh2;
-  const float* w_enc; const float* b_enc;
-  const float* w1_obs; const float* w1_act; const float* b1;
-  const float* w2; const float* b2;
-  HeadArgs head;
-  int B, n, A, in_dim, H, hid;
+HeadDims head_dims(int Hx, int D, int terms) {
+  const int ncols = D * terms;
+  const int chunks = (ncols + kHeadChunkCols - 1) / kHeadChunkCols;
+  return HeadDims{Hx, D, terms, round_up((ncols + chunks - 1) / chunks, 4), chunks};
+}
+
+// Float offsets of the forward's buffer sections (ops/pallas_nl.py forward_sections) and of
+// its shared-memory image.
+struct ForwardLayout {
+  int n, A, in_dim, H, hid;
+  HeadDims head;
+  int kx, k1;                       // padded widths of the GRU input and of [obs; latent]
+  int small, gru1, gru2, w2;        // buffer sections before the head
+  int ld_x, ld_h, ld_z, ld_hid, ld_c;  // activation row strides, 4 mod 32: no bank conflicts
+  int region_a, region_b;           // gru1 then w2; gru2 then the head's chunks
+  int o_a, o_b, o_xs, o_h, o_z, o_hid1, o_hid2, o_c, total;  // shared-memory offsets
 };
 
-// out[r, j] = act(acc(r, j) + bias[col(j)] + sum_k in[r, k] * W[k, col(j)]) for r < kRows and
-// j < ncols, where col(j) = (j / group) * group_stride + j % group picks the live columns of a
-// padded layout, and acc is out[r, j] when accumulate is set, else 0. Each thread owns a
-// column; the kRows activation rows are broadcast from shared memory.
-__device__ void rows_gemm(const float* in, int ld_in, int K,
-                          const float* __restrict__ W, int ldw,
-                          const float* __restrict__ bias,
-                          int ncols, int group, int group_stride,
-                          float* out, int ld_out, bool accumulate, bool apply_tanh) {
-  for (int j = threadIdx.x; j < ncols; j += blockDim.x) {
-    const int col = (j / group) * group_stride + (j % group);
-    float acc[kRows];
+ForwardLayout forward_layout(int n, int A, int in_dim, int H, int hid, int D, int terms) {
+  ForwardLayout L;
+  L.n = n; L.A = A; L.in_dim = in_dim; L.H = H; L.hid = hid;
+  L.head = head_dims(hid, D, terms);
+  L.kx = round_up(in_dim, 8);
+  L.k1 = round_up(n + kLatent, 8);
+  L.small = 12 * H + kLatent * H + 4 + L.k1 * hid + 2 * hid;
+  L.gru1 = (H / kGroup) * (L.kx + H) * 24;
+  L.gru2 = (H / kGroup) * 2 * H * 24;
+  L.w2 = hid * hid;
+  L.ld_x = L.kx + 4; L.ld_h = H + 4; L.ld_z = L.k1 + 4; L.ld_hid = hid + 4; L.ld_c = L.head.cols() + 4;
+  L.region_a = L.gru1 > L.w2 ? L.gru1 : L.w2;
+  L.region_b = L.gru2 > L.head.chunk() ? L.gru2 : L.head.chunk();
+  L.o_a = kBarFloats + L.small;
+  L.o_b = L.o_a + L.region_a;
+  // the tensor cores' activations are stored split (2 kRows rows each); hid2 feeds the f32 head
+  L.o_xs = L.o_b + L.region_b;
+  L.o_h = L.o_xs + A * 2 * kRows * L.ld_x;  // h1 ping-pong, then h2 ping-pong
+  L.o_z = L.o_h + 4 * 2 * kRows * L.ld_h;
+  L.o_hid1 = L.o_z + 2 * kRows * L.ld_z;
+  L.o_hid2 = L.o_hid1 + 2 * kRows * L.ld_hid;
+  L.o_c = L.o_hid2 + kRows * L.ld_hid;
+  L.total = L.o_c + kRows * L.ld_c;
+  return L;
+}
+
+// ---- asynchronous copies and mbarriers ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Copies `bytes` (a multiple of 16) from global to shared memory; `bar` completes its phase
+// when all have landed. One thread starts it.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits for the completion of `bar`'s phase of this parity (the first phase has parity 0).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity = 0) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// ---- split-TF32 tensor-core products ----
+
+// x = hi + lo with hi = x truncated to a TF32 value (its low 13 mantissa bits cleared: one
+// logic operation) and lo = x - hi, exact in f32. The tensor core reads lo's top 11
+// significant bits, which leaves an error below 2^-20 |x|, where one pass of TF32 errs by up to
+// 2^-10 |x|. (cvt.rna.tf32.f32 runs at the conversion unit's quarter rate.)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// An activation that the tensor cores read is stored split once, by the thread that computes
+// it, rather than by each of the warps that read it: X [kRows][ld] holds hi, X + kRows * ld lo.
+__device__ __forceinline__ void put_split(float* X, int ld, int r, int k, float v) {
+  uint32_t hi, lo;
+  split(v, hi, lo);
+  X[r * ld + k] = __uint_as_float(hi);
+  X[(kRows + r) * ld + k] = __uint_as_float(lo);
+}
+
+__device__ __forceinline__ float get_split(const float* X, int ld, int r, int k) {
+  return X[r * ld + k] + X[(kRows + r) * ld + k];  // exact: hi + lo == v
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A 16 x 8 output tile (16 weight columns by the CTA's 8 rows). Lane l holds register j at
+// column m = l/4 + 8 (j/2) of the tile and batch row 2 (l%4) + j%2.
+struct Acc {
+  float hh[4], hl[4], lh[4];  // the three products, summed apart (three dependent chains)
+  __device__ __forceinline__ Acc() {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float w = W[k * ldw + col];
+    for (int j = 0; j < 4; ++j) hh[j] = hl[j] = lh[j] = 0.f;
+  }
+  __device__ __forceinline__ float get(int j) const { return hh[j] + (hl[j] + lh[j]); }
+};
+
+// The B operand: split activations X at columns k0..k0+7.
+struct BFrag {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ BFrag load_b(const float* X, int ld, int k0, int lane) {
+  const float* x = X + (lane >> 2) * ld + k0 + (lane & 3);
+  const float* y = x + kRows * ld;
+  return BFrag{{__float_as_uint(x[0]), __float_as_uint(x[4])},
+               {__float_as_uint(y[0]), __float_as_uint(y[4])}};
+}
+
+__device__ __forceinline__ void mma3(Acc& acc, float a0, float a1, float a2, float a3,
+                                     const BFrag& b) {
+  uint32_t hi[4], lo[4];
+  split(a0, hi[0], lo[0]);
+  split(a1, hi[1], lo[1]);
+  split(a2, hi[2], lo[2]);
+  split(a3, hi[3], lo[3]);
+  mma_tf32(acc.lh, lo, b.hi[0], b.hi[1]);
+  mma_tf32(acc.hl, hi, b.lo[0], b.lo[1]);
+  mma_tf32(acc.hh, hi, b.hi[0], b.hi[1]);
+}
+
+// acc += W^T X over `ksteps` steps of 8 for one tile, W in fragment order [ksteps][32][4].
+__device__ __forceinline__ void tile_gemm(Acc& acc, const float* w, const float* X, int ld,
+                                          int ksteps, int lane) {
+  const float4* wf = reinterpret_cast<const float4*>(w) + lane;
+#pragma unroll 4
+  for (int kt = 0; kt < ksteps; ++kt) {
+    const float4 a = wf[kt * 32];
+    mma3(acc, a.x, a.y, a.z, a.w, load_b(X, ld, kt * 8, lane));
+  }
+}
+
+// out[r][m] = tanh(acc + bias[m]) over tile mt, stored split when the tensor cores read it next.
+template <bool kSplit>
+__device__ __forceinline__ void store_tanh(const Acc& acc, const float* bias, float* out, int ld,
+                                           int mt, int lane) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(in[r * ld_in + k], w, acc[r]);
-    }
-    const float b = bias ? bias[col] : 0.f;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float v = accumulate ? out[r * ld_out + j] + acc[r] : acc[r];
-      v += b;
-      out[r * ld_out + j] = apply_tanh ? tanhf(v) : v;
+  for (int j = 0; j < 4; ++j) {
+    const int m = mt * 16 + (lane >> 2) + 8 * (j >> 1);
+    const int r = 2 * (lane & 3) + (j & 1);
+    const float v = tanhf(acc.get(j) + bias[m]);
+    if (kSplit) {
+      put_split(out, ld, r, m, v);
+    } else {
+      out[r * ld + m] = v;
     }
   }
 }
 
 __device__ __forceinline__ float logisticf(float x) { return 1.f / (1.f + expf(-x)); }
 
-// GRU gates (r/z/n blocks, models/common.py gru_gates): h <- (1 - z) n + z h.
-__device__ void gru_update(const float* gi, const float* gh, float* h, int H) {
-  for (int idx = threadIdx.x; idx < kRows * H; idx += blockDim.x) {
-    const int r = idx / H;
-    const int c = idx % H;
-    const float* gir = gi + r * 3 * H;
-    const float* ghr = gh + r * 3 * H;
-    const float rg = logisticf(gir[c] + ghr[c]);
-    const float z = logisticf(gir[H + c] + ghr[H + c]);
-    const float nn = tanhf(gir[2 * H + c] + rg * ghr[2 * H + c]);
-    h[idx] = (1.f - z) * nn + z * h[idx];
+// One GRU layer at one step for hidden units 8*group .. 8*group+7 (gates r/z/n,
+// models/common.py gru_gates): h_out = (1 - z) n + z h_in. x (split, row stride ldx) is the
+// layer's input over kx steps of 8; h_in / h_out are split, row stride ldh. w holds the
+// layer's tiles (per group: the r/z tile over [x; h], then the candidate's half tiles),
+// bias = b_ih [3H] | b_hh [3H].
+__device__ __forceinline__ void gru_group(const float* w, const float* bias, int H,
+                                          const float* x, int ldx, int kx, const float* h_in,
+                                          float* h_out, int ldh, int group, int lane) {
+  const int kh = H / 8;
+  const int ks = kx + kh;
+  const float* w_rz = w + group * ks * 192;
+  const float4* a_rz = reinterpret_cast<const float4*>(w_rz) + lane;
+  const float2* a_n = reinterpret_cast<const float2*>(w_rz + ks * 128) + lane;
+  Acc rz, nn;
+#pragma unroll 2
+  for (int kt = 0; kt < kx; ++kt) {  // input part: r/z, and the candidate's input half
+    const BFrag b = load_b(x, ldx, kt * 8, lane);
+    const float4 a = a_rz[kt * 32];
+    mma3(rz, a.x, a.y, a.z, a.w, b);
+    const float2 v = a_n[kt * 32];
+    mma3(nn, v.x, 0.f, v.y, 0.f, b);
+  }
+#pragma unroll 4
+  for (int kt = 0; kt < kh; ++kt) {  // hidden part: r/z, and the candidate's hidden half
+    const BFrag b = load_b(h_in, ldh, kt * 8, lane);
+    const float4 a = a_rz[(kx + kt) * 32];
+    mma3(rz, a.x, a.y, a.z, a.w, b);
+    const float2 v = a_n[(kx + kt) * 32];
+    mma3(nn, 0.f, v.x, 0.f, v.y, b);
+  }
+  const int u = group * kGroup + (lane >> 2);
+  const float* b_ih = bias;
+  const float* b_hh = bias + 3 * H;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int row = 2 * (lane & 3) + q;
+    const float r = logisticf(rz.get(q) + b_ih[u] + b_hh[u]);
+    const float z = logisticf(rz.get(2 + q) + b_ih[H + u] + b_hh[H + u]);
+    const float n = tanhf(nn.get(q) + b_ih[2 * H + u] + r * (nn.get(2 + q) + b_hh[2 * H + u]));
+    put_split(h_out, ldh, row, u, (1.f - z) * n + z * get_split(h_in, ldh, row, u));
   }
 }
 
-// The head and the fourier combine for the kRows rows in x [kRows, Hx] (shared memory):
+// The head and the fourier combine for the kRows rows in x [kRows][ldx] (shared memory):
 // theta = tanh(.) pi, phi = clip(tanh(.) pi/2), F = r e^{i theta} with the per-hemisphere
-// radius, out[row0 + r, d] = sum_t Re(F w_t) for the live rows. scratch holds 3 kRows*D*terms.
-__device__ void nl_head_tile(const float* x, int Hx, const HeadArgs& a, float* scratch,
-                             float* __restrict__ out, int row0, int B) {
-  const int ncols = a.D * a.terms;
-  float* g_theta = scratch;
-  float* g_phi = scratch + kRows * ncols;
-  float* contrib = scratch + 2 * kRows * ncols;
-  rows_gemm(x, Hx, Hx, a.w_theta, a.N, a.b_theta, ncols, a.terms, a.Tp, g_theta, ncols, false, false);
-  rows_gemm(x, Hx, Hx, a.w_phi, a.N, a.b_phi, ncols, a.terms, a.Tp, g_phi, ncols, false, false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kRows * ncols; idx += blockDim.x) {
-    const int j = idx % ncols;
-    const int d = j / a.terms;
-    const int t = j % a.terms;
-    const float theta = tanhf(g_theta[idx]) * kPiF;
-    const float phi = fminf(fmaxf(tanhf(g_phi[idx]) * kHalfPiF, kPhiLoF), kPhiHiF);
-    const float sin_phi = sinf(phi);
-    const float cos_phi = cosf(phi);
-    const float radius = phi >= 0.f ? (1.f + sin_phi) / cos_phi : cos_phi / (1.f - sin_phi);
-    const float f_re = radius * cosf(theta);
-    const float f_im = radius * sinf(theta);
-    const int srow = (d * a.Tp + t) * a.Dp + d;
-    contrib[idx] = f_re * a.s_re[srow] - f_im * a.s_im[srow];
+// radius, out[row0 + r, d] = sum_t Re(F w_t) for the live rows. The head's chunks (src, the
+// repack_head buffer in global memory) pass through `region` in shared memory in turn,
+// chunk c completing phase c of `bar`; the caller has issued chunk 0's copy. contrib is
+// [kRows][cols + 4] scratch.
+//
+// Its two products run in f32 on the CUDA cores, not in split TF32: near the pole a head
+// output moves by ~1e3 times its inputs' rounding, and split TF32 missed the 1e-3 limit on
+// the head check on an H100. Each thread owns one column of both W_theta and W_phi
+// for kHeadRows rows: one 8-byte weight load and one 16-byte activation load per row for
+// every 4 steps of k, summed in k order as a sequential f32 dot product. (Splitting k between
+// two lanes made it slower and less accurate.)
+__device__ __forceinline__ void head_tile(const float* x, int ldx, const HeadDims& h,
+                                          float* region, uint64_t* bar, const float* src,
+                                          float* contrib, float* __restrict__ out, int row0,
+                                          int B) {
+  const int mc = h.mc;
+  const int ncols = h.D * h.terms;
+  const int ldc = h.cols() + 4;
+  const float* b_theta = region;
+  const float* b_phi = region + mc;
+  const float* c_re = region + 2 * mc;
+  const float* c_im = region + 3 * mc;
+  const float2* w = reinterpret_cast<const float2*>(region + 4 * mc);  // [Hx][mc] (theta, phi)
+  for (int c = 0; c < h.chunks; ++c) {
+    mbar_wait(bar, c & 1);
+    for (int idx = threadIdx.x; idx < (kRows / kHeadRows) * mc; idx += kThreads) {
+      const int m = idx % mc;
+      const int r0 = (idx / mc) * kHeadRows;
+      float at[kHeadRows] = {};
+      float ap[kHeadRows] = {};
+      for (int k = 0; k < h.Hx; k += 4) {
+        float xq[kHeadRows][4];
+#pragma unroll
+        for (int q = 0; q < kHeadRows; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(x + (r0 + q) * ldx + k);
+          xq[q][0] = v.x; xq[q][1] = v.y; xq[q][2] = v.z; xq[q][3] = v.w;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float2 wv = w[(k + kk) * mc + m];
+#pragma unroll
+          for (int q = 0; q < kHeadRows; ++q) {
+            at[q] = fmaf(xq[q][kk], wv.x, at[q]);
+            ap[q] = fmaf(xq[q][kk], wv.y, ap[q]);
+          }
+        }
+      }
+      const int col = c * mc + m;
+      if (col >= ncols) continue;
+#pragma unroll
+      for (int q = 0; q < kHeadRows; ++q) {
+        const float theta = tanhf(at[q] + b_theta[m]) * kPiF;
+        const float phi = fminf(fmaxf(tanhf(ap[q] + b_phi[m]) * kHalfPiF, kPhiLoF), kPhiHiF);
+        float sin_phi, cos_phi, sin_theta, cos_theta;
+        sincosf(phi, &sin_phi, &cos_phi);
+        sincosf(theta, &sin_theta, &cos_theta);
+        const float radius = phi >= 0.f ? (1.f + sin_phi) / cos_phi : cos_phi / (1.f - sin_phi);
+        contrib[(r0 + q) * ldc + col] = radius * cos_theta * c_re[m] - radius * sin_theta * c_im[m];
+      }
+    }
+    __syncthreads();
+    if (c + 1 < h.chunks && threadIdx.x == 0) {  // every thread is done with chunk c
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      bulk_load(region, src + (c + 1) * h.chunk(), 4u * h.chunk(), bar);
+    }
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kRows * a.D; idx += blockDim.x) {
-    const int r = idx / a.D;
-    const int d = idx % a.D;
+  for (int idx = threadIdx.x; idx < kRows * h.D; idx += kThreads) {
+    const int r = idx / h.D;
+    const int d = idx % h.D;
     if (row0 + r >= B) continue;
-    const float* c = contrib + r * ncols + d * a.terms;
+    const float* c = contrib + r * ldc + d * h.terms;
     float acc = 0.f;
-    for (int t = 0; t < a.terms; ++t) acc += c[t];
-    out[(row0 + r) * a.D + d] = acc;
-  }
-}
-
-__device__ void load_rows(const float* __restrict__ src, int width, int row0, int B, float* dst) {
-  for (int idx = threadIdx.x; idx < kRows * width; idx += blockDim.x) {
-    const int r = idx / width;
-    dst[idx] = (row0 + r < B) ? src[(row0 + r) * width + idx % width] : 0.f;
+#pragma unroll 4
+    for (int t = 0; t < h.terms; ++t) acc += c[t];
+    out[(row0 + r) * h.D + d] = acc;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 nl_forward_kernel(const float* __restrict__ obs, const float* __restrict__ acts,
-                  ForwardArgs a, float* __restrict__ out) {
-  __shared__ float s_obs[kRows * kMaxObs];
-  __shared__ float s_acts[kRows * kMaxActs];
-  __shared__ float s_h1[kRows * kMaxH];
-  __shared__ float s_h2[kRows * kMaxH];
-  __shared__ float s_pact[kRows * kLatent];
-  __shared__ float s_hid1[kRows * kMaxHid];
-  __shared__ float s_hid2[kRows * kMaxHid];
-  __shared__ float s_scratch[kRows * kScratch];
-
+                  const float* __restrict__ buf, float* __restrict__ out, int B,
+                  ForwardLayout L) {
+  extern __shared__ __align__(16) float smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* s_small = smem + kBarFloats;
+  float* s_a = smem + L.o_a;
+  float* s_b = smem + L.o_b;
+  float* xs = smem + L.o_xs;
+  // GRU states: h1 ping-pong at h + {0, 1} * hb, h2 ping-pong at h + {2, 3} * hb (pointer
+  // arithmetic on smem, not a pointer array, keeps the loads in the shared address space)
+  float* h = smem + L.o_h;
+  const int hb = 2 * kRows * L.ld_h;
+  float* z1 = smem + L.o_z;
+  float* hid1 = smem + L.o_hid1;
+  float* hid2 = smem + L.o_hid2;
+  const int H = L.H;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int row0 = blockIdx.x * kRows;
-  const int H = a.H;
-  const int G = 3 * H;
-  const int A_in = a.A * a.in_dim;
-  load_rows(obs, a.n, row0, a.B, s_obs);
-  load_rows(acts, A_in, row0, a.B, s_acts);
-  for (int idx = threadIdx.x; idx < kRows * H; idx += blockDim.x) {
-    s_h1[idx] = 0.f;
-    s_h2[idx] = 0.f;
+
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bulk_load(s_small, buf, 4u * (L.small + L.gru1), bars + 0);  // small + GRU layer 1
+    bulk_load(s_b, buf + L.small + L.gru1, 4u * L.gru2, bars + 1);  // GRU layer 2
+  }
+  // one pass over the inputs, so that each thread waits on one global load: the action buffer
+  // as A steps of [kRows][kx], zero-padded; [obs | latent | 0]; h = 0
+  const int A_in = L.A * L.in_dim;
+  const int n_xs = L.A * kRows * L.kx;
+  const int n_z = kRows * L.k1;
+  for (int idx = tid; idx < n_xs + n_z + kRows * H; idx += kThreads) {
+    if (idx < n_xs) {
+      const int k = idx % L.kx;
+      const int r = (idx / L.kx) % kRows;
+      const int s = idx / (L.kx * kRows);
+      const bool live = k < L.in_dim && row0 + r < B;
+      put_split(xs + s * 2 * kRows * L.ld_x, L.ld_x, r, k,
+                live ? acts[(row0 + r) * A_in + s * L.in_dim + k] : 0.f);
+    } else if (idx < n_xs + n_z) {
+      const int r = (idx - n_xs) / L.k1;
+      const int k = (idx - n_xs) % L.k1;
+      put_split(z1, L.ld_z, r, k, (k < L.n && row0 + r < B) ? obs[(row0 + r) * L.n + k] : 0.f);
+    } else {
+      const int r = (idx - n_xs - n_z) / H;
+      const int k = (idx - n_xs - n_z) % H;
+      put_split(h, L.ld_h, r, k, 0.f);
+      put_split(h + 2 * hb, L.ld_h, r, k, 0.f);
+    }
   }
   __syncthreads();
 
-  float* gi = s_scratch;
-  float* gh = s_scratch + kRows * G;
-  // reverse GRU: consume the buffer newest -> oldest (w_nl.py:27)
-  for (int step = 0; step < a.A; ++step) {
-    const int src = a.A - 1 - step;
-    rows_gemm(s_acts + src * a.in_dim, A_in, a.in_dim, a.w_ih1, G, a.b_ih1, G, G, G, gi, G, false, false);
-    rows_gemm(s_h1, H, H, a.w_hh1, G, a.b_hh1, G, G, G, gh, G, false, false);
-    __syncthreads();
-    gru_update(gi, gh, s_h1, H);
-    __syncthreads();
-    rows_gemm(s_h1, H, H, a.w_ih2, G, a.b_ih2, G, G, G, gi, G, false, false);
-    rows_gemm(s_h2, H, H, a.w_hh2, G, a.b_hh2, G, G, G, gh, G, false, false);
-    __syncthreads();
-    gru_update(gi, gh, s_h2, H);
+  // GRU wavefront: phase p runs layer 1 at step p and layer 2 at step p - 1, newest action
+  // first (w_nl.py:27). h1 buffer p % 2 holds layer 1's state after step p - 1.
+  mbar_wait(bars + 0);
+  for (int p = 0; p <= L.A; ++p) {
+    if (p == 1) mbar_wait(bars + 1);
+    if (p == L.A && tid == 0) {  // layer 1 is done with region A: bring the trunk's w2
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      bulk_load(s_a, buf + L.small + L.gru1 + L.gru2, 4u * L.w2, bars + 2);
+    }
+    const int group = warp % (kWarps / 2);
+    if (group < H / kGroup) {
+      if (warp < kWarps / 2 && p < L.A) {
+        const float* x = xs + (L.A - 1 - p) * 2 * kRows * L.ld_x;
+        gru_group(s_a, s_small, H, x, L.ld_x, L.kx / 8, h + (p & 1) * hb, h + ((p + 1) & 1) * hb,
+                  L.ld_h, group, lane);
+      }
+      if (warp >= kWarps / 2 && p >= 1) {
+        gru_group(s_b, s_small + 6 * H, H, h + (p & 1) * hb, L.ld_h, H / 8,
+                  h + (2 + ((p - 1) & 1)) * hb, h + (2 + (p & 1)) * hb, L.ld_h, group, lane);
+      }
+    }
     __syncthreads();
   }
+  const float* head_src = buf + L.small + L.gru1 + L.gru2 + L.w2;
+  if (tid == 0) {  // the GRU is done with region B: bring the head's first chunk
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bulk_load(s_b, head_src, 4u * L.head.chunk(), bars + 3);
+  }
 
-  // encoder head -> action latent; trunk layer 1 (normalization and contour folded in)
-  rows_gemm(s_h2, H, H, a.w_enc, kLatent, a.b_enc, kLatent, kLatent, kLatent, s_pact, kLatent,
-            false, false);
-  rows_gemm(s_obs, a.n, a.n, a.w1_obs, a.hid, nullptr, a.hid, a.hid, a.hid, s_hid1, a.hid,
-            false, false);
+  // encoder head H -> 2 in f32 on the CUDA cores: warp r < kRows owns batch row r, its lanes
+  // split k into 16 parts for each of the 2 columns and meet by shuffles
+  const float* w_enc = s_small + 12 * H;
+  if (warp < kRows) {
+    const float* h2 = h + (2 + (L.A & 1)) * hb;
+    const int col = lane & 1;
+    float v = 0.f;
+    for (int k = lane >> 1; k < H; k += 16) {
+      v = fmaf(get_split(h2, L.ld_h, warp, k), w_enc[k * kLatent + col], v);
+    }
+#pragma unroll
+    for (int off = 2; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane < kLatent) put_split(z1, L.ld_z, warp, L.n + col, v + w_enc[kLatent * H + col]);
+  }
   __syncthreads();
-  rows_gemm(s_pact, kLatent, kLatent, a.w1_act, a.hid, a.b1, a.hid, a.hid, a.hid, s_hid1, a.hid,
-            true, true);
+
+  // trunk layer 1 over [obs; latent] (normalization and contour folded in), then layer 2
+  const float* w1 = w_enc + kLatent * H + 4;
+  const float* b1 = w1 + L.k1 * L.hid;
+  const float* b2 = b1 + L.hid;
+  for (int mt = warp; mt < L.hid / 16; mt += kWarps) {
+    Acc acc;
+    tile_gemm(acc, w1 + mt * (L.k1 / 8) * 128, z1, L.ld_z, L.k1 / 8, lane);
+    store_tanh<true>(acc, b1, hid1, L.ld_hid, mt, lane);
+  }
   __syncthreads();
-  rows_gemm(s_hid1, a.hid, a.hid, a.w2, a.hid, a.b2, a.hid, a.hid, a.hid, s_hid2, a.hid,
-            false, true);
+  mbar_wait(bars + 2);
+  for (int mt = warp; mt < L.hid / 16; mt += kWarps) {
+    Acc acc;
+    tile_gemm(acc, s_a + mt * (L.hid / 8) * 128, hid1, L.ld_hid, L.hid / 8, lane);
+    store_tanh<false>(acc, b2, hid2, L.ld_hid, mt, lane);
+  }
   __syncthreads();
-  nl_head_tile(s_hid2, a.hid, a.head, s_scratch, out, row0, a.B);
+  head_tile(hid2, L.ld_hid, L.head, s_b, bars + 3, head_src, smem + L.o_c, out, row0, B);
 }
 
 __global__ void __launch_bounds__(kThreads)
-nl_head_kernel(const float* __restrict__ x, HeadArgs a, int B, int Hx, float* __restrict__ out) {
-  __shared__ float s_x[kRows * kMaxHid];
-  __shared__ float s_scratch[kRows * kScratch];
+nl_head_kernel(const float* __restrict__ x, const float* __restrict__ buf,
+               float* __restrict__ out, int B, HeadDims h) {
+  extern __shared__ __align__(16) float smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* s_head = smem + kBarFloats;
+  float* s_x = s_head + h.chunk();
+  const int ldx = h.Hx + 4;
+  float* contrib = s_x + kRows * ldx;
   const int row0 = blockIdx.x * kRows;
-  load_rows(x, Hx, row0, B, s_x);
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bulk_load(s_head, buf, 4u * h.chunk(), bar);
+  }
+  for (int idx = threadIdx.x; idx < kRows * h.Hx; idx += kThreads) {
+    const int r = idx / h.Hx;
+    const int k = idx % h.Hx;
+    s_x[r * ldx + k] = row0 + r < B ? x[(row0 + r) * h.Hx + k] : 0.f;
+  }
   __syncthreads();
-  nl_head_tile(s_x, Hx, a, s_scratch, out, row0, B);
+  head_tile(s_x, ldx, h, s_head, bar, buf, contrib, out, row0, B);
 }
 
-bool head_dims_ok(const HeadArgs& h, int Hx) {
-  return h.D > 0 && h.terms > 0 && h.terms <= h.Tp && h.D * h.terms <= kMaxHeadCols &&
-         h.N == h.D * h.Tp && h.D <= h.Dp && Hx > 0 && Hx <= kMaxHid;
-}
+int g_smem_limit = 0;  // bytes of dynamic shared memory a block may use, set by nl_init
 
 int grid_for(int B) { return (B + kRows - 1) / kRows; }
+
+// dims of a forward launch: B, n, A, in_dim, H, hid, D, terms, buf_len (floats). Returns the
+// launch's dynamic shared memory in bytes and its layout, or -1 for dims it does not take.
+long long forward_plan(const int* dims, int n_dims, ForwardLayout& L) {
+  if (n_dims != 9) return -1;
+  const int B = dims[0], n = dims[1], A = dims[2], in_dim = dims[3], H = dims[4], hid = dims[5];
+  const int D = dims[6], terms = dims[7], buf_len = dims[8];
+  if (B < 0 || n <= 0 || A <= 0 || in_dim <= 0 || H <= 0 || H % kGroup ||
+      H / kGroup > kWarps / 2 || hid <= 0 || hid % 16 || D <= 0 || terms <= 0) {
+    return -1;
+  }
+  L = forward_layout(n, A, in_dim, H, hid, D, terms);
+  if (L.small + L.gru1 + L.gru2 + L.w2 + L.head.size() != buf_len) return -1;  // another layout
+  return 4LL * L.total;
+}
+
+// dims of a head launch: B, Hx, D, terms, buf_len (floats).
+long long head_plan(const int* dims, int n_dims, HeadDims& h) {
+  if (n_dims != 5) return -1;
+  if (dims[0] < 0 || dims[1] <= 0 || dims[1] % 4 || dims[2] <= 0 || dims[3] <= 0) return -1;
+  h = head_dims(dims[1], dims[2], dims[3]);
+  if (h.size() != dims[4]) return -1;  // another layout
+  return 4LL * (kBarFloats + h.chunk() + kRows * (h.Hx + 4) + kRows * (h.cols() + 4));
+}
+
+int check_smem(long long smem) {
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (g_smem_limit == 0) return static_cast<int>(cudaErrorInitializationError);
+  if (smem > g_smem_limit) return static_cast<int>(cudaErrorInvalidConfiguration);
+  return 0;
+}
 
 }  // namespace
 
 extern "C" {
 
-// ptrs: obs, acts, the 21 operands of pack_nl_forward in order, out (24 device pointers).
-// dims: B, n, A, in_dim, H, hid, D, terms, Tp, N, Dp.
+// Lets both kernels use the device's whole opt-in shared memory. Call once per device,
+// after the library loads, with that device current; returns a cudaError_t (0 on success).
+int nl_init() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&g_smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(nl_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               g_smem_limit);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(nl_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               g_smem_limit);
+  }
+  return static_cast<int>(err);
+}
+
+// The dynamic shared memory, in bytes, of a launch with these dims (as the launchers take
+// them), or -1 if the launcher refuses them.
+long long nl_forward_smem_bytes(const int* dims, int n_dims) {
+  ForwardLayout L;
+  return forward_plan(dims, n_dims, L);
+}
+
+long long nl_head_smem_bytes(const int* dims, int n_dims) {
+  HeadDims h;
+  return head_plan(dims, n_dims, h);
+}
+
+// ptrs: obs [B, n], acts [B, A*in_dim], buf (repack_nl_forward), out [B, D].
+// dims: B, n, A, in_dim, H, hid, D, terms, buf_len (floats).
 // Launches on `stream`; returns the cudaError_t of the launch (0 on success).
 int nl_forward_launch(const void* const* ptrs, int n_ptrs, const int* dims, int n_dims,
                       void* stream) {
-  if (n_ptrs != 24 || n_dims != 11) return static_cast<int>(cudaErrorInvalidValue);
+  ForwardLayout L;
+  const long long smem = forward_plan(dims, n_dims, L);
+  if (n_ptrs != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = check_smem(smem)) return err;
+  const int B = dims[0];
+  if (B == 0) return 0;
   const float* const* p = reinterpret_cast<const float* const*>(ptrs);
-  ForwardArgs a;
-  a.w_ih1 = p[2]; a.w_hh1 = p[3]; a.b_ih1 = p[4]; a.b_hh1 = p[5];
-  a.w_ih2 = p[6]; a.w_hh2 = p[7]; a.b_ih2 = p[8]; a.b_hh2 = p[9];
-  a.w_enc = p[10]; a.b_enc = p[11];
-  a.w1_obs = p[12]; a.w1_act = p[13]; a.b1 = p[14];
-  a.w2 = p[15]; a.b2 = p[16];
-  a.head.w_theta = p[17]; a.head.w_phi = p[18]; a.head.b_theta = p[19]; a.head.b_phi = p[20];
-  a.head.s_re = p[21]; a.head.s_im = p[22];
-  a.B = dims[0]; a.n = dims[1]; a.A = dims[2]; a.in_dim = dims[3]; a.H = dims[4];
-  a.hid = dims[5];
-  a.head.D = dims[6]; a.head.terms = dims[7]; a.head.Tp = dims[8]; a.head.N = dims[9];
-  a.head.Dp = dims[10];
-  if (a.B < 0 || a.n <= 0 || a.n > kMaxObs || a.A <= 0 || a.in_dim <= 0 ||
-      a.A * a.in_dim > kMaxActs || a.H <= 0 || a.H > kMaxH || a.hid <= 0 ||
-      !head_dims_ok(a.head, a.hid)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (a.B == 0) return 0;
-  nl_forward_kernel<<<grid_for(a.B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p[0], p[1], a, const_cast<float*>(p[23]));
+  nl_forward_kernel<<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p[0], p[1], p[2], const_cast<float*>(p[3]), B, L);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: x, w_theta, w_phi, b_theta, b_phi, s_re, s_im, out (8 device pointers).
-// dims: B, Hx, D, terms, Tp, N, Dp.
+// ptrs: x [B, Hx], buf (repack_head), out [B, D].
+// dims: B, Hx, D, terms, buf_len (floats).
 int nl_head_launch(const void* const* ptrs, int n_ptrs, const int* dims, int n_dims,
                    void* stream) {
-  if (n_ptrs != 8 || n_dims != 7) return static_cast<int>(cudaErrorInvalidValue);
-  const float* const* p = reinterpret_cast<const float* const*>(ptrs);
-  HeadArgs h;
-  h.w_theta = p[1]; h.w_phi = p[2]; h.b_theta = p[3]; h.b_phi = p[4];
-  h.s_re = p[5]; h.s_im = p[6];
+  HeadDims h;
+  const long long smem = head_plan(dims, n_dims, h);
+  if (n_ptrs != 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = check_smem(smem)) return err;
   const int B = dims[0];
-  const int Hx = dims[1];
-  h.D = dims[2]; h.terms = dims[3]; h.Tp = dims[4]; h.N = dims[5]; h.Dp = dims[6];
-  if (B < 0 || !head_dims_ok(h, Hx)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  nl_head_kernel<<<grid_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p[0], h, B, Hx, const_cast<float*>(p[7]));
+  const float* const* p = reinterpret_cast<const float* const*>(ptrs);
+  nl_head_kernel<<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p[0], p[1], const_cast<float*>(p[2]), B, h);
   return static_cast<int>(cudaGetLastError());
 }
 

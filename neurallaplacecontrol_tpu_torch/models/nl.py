@@ -26,7 +26,7 @@ import torch
 
 from ..ops.ilt import effective_terms, laplace_reconstruct
 from ..ops.pallas_ilt import to_device
-from ..ops.pallas_nl import nl_forward_fused, pack_nl_forward
+from ..ops.pallas_nl import nl_forward_fused, pack_nl_forward, repack_nl_forward
 from ..utils.device import resolve_device
 from .base import DynamicsModel, NormStats
 from .common import gru_apply, linear_apply, mlp_apply_tanh
@@ -127,24 +127,26 @@ def make_nl_model(
         t_model = t / (dt * 8.0) if (normalize and normalize_time) else t
         t_floor = 2.5e-3 if (normalize and normalize_time) else 2.5e-3 * dt * 8.0
         t_model = max(t_model, t_floor)
-        packed = to_device(
-            pack_nl_forward(
-                params, t_model, state_dim, action_dim, s_recon_terms,
-                norm.state_mean, norm.state_std, norm.action_mean, norm.action_std,
-                normalize=normalize, encode_obs_time=encode_obs_time,
-            ),
-            device,
+        host = pack_nl_forward(
+            params, t_model, state_dim, action_dim, s_recon_terms,
+            norm.state_mean, norm.state_std, norm.action_mean, norm.action_std,
+            normalize=normalize, encode_obs_time=encode_obs_time,
         )
+        packed = to_device(host, device)
+        # the kernel's own layout, built once here; the CPU path never reads it
+        hopper = torch.as_tensor(repack_nl_forward(host, state_dim, gru_in, s_recon_terms), device=device)
 
         def apply_fused(p_ignored, obs, action_buffer, ts):
             del p_ignored, ts  # fixed at specialization time
             B, A = action_buffer.shape[0], action_buffer.shape[1]
             acts_flat = action_buffer.reshape(B, A * gru_in).contiguous()
             return nl_forward_fused(
-                obs.contiguous(), acts_flat, packed, state_dim, gru_in, terms=s_recon_terms
+                obs.contiguous(), acts_flat, packed, state_dim, gru_in, terms=s_recon_terms,
+                hopper=hopper,
             )
 
         apply_fused.packed = packed
+        apply_fused.hopper = hopper
         return apply_fused
 
     return DynamicsModel(name="nl", apply=apply, make_fused_planner_apply=make_fused_planner_apply)

@@ -90,9 +90,24 @@ def library() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+    lib.nl_init.argtypes = []
+    lib.nl_init.restype = ctypes.c_int
+    for name in ("nl_forward_smem_bytes", "nl_head_smem_bytes"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        fn.restype = ctypes.c_longlong
     lib.nl_error_string.argtypes = [ctypes.c_int]
     lib.nl_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_READY: set[int] = set()  # devices on which nl_init has run
+
+
+def _check(lib, name: str, code: int, dims=()) -> None:
+    if code != 0:
+        msg = lib.nl_error_string(code).decode()
+        raise RuntimeError(f"{name} failed: {msg} (cudaError {code}; dims {list(dims)})")
 
 
 def check_operands(tensors, device: torch.device) -> None:
@@ -118,8 +133,18 @@ def launch(name: str, tensors, dims) -> None:
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
     ints = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(device):
+        if device.index not in _READY:  # the kernels' shared-memory limit, once per device
+            _check(lib, "nl_init", lib.nl_init())
+            _READY.add(device.index)
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, name)(ptrs, len(tensors), ints, len(dims), stream)
-    if code != 0:
-        msg = lib.nl_error_string(code).decode()
-        raise RuntimeError(f"{name} failed: {msg} (cudaError {code}; dims {list(dims)})")
+        _check(lib, name, getattr(lib, name)(ptrs, len(tensors), ints, len(dims), stream), dims)
+
+
+def smem_bytes(kernel: str, dims) -> int:
+    """Dynamic shared memory, in bytes, of a launch of ``kernel`` ("nl_forward" or
+    "nl_head") with the integer ``dims`` its launcher takes; raises if it refuses them."""
+    ints = (ctypes.c_int * len(dims))(*dims)
+    nbytes = getattr(library(), f"{kernel}_smem_bytes")(ints, len(dims))
+    if nbytes < 0:
+        raise ValueError(f"{kernel} does not take dims {list(dims)}")
+    return int(nbytes)

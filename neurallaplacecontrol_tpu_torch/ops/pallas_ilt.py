@@ -8,10 +8,14 @@
 ``pack_head_weights`` lays the final linear layer out in padded theta/phi
 blocks (column d*Tp + t) and builds the selection matrices S_re/S_im that
 carry the per-term fourier weights and the e^{sigma t}/T prefactor; it is
-the JAX module's host code, unchanged. ``nl_head_fused`` launches the CUDA
-kernel ``nl_head_kernel`` (``csrc/nl_kernels.cu``) on a CUDA tensor and
-computes ``nl_head_plain``, the same function in plain PyTorch, on a CPU
-tensor.
+the JAX module's host code, unchanged. ``repack_head`` lays those operands
+out once more for the card: only the live columns, theta and phi weights
+interleaved, and a compact pair of combine weights in place of the
+selection matrices, in chunks that the kernel's shared memory holds one at
+a time. ``nl_head_fused``
+launches the CUDA kernel ``nl_head_kernel`` (``csrc/nl_kernels.cu``) on that
+repack for a CUDA tensor and computes ``nl_head_plain``, the same function
+in plain PyTorch on ``pack_head_weights``'s operands, for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from .sphere import _PHI_MARGIN
 
 _LANE = 128
 _T_PAD = 32  # terms padded to a divisor of the lane count
+_COL_ALIGN = 4  # head columns padded to 16 bytes, the bulk copy's granule
+_HEAD_CHUNK_COLS = 104  # head columns per chunk (csrc/nl_kernels.cu kHeadChunkCols)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -91,16 +97,60 @@ def pack_head_weights(w, b, state_dim: int, terms: int, t: float):
     return w_theta, w_phi, b_theta, b_phi, s_re, s_im
 
 
+def head_chunks(state_dim: int, terms: int) -> tuple[int, int]:
+    """(chunks, columns per chunk) of ``repack_head``'s buffer: the D*terms
+    live columns split evenly into chunks of at most 104, each padded to a
+    multiple of 4."""
+    ncols = state_dim * terms
+    chunks = -(-ncols // _HEAD_CHUNK_COLS)
+    return chunks, _round_up(-(-ncols // chunks), _COL_ALIGN)
+
+
+def head_size(hx: int, state_dim: int, terms: int) -> int:
+    """float32 count of ``repack_head``'s buffer."""
+    chunks, mc = head_chunks(state_dim, terms)
+    return chunks * mc * (4 + 2 * hx)
+
+
+def repack_head(packed, state_dim: int, terms: int) -> np.ndarray:
+    """``pack_head_weights``'s operands -> one flat float32 buffer for the card,
+    over the live columns j = d*terms + t only, in ``head_chunks`` chunks of
+    Mc columns each (zero-padded):
+
+        b_theta [Mc] | b_phi [Mc] | c_re [Mc] | c_im [Mc] | W [H, Mc, 2]
+
+    W interleaves W_theta and W_phi, so one 8-byte load brings both weights
+    of a column. c_re/c_im hold the per-term combine weights (with the
+    e^{sigma t}/T prefactor) that ``s_re``/``s_im`` carry on their diagonal
+    blocks.
+    """
+    w_theta, w_phi, b_theta, b_phi, s_re, s_im = (_host(p) for p in packed)
+    N = w_theta.shape[1]
+    Tp = N // state_dim
+    if not 0 < terms <= Tp or N != state_dim * Tp:
+        raise ValueError(f"terms={terms} does not fit blocks of {Tp} in {N} columns")
+    d = np.repeat(np.arange(state_dim), terms)
+    live = d * Tp + np.tile(np.arange(terms), state_dim)
+    chunks, mc = head_chunks(state_dim, terms)
+    cols = np.zeros((4 + 2 * w_theta.shape[0], chunks * mc), np.float32)  # a column per row
+    cols[:4, : live.size] = (b_theta.reshape(-1)[live], b_phi.reshape(-1)[live], s_re[live, d], s_im[live, d])
+    cols[4::2, : live.size] = w_theta[:, live]
+    cols[5::2, : live.size] = w_phi[:, live]
+    parts = []
+    for c in range(chunks):
+        part = cols[:, c * mc : (c + 1) * mc]
+        w = part[4:].reshape(-1, 2, mc).transpose(0, 2, 1)  # [H, Mc, 2]
+        parts += [part[:4].reshape(-1), w.reshape(-1)]
+    return np.concatenate(parts)
+
+
 def to_device(packed, device) -> tuple:
     """Packed numpy operands -> contiguous float32 tensors on ``device``."""
     return tuple(torch.as_tensor(x, dtype=torch.float32, device=device).contiguous() for x in packed)
 
 
-def nl_head_plain(x, packed, state_dim: int):
-    """The head kernel's function in plain PyTorch, on the same packed operands."""
-    w_theta, w_phi, b_theta, b_phi, s_re, s_im = packed
-    g_theta = x @ w_theta + b_theta
-    g_phi = x @ w_phi + b_phi
+def _sphere_f(g_theta, g_phi):
+    """theta/phi pre-activations -> (F_re, F_im) with the per-hemisphere radius."""
     theta = torch.tanh(g_theta) * math.pi
     half_pi = math.pi / 2.0
     phi = torch.clamp(torch.tanh(g_phi) * half_pi, -half_pi + _PHI_MARGIN, half_pi - _PHI_MARGIN)
@@ -108,29 +158,31 @@ def nl_head_plain(x, packed, state_dim: int):
     cos_phi = torch.cos(phi)
     north = phi >= 0.0
     r = torch.where(north, 1.0 + sin_phi, cos_phi) / torch.where(north, cos_phi, 1.0 - sin_phi)
-    f_re = r * torch.cos(theta)
-    f_im = r * torch.sin(theta)
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def nl_head_plain(x, packed, state_dim: int):
+    """The head kernel's function in plain PyTorch, on the same packed operands."""
+    w_theta, w_phi, b_theta, b_phi, s_re, s_im = packed
+    f_re, f_im = _sphere_f(x @ w_theta + b_theta, x @ w_phi + b_phi)
     return (f_re @ s_re - f_im @ s_im)[:, :state_dim]
 
 
-def nl_head_fused(x, packed, state_dim: int, *, terms: int):
+def nl_head_fused(x, packed, state_dim: int, *, terms: int, hopper=None):
     """x [B, H] -> state difference [B, state_dim] through the head kernel.
 
     ``terms`` is the count of live fourier terms in each padded block of
-    ``packed``: the kernel skips the zero padding. On a CPU tensor this
-    computes ``nl_head_plain``.
+    ``packed``. On a CPU tensor this computes ``nl_head_plain``. On a CUDA
+    tensor the kernel reads ``hopper``, ``repack_head(packed, state_dim,
+    terms)`` as a tensor on the same device.
     """
     if x.device.type == "cpu":
         return nl_head_plain(x, packed, state_dim)
-    w_theta, _, _, _, s_re, _ = packed
+    if hopper is None:
+        raise ValueError("the head kernel reads the repacked weights: pass hopper=repack_head(...)")
     B, Hx = x.shape
-    N, Dp = s_re.shape
-    Tp = N // state_dim
     out = torch.empty((B, state_dim), dtype=torch.float32, device=x.device)
-    nl_cuda.launch(
-        "nl_head_launch", (x, *packed, out),
-        (B, Hx, state_dim, terms, Tp, N, Dp),
-    )
+    nl_cuda.launch("nl_head_launch", (x, hopper, out), (B, Hx, state_dim, terms, hopper.numel()))
     nl_head_fused.launches += 1
     return out
 

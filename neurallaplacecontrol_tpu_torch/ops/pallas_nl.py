@@ -10,9 +10,12 @@ unchanged), so the forward consumes RAW obs and action buffers:
     trunk MLP (2 tanh layers; obs normalization and contour in layer 1)
     theta/phi head + inverse stereographic map + fourier combine
 
-``nl_forward_fused`` launches the CUDA kernel ``nl_forward_kernel``
-(``csrc/nl_kernels.cu``) on CUDA tensors and computes ``nl_forward_plain``,
-the same function in plain PyTorch on the same operands, on CPU tensors.
+``repack_nl_forward`` lays those operands out once more for the card, in one
+flat float32 buffer whose sections the kernel copies into shared memory
+(see ``forward_sections``). ``nl_forward_fused`` launches the CUDA kernel
+``nl_forward_kernel`` (``csrc/nl_kernels.cu``) on that repack for CUDA
+tensors and computes ``nl_forward_plain``, the same function in plain
+PyTorch on ``pack_nl_forward``'s operands, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,7 +26,18 @@ import torch
 from ..models.common import gru_gates
 from . import nl_cuda
 from .ilt import fourier_spherical_host
-from .pallas_ilt import _host, nl_head_plain, pack_head_weights
+from .pallas_ilt import (
+    _host,
+    _round_up,
+    head_size,
+    nl_head_plain,
+    pack_head_weights,
+    repack_head,
+)
+
+MMA_M, MMA_K = 16, 8  # mma.sync.m16n8k8: output columns per tile, inputs per step
+_GROUP = 8  # GRU hidden units per warp: their r/z gates fill one 16-column tile
+_LATENT = 2  # the encoder's action latent
 
 
 def pack_nl_forward(
@@ -112,27 +126,126 @@ def nl_forward_plain(obs, acts_flat, packed, state_dim: int, in_dim: int):
     return nl_head_plain(hid, packed[15:], state_dim)
 
 
-def nl_forward_fused(obs, acts_flat, packed, state_dim: int, in_dim: int, *, terms: int):
+def _frag_index(K: int, M: int):
+    """Row and column of ``W`` [K, M] at each slot of the fragment layout.
+
+    The layout is [M/16 tiles][K/8 steps][32 lanes][4], the A operand of
+    ``mma.sync.m16n8k8.tf32`` with the weights' output columns as its M side:
+    lane l holds (m, k) = (g + 8 (j & 1), c + 4 (j >> 1)) of its tile and step
+    in register j, where g = l // 4 and c = l % 4. One 16-byte load per lane
+    fetches a lane's four registers.
+    """
+    lane = np.arange(32)
+    j = np.arange(4)
+    m = (lane[:, None] >> 2) + 8 * (j[None, :] & 1)
+    k = (lane[:, None] & 3) + 4 * (j[None, :] >> 1)
+    mt = np.arange(_round_up(M, MMA_M) // MMA_M)[:, None, None, None]
+    kt = np.arange(_round_up(K, MMA_K) // MMA_K)[None, :, None, None]
+    return np.broadcast_arrays(kt * MMA_K + k, mt * MMA_M + m)
+
+
+def frag_pack(w) -> np.ndarray:
+    """``W`` [K, M] -> flat fragment layout (zero-padded to K % 8 == M % 16 == 0)."""
+    w = _host(w)
+    K, M = w.shape
+    padded = np.zeros((_round_up(K, MMA_K), _round_up(M, MMA_M)), np.float32)
+    padded[:K, :M] = w
+    rows, cols = _frag_index(K, M)
+    return padded[rows, cols].reshape(-1)
+
+
+def forward_sections(n: int, in_dim: int, H: int, hid: int, D: int, terms: int) -> dict:
+    """float32 counts of ``repack_nl_forward``'s sections, in buffer order.
+
+    - ``small``: b_ih1, b_hh1, b_ih2, b_hh2 [3H each], w_enc [H, 2],
+      b_enc [2, padded to 4], W1 = [w1_obs; w1_act] in fragments, b1, b2.
+    - ``gru1`` / ``gru2``: for each group of 8 hidden units, the r/z tile
+      over [x; h] (x = the layer's input, padded to 8) and the candidate's
+      half tiles (x-part of w_ih, h-part of w_hh).
+    - ``w2``: the second trunk layer in fragments.
+    - ``head``: ``repack_head``'s buffer.
+
+    The kernel copies small+gru1 and gru2 at its start, w2 into gru1's place
+    once the first GRU layer is done, and the head's chunks in turn into
+    gru2's place once the second is.
+    """
+    kx = _round_up(in_dim, MMA_K)
+    k1 = _round_up(n + _LATENT, MMA_K)
+    return {
+        "small": 12 * H + _LATENT * H + 4 + k1 * hid + 2 * hid,
+        "gru1": (H // _GROUP) * (kx + H) * 24,
+        "gru2": (H // _GROUP) * 2 * H * 24,
+        "w2": hid * hid,
+        "head": head_size(hid, D, terms),
+    }
+
+
+def _gru_tiles(w_ih, w_hh) -> np.ndarray:
+    """One GRU layer's weights in the kernel's per-group tile order."""
+    kin, G = w_ih.shape
+    H = G // 3
+    kx = _round_up(kin, MMA_K)
+    ks = (kx + H) // MMA_K
+    cat = np.zeros((kx + H, G), np.float32)
+    cat[:kin] = w_ih
+    cat[kx:] = w_hh
+    out = []
+    for g in range(H // _GROUP):
+        u = g * _GROUP + np.arange(_GROUP)
+        cand = np.zeros((kx + H, MMA_M), np.float32)
+        cand[:kx, :_GROUP] = cat[:kx, 2 * H + u]
+        cand[kx:, _GROUP:] = cat[kx:, 2 * H + u]
+        frags = frag_pack(cand).reshape(ks, 32, 4)
+        half = np.concatenate([frags[: kx // MMA_K][..., [0, 2]], frags[kx // MMA_K :][..., [1, 3]]])
+        out += [frag_pack(cat[:, np.concatenate([u, H + u])]), half.reshape(-1)]
+    return np.concatenate(out)
+
+
+def repack_nl_forward(packed, state_dim: int, in_dim: int, terms: int) -> np.ndarray:
+    """``pack_nl_forward``'s operands -> the forward kernel's flat float32
+    buffer (sections as ``forward_sections`` lists them). Host numpy, once
+    per controller."""
+    (
+        w_ih1, w_hh1, b_ih1, b_hh1, w_ih2, w_hh2, b_ih2, b_hh2,
+        w_enc, b_enc, w1_obs, w1_act, b1, w2, b2,
+    ) = (_host(p) for p in packed[:15])
+    H, hid = w_hh1.shape[0], w2.shape[0]
+    if w_ih1.shape[0] != in_dim or H % _GROUP or hid % MMA_M or w_enc.shape[1] != _LATENT:
+        raise ValueError(f"unsupported shapes: w_ih1 {w_ih1.shape}, H={H}, hid={hid}, w_enc {w_enc.shape}")
+    w1 = np.concatenate([w1_obs, w1_act])
+    small = [b_ih1, b_hh1, b_ih2, b_hh2, w_enc, np.pad(b_enc.reshape(-1), (0, 2)),
+             frag_pack(w1), b1, b2]
+    buf = np.concatenate(
+        [np.concatenate([x.reshape(-1) for x in small]), _gru_tiles(w_ih1, w_hh1),
+         _gru_tiles(w_ih2, w_hh2), frag_pack(w2), repack_head(packed[15:], state_dim, terms)]
+    )
+    assert buf.size == sum(forward_sections(state_dim, in_dim, H, hid, state_dim, terms).values())
+    return buf
+
+
+def nl_forward_fused(obs, acts_flat, packed, state_dim: int, in_dim: int, *, terms: int, hopper=None):
     """Raw obs [B, n] + raw flattened action buffer [B, A*in] -> state
     difference [B, state_dim] through the forward kernel.
 
     ``terms`` is the count of live fourier terms in each padded head block
     (see ``pallas_ilt.nl_head_fused``). On CPU tensors this computes
-    ``nl_forward_plain``.
+    ``nl_forward_plain`` on ``packed``. On CUDA tensors the kernel reads
+    ``hopper``, ``repack_nl_forward(packed, state_dim, in_dim, terms)`` as a
+    tensor on the same device.
     """
     if obs.device.type == "cpu":
         return nl_forward_plain(obs, acts_flat, packed, state_dim, in_dim)
-    w_hh1, w2, s_re = packed[1], packed[13], packed[20]
+    if hopper is None:
+        raise ValueError("the forward kernel reads the repacked weights: pass hopper=repack_nl_forward(...)")
     B, n = obs.shape
     if acts_flat.shape[0] != B or acts_flat.shape[1] % in_dim:
         raise ValueError(f"acts_flat {tuple(acts_flat.shape)} does not match obs rows {B} x in_dim {in_dim}")
     A = acts_flat.shape[1] // in_dim
-    N, Dp = s_re.shape
-    Tp = N // state_dim
+    H, hid = packed[1].shape[0], packed[13].shape[0]
     out = torch.empty((B, state_dim), dtype=torch.float32, device=obs.device)
     nl_cuda.launch(
-        "nl_forward_launch", (obs, acts_flat, *packed, out),
-        (B, n, A, in_dim, w_hh1.shape[0], w2.shape[0], state_dim, terms, Tp, N, Dp),
+        "nl_forward_launch", (obs, acts_flat, hopper, out),
+        (B, n, A, in_dim, H, hid, state_dim, terms, hopper.numel()),
     )
     nl_forward_fused.launches += 1
     return out

@@ -6,8 +6,10 @@ suite's conftest.py (which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Metric: |got - exp| / (1 + |exp|) < 1e-2, as tests/test_pallas_nl.py holds the
-TPU kernel to its XLA path.
+Metric: |got - exp| / (1 + |exp|) < 1e-3, the limit chip_smoke.py holds the
+kernels to (KERNEL_TOL). tests/test_pallas_nl.py holds the TPU kernel to its
+XLA path at 1e-2, but a kernel with __sinf/__cosf in place of sinf/cosf
+passes 1e-2 and fails 1e-3.
 """
 
 from pathlib import Path
@@ -27,7 +29,8 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 ENV_DIMS = {"oderl-pendulum": (3, 1, 2.0), "oderl-cartpole": (5, 1, 3.0), "oderl-acrobot": (6, 2, 5.0)}
-TOL = 1e-2
+TOL = 1e-3
+RAGGED = [1, 7, 8, 9, 999, 1000, 1001]  # below, at and past the 8-row tile and B
 DT = 0.05
 B = 1000  # the planner's K
 
@@ -49,19 +52,26 @@ def trained(env, device):
     return load_pytree(path, device=device)
 
 
+def forward_inputs(env, rows, device, seed=3):
+    n, m, high = ENV_DIMS[env]
+    fused = make_model("nl", env, n, m, high, device=device).make_fused_planner_apply(trained(env, device), DT)
+    rng = np.random.default_rng(seed)
+    obs = torch.tensor(rng.standard_normal((rows, n)), dtype=torch.float32, device=device)
+    acts = torch.tensor(rng.uniform(-high, high, (rows, 4 * m)), dtype=torch.float32, device=device)
+    return fused, obs, acts
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("env", sorted(ENV_DIMS))
 def test_forward_kernel_matches_plain(env, cuda_device):
-    n, m, high = ENV_DIMS[env]
-    fused = make_model("nl", env, n, m, high, device=cuda_device).make_fused_planner_apply(
-        trained(env, cuda_device), DT
-    )
-    rng = np.random.default_rng(3)
-    obs = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32, device=cuda_device)
-    acts = torch.tensor(rng.uniform(-high, high, (B, 4 * m)), dtype=torch.float32, device=cuda_device)
+    n, m, _ = ENV_DIMS[env]
+    fused, obs, acts = forward_inputs(env, B, cuda_device)
+    # terms=32 reads every column of the padded blocks (the padding adds 0), with
+    # the head in two chunks through shared memory
+    hopper32 = torch.as_tensor(tnl.repack_nl_forward(fused.packed, n, m, 32), device=cuda_device)
     before = tnl.nl_forward_fused.launches
-    got = tnl.nl_forward_fused(obs, acts, fused.packed, n, m, terms=17)
-    padded = tnl.nl_forward_fused(obs, acts, fused.packed, n, m, terms=32)  # padding adds 0
+    got = tnl.nl_forward_fused(obs, acts, fused.packed, n, m, terms=17, hopper=fused.hopper)
+    padded = tnl.nl_forward_fused(obs, acts, fused.packed, n, m, terms=32, hopper=hopper32)
     exp = tnl.nl_forward_plain(obs, acts, fused.packed, n, m)
     torch.cuda.synchronize()
     assert tnl.nl_forward_fused.launches == before + 2
@@ -71,20 +81,43 @@ def test_forward_kernel_matches_plain(env, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 7, 8, 1000])
+@pytest.mark.parametrize("rows", RAGGED)
+def test_forward_kernel_ragged_batches(rows, cuda_device):
+    """Batches that fill no tile, exactly one, or one and a bit: the rows past B
+    are masked on load and never stored."""
+    n, m, _ = ENV_DIMS["oderl-cartpole"]
+    fused, obs, acts = forward_inputs("oderl-cartpole", rows, cuda_device, seed=rows)
+    got = tnl.nl_forward_fused(obs, acts, fused.packed, n, m, terms=17, hopper=fused.hopper)
+    exp = tnl.nl_forward_plain(obs, acts, fused.packed, n, m)
+    out = torch.full((rows + 8, n), 7.0, device=cuda_device)  # 8 guard rows past B
+    nl_cuda.launch("nl_forward_launch", (obs, acts, fused.hopper, out),
+                   (rows, n, 4, m, 64, 128, n, 17, fused.hopper.numel()))
+    torch.cuda.synchronize()
+    assert got.shape == (rows, n) and bool(torch.isfinite(got).all())
+    assert rel_err(got, exp) < TOL
+    assert torch.equal(out[:rows], got) and bool((out[rows:] == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", RAGGED)
 def test_head_kernel_matches_plain(rows, cuda_device):
-    """Row counts below, at and past the kernel's 8-row tile."""
+    """Row counts below, at and past the kernel's 8-row tile; at terms=32 the
+    head's 192 columns pass through shared memory in two chunks."""
     head = trained("oderl-acrobot", cuda_device)["laplace_rep"][-1]
     packed = tilt.to_device(tilt.pack_head_weights(head["w"], head["b"], 6, 17, 0.125), cuda_device)
+    hopper = torch.as_tensor(tilt.repack_head(packed, 6, 17), device=cuda_device)
+    hopper32 = torch.as_tensor(tilt.repack_head(packed, 6, 32), device=cuda_device)
     rng = np.random.default_rng(rows)
     x = torch.tensor(np.tanh(rng.standard_normal((rows, 128))), dtype=torch.float32, device=cuda_device)
     before = tilt.nl_head_fused.launches
-    got = tilt.nl_head_fused(x, packed, 6, terms=17)
+    got = tilt.nl_head_fused(x, packed, 6, terms=17, hopper=hopper)
+    padded = tilt.nl_head_fused(x, packed, 6, terms=32, hopper=hopper32)
     exp = tilt.nl_head_plain(x, packed, 6)
     torch.cuda.synchronize()
-    assert tilt.nl_head_fused.launches == before + 1
-    assert got.shape == (rows, 6)
+    assert tilt.nl_head_fused.launches == before + 2
+    assert got.shape == (rows, 6) and bool(torch.isfinite(got).all())
     assert rel_err(got, exp) < TOL
+    assert rel_err(padded, exp) < TOL
 
 
 @pytest.mark.cuda
@@ -93,13 +126,21 @@ def test_kernels_reject_bad_operands(cuda_device):
     w = torch.zeros(128, 160, device=cuda_device)
     packed = (w, w, torch.zeros(160, device=cuda_device), torch.zeros(160, device=cuda_device),
               torch.zeros(160, 128, device=cuda_device), torch.zeros(160, 128, device=cuda_device))
+    hopper = torch.as_tensor(tilt.repack_head(packed, 5, 17), device=cuda_device)
     with pytest.raises(ValueError, match="dtype"):
-        tilt.nl_head_fused(x.double(), packed, 5, terms=17)
+        tilt.nl_head_fused(x.double(), packed, 5, terms=17, hopper=hopper)
     with pytest.raises(ValueError, match="contiguous"):
-        tilt.nl_head_fused(torch.zeros(128, 4, device=cuda_device).T, packed, 5, terms=17)
-    with pytest.raises(RuntimeError, match="invalid argument"):  # terms past the padded block
-        nl_cuda.launch("nl_head_launch", (x, *packed, torch.empty(4, 5, device=cuda_device)),
-                       (4, 128, 5, 33, 32, 160, 128))
+        tilt.nl_head_fused(torch.zeros(128, 4, device=cuda_device).T, packed, 5, terms=17, hopper=hopper)
+    with pytest.raises(ValueError, match="repacked"):  # a CUDA tensor never falls back to plain
+        tilt.nl_head_fused(x, packed, 5, terms=17)
+    with pytest.raises(RuntimeError, match="invalid argument"):  # a buffer of another layout
+        nl_cuda.launch("nl_head_launch", (x, hopper, torch.empty(4, 5, device=cuda_device)),
+                       (4, 128, 5, 18, hopper.numel()))
+    # 10,000 head columns: the combine's scratch alone passes the shared-memory limit
+    big = torch.zeros(tilt.head_size(128, 5, 2000), device=cuda_device)
+    with pytest.raises(RuntimeError, match="invalid configuration"):
+        nl_cuda.launch("nl_head_launch", (x, big, torch.empty(4, 5, device=cuda_device)),
+                       (4, 128, 5, 2000, big.numel()))
 
 
 @pytest.mark.cuda

@@ -4,8 +4,12 @@ On the CPU each wrapper computes its kernel's plain PyTorch version; those
 are held against the JAX Pallas kernels run in interpret mode (as
 tests/test_pallas_nl.py runs them) and against the port's unfused apply,
 with the relative metric |got - exp| / (1 + |exp|) < 1e-2 of
-tests/test_pallas_nl.py. tests/test_torch_cuda.py holds the CUDA kernels
-against these plain versions on a GPU.
+tests/test_pallas_nl.py. The kernels' own layout (``repack_nl_forward``,
+``repack_head``) is checked to lose nothing by unpacking it here, and the
+forward is evaluated here on that layout as the kernel computes it, with the
+split-TF32 products the kernels run on the tensor cores emulated, to show
+their error against the 1e-3 limit (KERNEL_TOL) that tests/test_torch_cuda.py
+and chip_smoke.py hold the CUDA kernels to on a GPU.
 """
 
 from pathlib import Path
@@ -34,6 +38,7 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 ENV_DIMS = {"oderl-pendulum": (3, 1, 2.0), "oderl-cartpole": (5, 1, 3.0), "oderl-acrobot": (6, 2, 5.0)}
 TOL = 1e-2
+KERNEL_TOL = 1e-3
 DT = 0.05
 
 
@@ -186,3 +191,262 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
     lib.write_bytes(b"")
     monkeypatch.setattr(nl_cuda, "find_nvcc", lambda: pytest.fail("nvcc must not run"))
     assert nl_cuda.build(tmp_path) == lib
+
+
+# ---- the kernels' layout, unpacked and evaluated as the kernels compute it ----
+
+
+def frag_unpack(flat, K, M):
+    """Inverse of ``pallas_nl.frag_pack``: the [K, M] matrix."""
+    rows, cols = tnl._frag_index(K, M)
+    out = np.zeros((tilt._round_up(K, tnl.MMA_K), tilt._round_up(M, tnl.MMA_M)), np.float32)
+    out[rows, cols] = np.asarray(flat, np.float32).reshape(rows.shape)
+    return out[:K, :M]
+
+
+def gru_untiles(flat, kin, H):
+    """Inverse of ``pallas_nl._gru_tiles``: (w_ih [kin, 3H], w_hh [H, 3H])."""
+    group, mk = tnl._GROUP, tnl.MMA_K
+    kx = tilt._round_up(kin, mk)
+    ks = (kx + H) // mk
+    cat = np.zeros((kx + H, 3 * H), np.float32)
+    per = ks * 32 * 6
+    for g in range(H // group):
+        u = g * group + np.arange(group)
+        rz_flat, half = np.split(np.asarray(flat[g * per : (g + 1) * per]), [ks * 128])
+        cat[:, np.concatenate([u, H + u])] = frag_unpack(rz_flat, kx + H, tnl.MMA_M)
+        frags = np.zeros((ks, 32, 4), np.float32)
+        half = half.reshape(ks, 32, 2)
+        frags[: kx // mk][..., [0, 2]] = half[: kx // mk]
+        frags[kx // mk :][..., [1, 3]] = half[kx // mk :]
+        cand = frag_unpack(frags.reshape(-1), kx + H, tnl.MMA_M)
+        cat[:kx, 2 * H + u] = cand[:kx, :group]
+        cat[kx:, 2 * H + u] = cand[kx:, group:]
+    return cat[:kin], cat[kx:]
+
+
+def unpack_head(buf, hx, D, terms):
+    """``repack_head``'s buffer -> b_theta, b_phi, c_re, c_im [Mp] and
+    w_theta, w_phi [hx, Mp], Mp = chunks * Mc, the chunks side by side."""
+    chunks, mc = tilt.head_chunks(D, terms)
+    per = tilt._host(buf).reshape(chunks, (4 + 2 * hx) * mc)
+    vecs = np.concatenate([c[: 4 * mc].reshape(4, mc) for c in per], axis=1)
+    w = np.concatenate([c[4 * mc :].reshape(hx, mc, 2) for c in per], axis=1)
+    return {"b_theta": vecs[0], "b_phi": vecs[1], "c_re": vecs[2], "c_im": vecs[3],
+            "w_theta": w[..., 0], "w_phi": w[..., 1]}
+
+
+def unpack_nl_forward(buf, n, in_dim, H, hid, D, terms):
+    """``repack_nl_forward``'s buffer -> its dense parts, by name."""
+    sec = tnl.forward_sections(n, in_dim, H, hid, D, terms)
+    small, gru1, gru2, w2, head = np.split(tilt._host(buf).reshape(-1), np.cumsum(list(sec.values()))[:-1])
+    latent = tnl._LATENT
+    k1 = tilt._round_up(n + latent, tnl.MMA_K)
+    sizes = [3 * H] * 4 + [latent * H, 4, k1 * hid, hid, hid]
+    names = ["b_ih1", "b_hh1", "b_ih2", "b_hh2", "w_enc", "b_enc", "w1", "b1", "b2"]
+    out = dict(zip(names, np.split(small, np.cumsum(sizes)[:-1])))
+    out["w_enc"] = out["w_enc"].reshape(H, latent)
+    out["b_enc"] = out["b_enc"][:latent]
+    w1 = frag_unpack(out.pop("w1"), n + latent, hid)
+    out["w1_obs"], out["w1_act"] = w1[:n], w1[n:]
+    out["w_ih1"], out["w_hh1"] = gru_untiles(gru1, in_dim, H)
+    out["w_ih2"], out["w_hh2"] = gru_untiles(gru2, H, H)
+    out["w2"] = frag_unpack(w2, hid, hid)
+    out["head"] = head
+    return out
+
+
+def head_repacked_plain(x, buf, D, terms):
+    """The head as the kernels compute it, on ``repack_head``'s buffer: the live
+    columns only and the compact combine weights."""
+    h = {k: torch.as_tensor(v) for k, v in unpack_head(buf, x.shape[1], D, terms).items()}
+    f_re, f_im = tilt._sphere_f(x @ h["w_theta"] + h["b_theta"], x @ h["w_phi"] + h["b_phi"])
+    contrib = (f_re * h["c_re"] - f_im * h["c_im"])[:, : D * terms]
+    return contrib.reshape(x.shape[0], D, terms).sum(-1)
+
+
+def forward_repacked_plain(obs, acts_flat, buf, dims, matmul=torch.matmul):
+    """The forward as the kernel computes it, on ``repack_nl_forward``'s buffer:
+    the r/z gates over [x; h] in one product, the encoder in f32, the trunk's
+    first layer over [obs; latent], the head over its live columns.
+    ``dims`` = (n, in_dim, H, hid, D, terms); ``matmul`` stands for the
+    products the kernel runs on the tensor cores."""
+    n, in_dim, H, hid, D, terms = dims
+    p = {k: torch.as_tensor(v) for k, v in unpack_nl_forward(buf, *dims).items()}
+    B = obs.shape[0]
+    A = acts_flat.shape[1] // in_dim
+
+    def layer(x, h, w_ih, w_hh, b_ih, b_hh):
+        rz = matmul(torch.cat([x, h], 1), torch.cat([w_ih, w_hh])[:, : 2 * H])
+        r = torch.sigmoid(rz[:, :H] + b_ih[:H] + b_hh[:H])
+        z = torch.sigmoid(rz[:, H:] + b_ih[H : 2 * H] + b_hh[H : 2 * H])
+        cand = torch.tanh(matmul(x, w_ih[:, 2 * H :]) + b_ih[2 * H :]
+                          + r * (matmul(h, w_hh[:, 2 * H :]) + b_hh[2 * H :]))
+        return (1.0 - z) * cand + z * h
+
+    h1 = obs.new_zeros((B, H))
+    h2 = obs.new_zeros((B, H))
+    for step in range(A):
+        src = A - 1 - step
+        x_t = acts_flat[:, src * in_dim : (src + 1) * in_dim]
+        h1 = layer(x_t, h1, p["w_ih1"], p["w_hh1"], p["b_ih1"], p["b_hh1"])
+        h2 = layer(h1, h2, p["w_ih2"], p["w_hh2"], p["b_ih2"], p["b_hh2"])
+    p_act = h2 @ p["w_enc"] + p["b_enc"]
+    hid1 = torch.tanh(matmul(torch.cat([obs, p_act], 1), torch.cat([p["w1_obs"], p["w1_act"]])) + p["b1"])
+    hid2 = torch.tanh(matmul(hid1, p["w2"]) + p["b2"])
+    return head_repacked_plain(hid2, p["head"], D, terms)
+
+
+def truncate_tf32(x):
+    """The TF32 value a tensor core reads from a float32 register: the low 13
+    mantissa bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x):
+    """x = hi + lo as the kernels split it: hi = x truncated to TF32, lo = x - hi
+    (exact in float32), which the tensor core reads truncated as well."""
+    hi = truncate_tf32(x)
+    return hi, truncate_tf32(x - hi)
+
+
+def split_tf32_matmul(a, b):
+    """a @ b as the kernels' tensor cores run it: hi*hi + hi*lo + lo*hi,
+    summed in float32."""
+    (a_hi, a_lo), (b_hi, b_lo) = split_tf32(a), split_tf32(b)
+    return a_hi @ b_hi + (a_hi @ b_lo + a_lo @ b_hi)
+
+
+def one_pass_tf32_matmul(a, b):
+    """The split's hi*hi product alone: one pass of TF32."""
+    return split_tf32(a)[0] @ split_tf32(b)[0]
+
+
+def fused_cpu(env, cfg_kw=None):
+    """The port's fused apply on CPU: trained delay-1 weights, or for a
+    non-default config (whose GRU input differs) the JAX init's weights."""
+    jmodel, tmodel = models(env, cfg_kw)
+    if not cfg_kw:
+        return tmodel.make_fused_planner_apply(trained(env), DT)
+    params = jax.tree_util.tree_map(lambda x: torch.tensor(np.asarray(x)), jmodel.init(jax.random.PRNGKey(0)))
+    return tmodel.make_fused_planner_apply(params, DT)
+
+
+@pytest.mark.parametrize(
+    "env,cfg_kw,terms",
+    [("oderl-pendulum", {}, 17), ("oderl-cartpole", {}, 17), ("oderl-acrobot", {}, 17),
+     ("oderl-cartpole", {"encode_obs_time": True}, 17), ("oderl-acrobot", {}, 32)],
+    ids=["pendulum", "cartpole", "acrobot", "encode_obs_time", "acrobot_terms32"],
+)
+def test_hopper_repack_loses_nothing(env, cfg_kw, terms):
+    """Unpacking the kernel's buffer gives back every live entry of
+    pack_nl_forward's operands, and the entries it drops are zero padding.
+    At terms=32 every column of the padded blocks is live, and the head
+    (192 columns on acrobot) is laid out in two chunks."""
+    n, m, _ = ENV_DIMS[env]
+    in_dim = m + int(cfg_kw.get("encode_obs_time", False))
+    fused = fused_cpu(env, cfg_kw)
+    p = [t.numpy() for t in fused.packed]
+    H, hid = p[1].shape[0], p[13].shape[0]
+    buf = fused.hopper if terms == 17 else tnl.repack_nl_forward(p, n, in_dim, terms)
+    assert tilt.head_chunks(n, terms)[0] == (1 if terms == 17 else 2)
+    u = unpack_nl_forward(buf, n, in_dim, H, hid, n, terms)
+    names = ["w_ih1", "w_hh1", "b_ih1", "b_hh1", "w_ih2", "w_hh2", "b_ih2", "b_hh2",
+             "w_enc", "b_enc", "w1_obs", "w1_act", "b1", "w2", "b2"]
+    for i, name in enumerate(names):
+        np.testing.assert_array_equal(u[name], p[i].reshape(u[name].shape), err_msg=name)
+    h = unpack_head(u["head"], hid, n, terms)
+    Tp = p[15].shape[1] // n
+    d = np.repeat(np.arange(n), terms)
+    live = d * Tp + np.tile(np.arange(terms), n)
+    assert tilt.head_chunks(n, terms)[1] % 4 == 0
+    for got, full in ((h["w_theta"], p[15]), (h["w_phi"], p[16])):
+        np.testing.assert_array_equal(got[:, : n * terms], full[:, live])
+        assert not got[:, n * terms :].any()
+        assert not np.delete(full, live, axis=1).any()
+    for got, full in ((h["b_theta"], p[17]), (h["b_phi"], p[18])):
+        np.testing.assert_array_equal(got[: n * terms], full.reshape(-1)[live])
+    for got, full in ((h["c_re"], p[19]), (h["c_im"], p[20])):
+        np.testing.assert_array_equal(got[: n * terms], full[live, d])
+        dropped = full.copy()
+        dropped[live, d] = 0.0
+        assert not dropped.any()
+
+
+@pytest.mark.parametrize("env", sorted(ENV_DIMS))
+def test_repacked_plain_matches_jax_pallas_kernel(env):
+    """The forward as the kernel computes it (r/z over [x; h] in one product,
+    the head over its live columns, the compact combine), on the kernel's
+    buffer, vs the JAX fused kernel in interpret mode and vs nl_forward_plain."""
+    n, m, _ = ENV_DIMS[env]
+    tparams = trained(env)
+    jmodel, _ = models(env)
+    obs, abuf = draw(env, 96)
+    ts = np.full((96, 1), DT, np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        exp = np.asarray(jmodel.make_fused_planner_apply(jax_tree(tparams), DT)(None, obs, abuf, ts))
+    fused = fused_cpu(env)
+    acts = torch.tensor(abuf.reshape(96, -1))
+    got = forward_repacked_plain(torch.tensor(obs), acts, fused.hopper, (n, m, 64, 128, n, 17))
+    assert got.shape == (96, n) and got.dtype == torch.float32
+    assert rel_err(got, exp) < TOL
+    plain = tnl.nl_forward_plain(torch.tensor(obs), acts, fused.packed, n, m)
+    assert rel_err(got, plain) < KERNEL_TOL
+
+
+@pytest.mark.parametrize("env", sorted(ENV_DIMS))
+def test_split_tf32_emulation_within_kernel_tol(env):
+    """The kernels' split-TF32 products, emulated, stay under the 1e-3 limit
+    against nl_forward_plain at the main path's K=1000; one pass of TF32 does
+    not. Run with -s to print both errors."""
+    n, m, high = ENV_DIMS[env]
+    fused = fused_cpu(env)
+    rng = np.random.default_rng(3)
+    obs = torch.tensor(rng.standard_normal((1000, n)), dtype=torch.float32)
+    acts = torch.tensor(rng.uniform(-high, high, (1000, 4 * m)), dtype=torch.float32)
+    exp = tnl.nl_forward_plain(obs, acts, fused.packed, n, m)
+    dims = (n, m, 64, 128, n, 17)
+    split = rel_err(forward_repacked_plain(obs, acts, fused.hopper, dims, split_tf32_matmul), exp)
+    single = rel_err(forward_repacked_plain(obs, acts, fused.hopper, dims, one_pass_tf32_matmul), exp)
+    print(f"{env}: split TF32 rel err {split:.3e}, one-pass TF32 {single:.3e}")
+    assert split < KERNEL_TOL
+    assert single > KERNEL_TOL
+
+
+def test_tf32_split():
+    x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 3 * 2.0**-11, -1.0 - 3 * 2.0**-12, 3.0e-5, 7.1], dtype=torch.float32)
+    hi, lo = split_tf32(x)
+    assert (hi.view(torch.int32) & 0x1FFF == 0).all() and (lo.view(torch.int32) & 0x1FFF == 0).all()
+    assert hi[0] == 1.0 and hi[1] == 1.0 and hi[2] == 1.0 + 2.0**-10  # toward zero
+    assert hi[3] == -1.0
+    assert torch.equal(hi + (x - hi), x) and ((x - hi).abs() < x.abs() * 2.0**-10).all()
+    assert ((x - hi - lo).abs() < x.abs() * 2.0**-20).all()
+    rng = np.random.default_rng(0)
+    a = torch.tensor(rng.standard_normal((64, 128)), dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal((128, 96)), dtype=torch.float32)
+    ref = a.double() @ b.double()
+    assert float((split_tf32_matmul(a, b).double() - ref).abs().max()) < 1e-4
+    assert float((one_pass_tf32_matmul(a, b).double() - ref).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("env,terms", [(env, 17) for env in sorted(ENV_DIMS)] + [("oderl-cartpole", 32)])
+def test_repacked_head_matches_plain(env, terms):
+    """The head on repack_head's buffer (live columns, compact combine, in
+    chunks) vs nl_head_plain on pack_head_weights's operands. At terms=32
+    the fourier sum runs over the blocks' zero-padded terms as well, and the
+    head's 160 columns lie in two chunks."""
+    n = ENV_DIMS[env][0]
+    head = trained(env)["laplace_rep"][-1]
+    packed = tilt.to_device(tilt.pack_head_weights(head["w"], head["b"], n, 17, 0.125), "cpu")
+    buf = tilt.repack_head(packed, n, terms)
+    assert buf.size == tilt.head_size(128, n, terms)
+    x = torch.tensor(np.tanh(np.random.default_rng(1).standard_normal((200, 128))), dtype=torch.float32)
+    got = head_repacked_plain(x, buf, n, terms)
+    assert rel_err(got, tilt.nl_head_plain(x, packed, n)) < KERNEL_TOL
+
+
+def test_repack_rejects_terms_past_the_block():
+    head = trained("oderl-cartpole")["laplace_rep"][-1]
+    packed = tilt.pack_head_weights(head["w"], head["b"], 5, 17, 0.125)
+    with pytest.raises(ValueError, match="terms=33"):
+        tilt.repack_head(packed, 5, 33)
