@@ -1,7 +1,7 @@
 """Continuous-time environments (pendulum / cartpole / acrobot) as pure functions on tensors."""
 
 from . import acrobot, cartpole, pendulum
-from .base import Env, EnvSpec, env_step, trig_to_angle  # noqa: F401
+from .base import Env, EnvSpec, env_step, sample_dt, trig_to_angle  # noqa: F401
 
 _FACTORIES = {
     "oderl-pendulum": pendulum.make,

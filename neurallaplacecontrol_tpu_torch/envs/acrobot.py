@@ -112,4 +112,5 @@ def make(dt=0.05, ts_grid="fixed", obs_noise=0.0, friction=False) -> Env:
     return Env(
         spec=spec, rhs=rhs, observe=observe, obs_to_state=obs_to_state,
         reward_state=reward_state, reward_action=reward_action, reset=reset,
+        state_max=(math.pi, math.pi, 5.0, 5.0),  # overlay.py:694
     )

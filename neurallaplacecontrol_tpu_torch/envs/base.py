@@ -8,6 +8,10 @@ An environment is a frozen spec plus pure functions on tensors:
     reward_state(s)           state reward (raw or trig form)
     reward_action(a)          action penalty
     reset(generator)          initial raw state
+
+Irregular observation-time sampling follows base_env.build_time_grid:99-134
+(``fixed`` / ``uniform`` / ``exp`` grids, ``sample_dt``) with explicit
+``torch.Generator``s.
 """
 
 from __future__ import annotations
@@ -47,9 +51,14 @@ class Env:
     reward_state: Callable  # state (raw or obs form) -> reward
     reward_action: Callable  # action -> reward
     reset: Callable  # (generator, dtype, device) -> raw state
+    state_max: tuple  # synthetic-data sampling box (overlay.py:689-694)
     # variant-aware state reward (s, goal_x, state_constraint) for the
     # state-constraint planner cost; None for envs without variants
     reward_state_ext: Optional[Callable] = None
+
+    def diff_reward(self, s, a):
+        """reward_state + reward_action (base_env.py:94-97)."""
+        return self.reward_state(s) + self.reward_action(a)
 
 
 def trig_to_angle(cos_t: torch.Tensor, sin_t: torch.Tensor) -> torch.Tensor:
@@ -65,6 +74,27 @@ def uniform(generator, shape, low: float, high: float, dtype, device) -> torch.T
         device = generator.device
     u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
     return u * (high - low) + low
+
+
+def sample_dt(generator, ts_grid: str, dt: float, shape=(), dtype=torch.float32,
+              device=None) -> torch.Tensor:
+    """One observation-interval sample per element of ``shape``, drawn from
+    ``generator`` (on its device unless ``device`` is given).
+
+    fixed:   dt
+    uniform: U(0, 2 dt)
+    exp:     Exponential with mean dt
+    (base_env.build_time_grid:103-123.)
+    """
+    if device is None and generator is not None:
+        device = generator.device
+    if ts_grid == "fixed":
+        return torch.full(shape, dt, dtype=dtype, device=device)
+    if ts_grid in ("uniform", "random"):
+        return uniform(generator, shape, 0.0, 2.0 * dt, dtype, device)
+    if ts_grid == "exp":
+        return torch.empty(shape, dtype=dtype, device=device).exponential_(generator=generator) * dt
+    raise ValueError(f"Unknown ts_grid: {ts_grid}")
 
 
 def env_step(env: Env, raw_state: torch.Tensor, action: torch.Tensor, delta_t) -> torch.Tensor:

@@ -130,5 +130,6 @@ def make(dt=0.05, ts_grid="fixed", obs_noise=0.0, friction=False) -> Env:
     return Env(
         spec=spec, rhs=make_rhs(friction), observe=observe, obs_to_state=obs_to_state,
         reward_state=reward_state, reward_action=reward_action, reset=reset,
+        state_max=(5.0, 20.0, math.pi, 30.0),  # overlay.py:690
         reward_state_ext=reward_state_ext,
     )

@@ -1,0 +1,89 @@
+"""Closed-form one-Euler-step oracle dynamics with action delay (port of ``envs/oracle.py``).
+
+Each oracle selects the delayed action ``buffer[..., -(delay+1), :nu]`` from
+the action-history buffer, clamps it to the env's action bounds, advances
+the raw (angle-form) state by one explicit Euler step of the physics rhs,
+and returns the state in the form (raw or trig) it was given. The reference
+(oracle.py:11-224) updates velocities with the new acceleration and
+positions with the old velocity, which is exactly that Euler step, so the
+oracle equals the env transition by construction.
+
+The JAX module's two-frame ``*_latent*`` variants serve latent-ODE work and
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import torch
+
+from . import acrobot as _acrobot
+from . import cartpole as _cartpole
+from . import pendulum as _pendulum
+
+
+def _delayed_action(action_buffer: torch.Tensor, delay: int, nu: int) -> torch.Tensor:
+    """The action executed ``delay`` steps ago (oracle.py:23,99,187).
+
+    ``action_buffer``: [..., A, m(+time-channel)]; returns [..., nu].
+    """
+    return action_buffer[..., -(delay + 1), :nu]
+
+
+def _flat_ts(ts: torch.Tensor) -> torch.Tensor:
+    """[B, 1] or [B] query times -> [B]."""
+    return ts.reshape(ts.shape[:1]) if ts.dim() > 1 else ts
+
+
+def pendulum_dynamics_dt_delay(
+    state, action_buffer, ts, delay, action_low=-2.0, action_high=2.0, friction=False
+):
+    """oracle.pendulum_dynamics_dt_delay:177-224. state [...,2] or [...,3]."""
+    u = torch.clamp(_delayed_action(action_buffer, delay, 1), action_low, action_high)
+    raw = _pendulum.obs_to_state(state)
+    new_raw = raw + _flat_ts(ts)[..., None] * _pendulum.rhs(raw, u)
+    if state.shape[-1] == 2:
+        return new_raw
+    return _pendulum.observe(new_raw)
+
+
+def cartpole_dynamics_dt_delay(
+    state, action_buffer, ts, delay, action_low=-3.0, action_high=3.0, friction=False
+):
+    """oracle.cartpole_dynamics_dt_delay:11-86. state [...,4] or [...,5]."""
+    u = torch.clamp(_delayed_action(action_buffer, delay, 1), action_low, action_high)
+    raw = _cartpole.obs_to_state(state)
+    new_raw = raw + _flat_ts(ts)[..., None] * _cartpole.make_rhs(friction)(raw, u)
+    if state.shape[-1] == 4:
+        return new_raw
+    return _cartpole.observe(new_raw)
+
+
+def acrobot_dynamics_dt_delay(
+    state, action_buffer, ts, delay, action_low=-5.0, action_high=5.0, friction=False
+):
+    """oracle.acrobot_dynamics_dt_delay:89-174. state [...,4] or [...,6]."""
+    u = torch.clamp(_delayed_action(action_buffer, delay, 2), action_low, action_high)
+    raw = _acrobot.obs_to_state(state)
+    new_raw = raw + _flat_ts(ts)[..., None] * _acrobot.rhs(raw, u)
+    if state.shape[-1] == 4:
+        return new_raw
+    return _acrobot.observe(new_raw)
+
+
+ORACLES = {
+    "pendulum": pendulum_dynamics_dt_delay,
+    "cartpole": cartpole_dynamics_dt_delay,
+    "acrobot": acrobot_dynamics_dt_delay,
+    "oderl-pendulum": pendulum_dynamics_dt_delay,
+    "oderl-cartpole": cartpole_dynamics_dt_delay,
+    "oderl-acrobot": acrobot_dynamics_dt_delay,
+}
+
+
+def oracle_for(env_name: str, ts, delay: int, friction: bool = False):
+    """Partial out (ts, delay, friction) the way mppi_with_model.py:129-143
+    wires the oracle planner dynamics."""
+    fn = ORACLES[env_name]
+    return partial(fn, ts=ts, delay=delay, friction=friction)

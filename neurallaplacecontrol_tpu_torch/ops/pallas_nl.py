@@ -248,7 +248,9 @@ def nl_forward_fused(obs, acts_flat, packed, state_dim: int, in_dim: int, *, ter
         (B, n, A, in_dim, H, hid, state_dim, terms, hopper.numel()),
     )
     nl_forward_fused.launches += 1
+    nl_forward_fused.rows += B
     return out
 
 
 nl_forward_fused.launches = 0  # kernel launches since the last reset
+nl_forward_fused.rows = 0  # batch rows over those launches

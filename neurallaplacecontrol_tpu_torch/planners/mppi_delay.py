@@ -14,8 +14,9 @@ takes and returns it.
   6. omega = softmax(-(cost - min cost)/lambda); U += sum_k omega_k noise_k
   7. action = u_scale * U[0]
 
-The JAX horizon ``lax.scan`` is a Python loop over T here. This slice ports
-the flags the serving controller sets; the JAX module's
+The JAX horizon ``lax.scan`` is a Python loop over T here, and the JAX
+evaluator's ``vmap`` over seeds is a leading seed axis S on the planner's
+inputs. This module ports the flags the serving controller sets; the JAX module's
 ``sample_null_action``, ``noise_abs_cost`` and ``u_per_command`` are not
 fields here, and its other planner features raise ``NotImplementedError``.
 """
@@ -101,21 +102,29 @@ def _not_ported(what: str):
 def mppi_command_core(
     cfg: MPPIConfig,
     params: MPPIParams,
-    dynamics_fn: Callable,  # (state [K,nx], action_window [K,A,nu]) -> [K,nx]
-    running_cost_fn: Callable,  # (state [K,nx], action [K,nu], *cost_args) -> [K]
-    U: torch.Tensor,  # [T, nu] — ALREADY receding-horizon shifted
-    obs: torch.Tensor,  # [nx] current observation
-    action_buffer: torch.Tensor,  # [A, nu] action history (env units)
-    noise: torch.Tensor,  # [K, T, nu] pre-sampled noise
+    dynamics_fn: Callable,  # (state [S*K,nx], action_window [S*K,A,nu]) -> [S*K,nx]
+    running_cost_fn: Callable,  # (state [S*K,nx], action [S*K,nu], *cost_args) -> [S*K]
+    U: torch.Tensor,  # [S, T, nu] or [T, nu] — ALREADY receding-horizon shifted
+    obs: torch.Tensor,  # [S, nx] or [nx] current observation
+    action_buffer: torch.Tensor,  # [S, A, nu] or [A, nu] action history (env units)
+    noise: torch.Tensor,  # [S, K, T, nu] or [K, T, nu] pre-sampled noise
     terminal_state_cost: Optional[Callable] = None,
     dynamics_carry_init: Optional[Callable] = None,
-    time_buffer: Optional[torch.Tensor] = None,  # [A] ages, encode_obs_time
+    time_buffer: Optional[torch.Tensor] = None,  # [S, A] or [A] ages, encode_obs_time
     cost_args: tuple = (),
     axis=None,
     window_encoder: Optional[Callable] = None,
 ):
     """The planning step given pre-sampled noise (steps 2-7 of the module
-    docstring). Returns (action, U, {"cost_total", "omega"})."""
+    docstring). Returns (action, U, {"cost_total", "omega"}).
+
+    With a leading seed axis S on every input, S independent plans run in
+    lockstep: the dynamics closure sees all S*K rollouts in one call per
+    horizon step, and the softmax weighting reduces over each seed's K rows
+    only. This is the port's counterpart of ``jax.vmap`` over the planner.
+    Without the seed axis the outputs have none either (action [nu], U
+    [T, nu], cost_total and omega [K]).
+    """
     if terminal_state_cost is not None:
         _not_ported("terminal_state_cost")
     if dynamics_carry_init is not None:
@@ -129,55 +138,63 @@ def mppi_command_core(
     if cfg.step_dependent_dynamics:
         _not_ported("step_dependent_dynamics")
 
+    if U.dim() == 2:  # one plan: the S=1 case without its seed axis
+        action, U, aux = mppi_command_core(
+            cfg, params, dynamics_fn, running_cost_fn, U[None], obs[None], action_buffer[None],
+            noise[None], time_buffer=None if time_buffer is None else time_buffer[None],
+            cost_args=cost_args,
+        )
+        return action[0], U[0], {k: v[0] for k, v in aux.items()}
+
     T, nu = cfg.horizon, cfg.nu
-    K = noise.shape[0]
-    A = action_buffer.shape[0]
+    S, K = noise.shape[0], noise.shape[1]
+    A = action_buffer.shape[1]
 
     # 2. bound, recompute noise
-    perturbed = torch.clamp((U[None] + noise) * cfg.u_scale, cfg.u_min, cfg.u_max) / cfg.u_scale
-    noise = perturbed - U[None]
+    perturbed = torch.clamp((U[:, None] + noise) * cfg.u_scale, cfg.u_min, cfg.u_max) / cfg.u_scale
+    noise = perturbed - U[:, None]
 
     # action perturbation cost
     action_cost = cfg.lambda_ * noise @ params.noise_sigma_inv
 
     # 3. sliding action windows with prepended history
-    scaled = perturbed * cfg.u_scale  # [K, T, nu] env units
-    hist = action_buffer[1:][None].expand(K, A - 1, nu)
-    full = torch.cat([hist, scaled], dim=1)  # [K, A-1+T, nu]
+    scaled = perturbed * cfg.u_scale  # [S, K, T, nu] env units
+    hist = action_buffer[:, None, 1:].expand(S, K, A - 1, nu)
+    full = torch.cat([hist, scaled], dim=2)  # [S, K, A-1+T, nu]
 
-    ages = (
-        time_buffer
-        if time_buffer is not None
-        else torch.flip(torch.arange(A, dtype=scaled.dtype, device=scaled.device), dims=(0,)) * cfg.dt
-    )
+    if time_buffer is not None:
+        ages = time_buffer
+    else:
+        ages = torch.flip(torch.arange(A, dtype=scaled.dtype, device=scaled.device), dims=(0,)) * cfg.dt
+        ages = ages.expand(S, A)
 
-    # 4. rollout over the horizon
-    state = obs[None].expand((K,) + tuple(obs.shape))
+    # 4. rollout over the horizon, all S*K rows in one dynamics call per step
+    state = obs[:, None].expand((S, K) + tuple(obs.shape[1:])).reshape((S * K,) + tuple(obs.shape[1:]))
     costs = []
     for t in range(T):
-        window = full[:, t : t + A, :]
+        window = full[:, :, t : t + A, :].reshape(S * K, A, nu)
         # time_buffer += dt; roll; newest age = 0
-        ages = torch.roll(ages + cfg.dt, -1)
-        ages[-1] = 0.0
+        ages = torch.roll(ages + cfg.dt, -1, dims=1)
+        ages[:, -1] = 0.0
         dyn_in = window
         if cfg.encode_obs_time:
-            a = ages[None, :, None].expand(K, A, 1).to(window.dtype)
+            a = ages[:, None, :, None].expand(S, K, A, 1).reshape(S * K, A, 1).to(window.dtype)
             dyn_in = torch.cat([window, a], dim=2)
         state = dynamics_fn(state, dyn_in)
         costs.append(running_cost_fn(state, window[:, -1, :], *cost_args))
-    cost_total = torch.sum(torch.stack(costs), dim=0)  # [K]
+    cost_total = torch.sum(torch.stack(costs), dim=0).reshape(S, K)
 
     # 5. perturbation cost
-    cost_total = cost_total + torch.sum(U[None] * action_cost, dim=(1, 2))
+    cost_total = cost_total + torch.sum(U[:, None] * action_cost, dim=(2, 3))
 
-    # 6. softmax weighting + control update
-    beta = torch.min(cost_total)
+    # 6. softmax weighting + control update, per seed over its K rollouts
+    beta = torch.min(cost_total, dim=1, keepdim=True).values
     weights = torch.exp(-(cost_total - beta) / cfg.lambda_)
-    omega = weights / torch.sum(weights)
-    U = U + torch.sum(omega[:, None, None] * noise, dim=0)
+    omega = weights / torch.sum(weights, dim=1, keepdim=True)
+    U = U + torch.sum(omega[:, :, None, None] * noise, dim=1)
 
     # 7. leading action, env units
-    action = U[0] * cfg.u_scale
+    action = U[:, 0] * cfg.u_scale
     return action, U, {"cost_total": cost_total, "omega": omega}
 
 
@@ -186,22 +203,25 @@ def mppi_command(
     params: MPPIParams,
     dynamics_fn: Callable,
     running_cost_fn: Callable,
-    U: torch.Tensor,  # [T, nu] carry
-    obs: torch.Tensor,  # [nx] current observation
-    action_buffer: torch.Tensor,  # [A, nu] action history (env units)
+    U: torch.Tensor,  # [S, T, nu] or [T, nu] carry
+    obs: torch.Tensor,  # [S, nx] or [nx] current observation
+    action_buffer: torch.Tensor,  # [S, A, nu] or [A, nu] action history (env units)
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
     time_buffer: Optional[torch.Tensor] = None,
     cost_args: tuple = (),
 ):
-    """One planning step. Returns (action [nu] in env units, new U, aux).
+    """One planning step. Returns (action [S, nu] or [nu] in env units, new U, aux).
 
-    ``noise`` [K, T, nu] replaces the draw from ``generator`` when given.
+    ``noise`` [S, K, T, nu] (or [K, T, nu]) replaces the draw from
+    ``generator`` when given; a draw from ``generator`` is one plan's.
     """
     # 1. receding horizon shift
-    U = torch.roll(U, -1, dims=0)
-    U[-1] = params.u_init
+    U = torch.roll(U, -1, dims=-2)
+    U[..., -1, :] = params.u_init
     if noise is None:
+        if U.dim() != 2:
+            raise ValueError("a seed-batched plan takes its noise as an argument, one draw per seed")
         noise = _sample_noise(generator, cfg, params)
     return mppi_command_core(
         cfg, params, dynamics_fn, running_cost_fn, U, obs, action_buffer, noise,

@@ -1,0 +1,206 @@
+"""Policy evaluation: model + delay-aware MPPI on real env episodes (port of ``training/eval.py``).
+
+Equivalent of reference mppi_with_model.mppi_with_model_evaluate_single_step
+(:31-325). The seeds run in lockstep as one seed-batched episode
+(training.rollout), the port's counterpart of the JAX module's vmap over
+PRNG keys; the NL planner dynamics run through the fused forward kernel
+under ``Config.fused_nl_planner``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from ..config import Config
+from ..envs import make_env
+from ..models import make_model
+from ..planners import MPPIConfig, default_noise_sigma, make_mppi_params, mppi_command
+from ..utils.device import resolve_device
+from .rollout import (
+    EpisodeSettings,
+    SeedDraws,
+    build_learned_dynamics,
+    build_oracle_dynamics,
+    build_running_cost,
+    make_episode_fn,
+)
+
+EVAL_MODELS = ("nl", "oracle", "random")
+# the JAX package's other evaluation models; their families are not ported yet
+NOT_PORTED_MODELS = ("delta_t_rnn", "rnn", "node", "latent_ode", "latent_ode_ref")
+
+
+def build_planner(
+    model_name: str,
+    env_name: str,
+    action_delay: int,
+    config: Config = Config(),
+    model_apply=None,
+    params=None,
+    roll_outs: Optional[int] = None,
+    time_steps: Optional[int] = None,
+    dtype=torch.float32,
+    device="cuda",
+):
+    """(env, mppi_cfg, mppi_params, dynamics) for one policy, as
+    ``evaluate_policy`` plans it; dynamics is None for "random"."""
+    if model_name in NOT_PORTED_MODELS:
+        raise NotImplementedError(f"evaluation of {model_name!r} is not ported yet")
+    if model_name not in EVAL_MODELS:
+        raise ValueError(f"unknown model {model_name!r}")
+    device = resolve_device(device)
+    roll_outs = roll_outs or config.mppi_roll_outs
+    time_steps = time_steps or config.mppi_time_steps
+    dt = config.dt
+    env = make_env(env_name, dt=dt, friction=config.friction)
+    spec = env.spec
+    mppi_cfg = MPPIConfig(
+        num_samples=roll_outs,
+        horizon=time_steps,
+        nu=spec.m,
+        # the reference hardcodes lambda=1.0 at mppi_with_model.py:72,
+        # ignoring the configured mppi_lambda; the JAX package honours the
+        # config, and so does the port
+        lambda_=config.mppi_lambda,
+        u_scale=spec.action_high,
+        u_min=-spec.action_high,
+        u_max=spec.action_high,
+        encode_obs_time=config.encode_obs_time,
+        dt=dt,
+    )
+    mppi_params = make_mppi_params(default_noise_sigma(spec.m, config.mppi_sigma, dtype=dtype, device=device))
+
+    if model_name == "oracle":
+        return env, mppi_cfg, mppi_params, build_oracle_dynamics(env, dt, action_delay)
+    if model_name == "random":
+        return env, mppi_cfg, mppi_params, None
+    if model_apply is None or params is None:
+        raise ValueError("learned models need model_apply/params (utils.checkpoint.load_pytree)")
+    if config.fused_nl_planner and config.nl_ilt_algorithm == "fourier":
+        # the planner-path forward through the fused kernel (ops.pallas_nl);
+        # the model structure is rebuilt from config to reach the specializer
+        if dtype != torch.float32:
+            raise ValueError("the fused NL planner runs in float32")
+        model = make_model("nl", env_name, spec.n_obs, spec.m, spec.action_high, config,
+                           dtype=torch.float32, device=device)
+        model_apply = model.make_fused_planner_apply(params, dt)
+    elif config.nl_planner_precompute:
+        raise NotImplementedError("nl_planner_precompute (window_encoder) is not ported yet")
+    return env, mppi_cfg, mppi_params, build_learned_dynamics(model_apply, params, dt)
+
+
+def _warm_up_tick(env, mppi_cfg, mppi_params, dynamics, n_seeds: int, action_buffer_size: int,
+                 state_constraint: bool = False):
+    """One throwaway seed-batched planner tick on noise from a generator of
+    its own: it builds and loads the kernel and sets up the device's
+    libraries and memory pool, the counterpart of the JAX evaluator's
+    ahead-of-time compile. Returns when the device is done."""
+    chol = mppi_params.noise_chol
+    S, T, nu = n_seeds, mppi_cfg.horizon, mppi_cfg.nu
+    like = dict(dtype=chol.dtype, device=chol.device)
+    g = torch.Generator(device=chol.device).manual_seed(0)
+    obs = env.observe(torch.zeros((S, env.spec.n_state), **like))
+    noise = torch.randn((S, mppi_cfg.num_samples, T, nu), generator=g, **like) @ chol.T
+    mppi_command(mppi_cfg, mppi_params, dynamics, build_running_cost(env, state_constraint),
+                 torch.zeros((S, T, nu), **like), obs, torch.zeros((S, action_buffer_size, nu), **like),
+                 noise=noise)
+    if chol.device.type == "cuda":
+        torch.cuda.synchronize(chol.device)
+
+
+def evaluate_policy(
+    model_name: str,
+    env_name: str,
+    action_delay: int,
+    seeds,
+    config: Config = Config(),
+    model_apply=None,
+    params=None,
+    roll_outs: Optional[int] = None,
+    time_steps: Optional[int] = None,
+    state_constraint: bool = False,
+    change_goal: bool = False,
+    save_video: Optional[bool] = None,
+    profile_trace_dir: Optional[str] = None,
+    shard_seeds: bool = False,
+    shard_rollouts: bool = False,
+    shard_grid: Optional[tuple] = None,
+    devices: Optional[list] = None,
+    dtype=torch.float32,
+    device="cuda",
+    draws=None,
+) -> dict:
+    """Run one episode per seed, all seeds in lockstep; returns the
+    reference's result dict fields plus per-seed returns.
+
+    total_reward is rescaled by 200/n_steps (mppi_with_model.py:301).
+    ``draws`` replaces the per-seed generators (``rollout.SeedDraws``) with
+    any object that has their methods. The timed region starts after the
+    kernel build, the weight repack and one warm-up tick (``_warm_up_tick``)
+    and ends when the device is done.
+
+    The JAX function's shard flags, ``devices``, video, profile trace and
+    change_goal raise ``NotImplementedError``, as do the model families not
+    ported yet.
+    """
+    if shard_seeds or shard_rollouts or shard_grid is not None or devices is not None:
+        raise NotImplementedError("sharded evaluation is not ported yet")
+    if profile_trace_dir is not None:
+        raise NotImplementedError("the evaluation's profile trace is not ported yet")
+    if change_goal:
+        raise NotImplementedError("change_goal is not ported yet")
+    if config.save_video if save_video is None else save_video:
+        raise NotImplementedError("episode video is not ported yet")
+    seeds = [int(s) for s in seeds]  # consumed more than once below
+    env, mppi_cfg, mppi_params, dynamics = build_planner(
+        model_name, env_name, action_delay, config, model_apply, params, roll_outs, time_steps,
+        dtype=dtype, device=device,
+    )
+    settings = EpisodeSettings(
+        delay=action_delay,
+        n_steps=int(10.0 / config.dt),  # 10-second episodes (mppi_with_model.py:235-238)
+        action_buffer_size=config.action_buffer_size,
+        observation_noise=config.observation_noise,
+        random_policy=model_name == "random",
+        encode_obs_time=mppi_cfg.encode_obs_time,
+        state_constraint=state_constraint,
+    )
+    episode = make_episode_fn(env, dynamics, mppi_cfg, mppi_params, settings)
+    chol = mppi_params.noise_chol
+    if draws is None:
+        draws = SeedDraws(seeds, dtype=chol.dtype, device=chol.device)
+    if len(draws) != len(seeds):
+        raise ValueError(f"draws for {len(draws)} seeds, {len(seeds)} seeds given")
+    if dynamics is not None:
+        _warm_up_tick(env, mppi_cfg, mppi_params, dynamics, len(seeds), settings.action_buffer_size,
+                     state_constraint)
+
+    t0 = time.perf_counter()
+    totals, _records = episode(draws)
+    if chol.device.type == "cuda":
+        torch.cuda.synchronize(chol.device)
+    elapsed = time.perf_counter() - t0
+
+    scale = 200.0 / settings.n_steps
+    totals = totals * scale
+    n = len(seeds)
+    return {
+        "model_name": model_name,
+        "env_name": env_name,
+        "roll_outs": mppi_cfg.num_samples,
+        "time_steps": mppi_cfg.horizon,
+        "dt": config.dt,
+        "delay": action_delay,
+        "planner": "mpc",
+        "seeds": seeds,
+        "total_rewards": [float(x) for x in totals],
+        "total_reward": float(torch.mean(totals)),
+        "total_reward_std": float(torch.std(totals, unbiased=False)),
+        "episode_elapsed_time": elapsed,
+        "episode_elapsed_time_per_it": elapsed / (settings.n_steps * n),
+        "mppi_rollouts_per_sec": mppi_cfg.num_samples * settings.n_steps * n / elapsed,
+        "video_path": None,
+    }

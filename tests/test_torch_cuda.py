@@ -31,6 +31,8 @@ REPO = Path(__file__).resolve().parent.parent
 ENV_DIMS = {"oderl-pendulum": (3, 1, 2.0), "oderl-cartpole": (5, 1, 3.0), "oderl-acrobot": (6, 2, 5.0)}
 TOL = 1e-3
 RAGGED = [1, 7, 8, 9, 999, 1000, 1001]  # below, at and past the 8-row tile and B
+# the seed-batched evaluation's S*K = 20 x 1000 rows, and one ragged past it
+SEED_BATCH = [20000, 20003]
 DT = 0.05
 B = 1000  # the planner's K
 
@@ -62,6 +64,43 @@ def forward_inputs(env, rows, device, seed=3):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "delay,cfg",
+    [(0, Config(encode_obs_time=True)), (1, Config(normalize=False))],
+    ids=["age_channel", "unnormalized"],
+)
+def test_forward_kernel_folds(delay, cfg, cuda_device):
+    """The forward's two folds that the d1 checkpoints do not reach: the
+    pendulum d0 checkpoint, trained with the age channel (its GRU input is 2
+    wide with m = 1: action and age, the age not normalized), and
+    normalize=False (actions scaled by 1/3, obs as they are)."""
+    env = "oderl-pendulum"
+    n, m, high = ENV_DIMS[env]
+    in_dim = m + int(cfg.encode_obs_time)
+    path = REPO / "artifacts" / "checkpoints" / model_checkpoint_name("nl", env, delay, "exp", 0, True)
+    params = load_pytree(path, device=cuda_device)
+    assert params["encoder"]["gru"][0]["w_ih"].shape[0] == in_dim
+    model = make_model("nl", env, n, m, high, cfg, device=cuda_device)
+    fused = model.make_fused_planner_apply(params, DT)
+    rng = np.random.default_rng(delay)
+    obs = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32, device=cuda_device)
+    window = rng.uniform(-high, high, (B, 4, in_dim))
+    if cfg.encode_obs_time:  # entry ages on the exp grid, newest 0: [d1+d2+d3, d2+d3, d3, 0]
+        d = rng.exponential(DT, (B, 3))
+        window[:, :3, -1] = np.cumsum(d[:, ::-1], axis=1)[:, ::-1]
+        window[:, 3, -1] = 0.0
+    acts = torch.tensor(window.reshape(B, 4 * in_dim), dtype=torch.float32, device=cuda_device)
+    got = tnl.nl_forward_fused(obs, acts, fused.packed, n, in_dim, terms=17, hopper=fused.hopper)
+    exp = tnl.nl_forward_plain(obs, acts, fused.packed, n, in_dim)
+    ref = model.apply(params, obs, acts.reshape(B, 4, in_dim), torch.full((B, 1), DT, device=cuda_device))
+    torch.cuda.synchronize()
+    assert got.shape == (B, n) and bool(torch.isfinite(got).all())
+    assert rel_err(got, exp) < TOL
+    # the unfused model's complex ILT path, at tests/test_torch_kernels.py's 1e-2
+    assert rel_err(got, ref) < 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("env", sorted(ENV_DIMS))
 def test_forward_kernel_matches_plain(env, cuda_device):
     n, m, _ = ENV_DIMS[env]
@@ -81,10 +120,11 @@ def test_forward_kernel_matches_plain(env, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", RAGGED)
+@pytest.mark.parametrize("rows", RAGGED + SEED_BATCH)
 def test_forward_kernel_ragged_batches(rows, cuda_device):
-    """Batches that fill no tile, exactly one, or one and a bit: the rows past B
-    are masked on load and never stored."""
+    """Batches that fill no tile, exactly one, or one and a bit, up to the
+    seed-batched evaluation's 20,000 rows: the rows past B are masked on load
+    and never stored."""
     n, m, _ = ENV_DIMS["oderl-cartpole"]
     fused, obs, acts = forward_inputs("oderl-cartpole", rows, cuda_device, seed=rows)
     got = tnl.nl_forward_fused(obs, acts, fused.packed, n, m, terms=17, hopper=fused.hopper)
@@ -156,3 +196,36 @@ def test_fused_controller_runs_the_kernel(cuda_device):
     action, state = ctrl.step(state, torch.zeros(n, device=cuda_device))
     assert tnl.nl_forward_fused.launches == before + 8
     assert bool(torch.isfinite(action).all()) and float(action.abs().max()) <= high
+
+
+@pytest.mark.cuda
+def test_seed_batched_planner_equals_single_ticks(cuda_device):
+    """One S=4 planner tick through the kernel gives each seed's S=1 tick on
+    the same noise: every horizon step is one launch of 4 x 1000 rows, and
+    the softmax reduces over each seed's rollouts only."""
+    from neurallaplacecontrol_tpu_torch.planners import mppi_command
+    from neurallaplacecontrol_tpu_torch.training.eval import build_planner
+    from neurallaplacecontrol_tpu_torch.training.rollout import build_running_cost
+
+    env_name = "oderl-cartpole"
+    n, m, high = ENV_DIMS[env_name]
+    params = trained(env_name, cuda_device)
+    model = make_model("nl", env_name, n, m, high, device=cuda_device)
+    env, cfg, mppi_params, dynamics = build_planner(
+        "nl", env_name, 1, Config(fused_nl_planner=True), model_apply=model.apply, params=params,
+        roll_outs=B, time_steps=40, device=cuda_device)
+    cost = build_running_cost(env)
+    S = 4
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    U = torch.randn((S, 40, m), generator=g, device=cuda_device)
+    obs = env.observe(env.reset(g).expand(S, -1) + 0.3 * torch.randn((S, 4), generator=g, device=cuda_device))
+    buffer = torch.rand((S, 4, m), generator=g, device=cuda_device) * 2 * high - high
+    noise = torch.randn((S, B, 40, m), generator=g, device=cuda_device) @ mppi_params.noise_chol.T
+    before = tnl.nl_forward_fused.launches
+    action, U_new, _ = mppi_command(cfg, mppi_params, dynamics, cost, U, obs, buffer, noise=noise)
+    assert tnl.nl_forward_fused.launches == before + 40
+    assert action.shape == (S, m) and bool(torch.isfinite(action).all())
+    for s in range(S):
+        a1, U1, _ = mppi_command(cfg, mppi_params, dynamics, cost, U[s], obs[s], buffer[s], noise=noise[s])
+        assert float((action[s] - a1).abs().max()) < TOL
+        assert float((U_new[s] - U1).abs().max()) < TOL

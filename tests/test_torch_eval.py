@@ -1,0 +1,169 @@
+"""The port's ``training.eval.evaluate_policy`` and ``results.process``
+against the JAX package's on the CPU at f64.
+
+``evaluate_policy`` runs at ``Config(dt=0.5)``, so an episode is 20 steps,
+with K=16 rollouts over a T=5 horizon and the JAX draws replayed
+(tests/jax_replay_draws.py). Every field of the result dict but the timings
+must equal JAX's: returns at rtol 1e-10, the rest exactly.
+"""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax_replay_draws import JaxDraws, seed_keys
+
+from neurallaplacecontrol_tpu.config import Config as JConfig
+from neurallaplacecontrol_tpu.envs import make_env as jax_make_env
+from neurallaplacecontrol_tpu.models import make_model as jax_make_model
+from neurallaplacecontrol_tpu.planners import mppi_delay as jmppi
+from neurallaplacecontrol_tpu.results import process as jprocess
+from neurallaplacecontrol_tpu.training.eval import evaluate_policy as jax_evaluate
+from neurallaplacecontrol_tpu_torch.config import Config as TConfig
+from neurallaplacecontrol_tpu_torch.models import make_model as torch_make_model
+from neurallaplacecontrol_tpu_torch.results import process as tprocess
+from neurallaplacecontrol_tpu_torch.training import eval as teval
+from neurallaplacecontrol_tpu_torch.training import rollout as trollout
+from neurallaplacecontrol_tpu_torch.utils.checkpoint import load_pytree, model_checkpoint_name
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+ENV, DELAY, K, T, DT = "oderl-cartpole", 1, 16, 5, 0.5
+N_STEPS = int(10.0 / DT)
+SEEDS = [0, 5, 9]
+TIMINGS = ("episode_elapsed_time", "episode_elapsed_time_per_it", "mppi_rollouts_per_sec")
+
+
+def nl_models():
+    ckpt = REPO / "artifacts" / "checkpoints" / model_checkpoint_name("nl", ENV, DELAY, "exp", 0, True)
+    tweights = load_pytree(ckpt, device="cpu", dtype=torch.float64)
+    jweights = jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()), tweights)
+    jm = jax_make_model("nl", ENV, 5, 1, 3.0, JConfig(dt=DT), dtype=jnp.float64)
+    tm = torch_make_model("nl", ENV, 5, 1, 3.0, TConfig(dt=DT), dtype=torch.float64, device="cpu")
+    return (jm.apply, jweights), (tm.apply, tweights)
+
+
+def replay(seeds):
+    jenv = jax_make_env(ENV, dt=DT)
+    jcfg = jmppi.MPPIConfig(num_samples=K, horizon=T, nu=1)
+    jparams = jmppi.make_mppi_params(jmppi.default_noise_sigma(1, 1.0, dtype=jnp.float64))
+    return JaxDraws(seed_keys(seeds), jenv, jcfg, jparams, N_STEPS)
+
+
+def run_both(model_name):
+    (japply, jweights), (tapply, tweights) = nl_models()
+    j = jax_evaluate(model_name, ENV, DELAY, SEEDS, config=JConfig(dt=DT), model_apply=japply,
+                     params=jweights, roll_outs=K, time_steps=T)
+    t = teval.evaluate_policy(model_name, ENV, DELAY, SEEDS, config=TConfig(dt=DT), model_apply=tapply,
+                              params=tweights, roll_outs=K, time_steps=T, dtype=torch.float64,
+                              device="cpu", draws=replay(SEEDS))
+    return j, t
+
+
+@pytest.mark.parametrize("model_name", ["nl", "oracle", "random"])
+def test_evaluate_policy_matches_jax_f64(model_name):
+    j, t = run_both(model_name)
+    assert set(t) == set(j)
+    for field in j:
+        if field in TIMINGS:
+            assert t[field] > 0
+        elif field in ("total_rewards", "total_reward", "total_reward_std"):
+            np.testing.assert_allclose(t[field], j[field], rtol=1e-10, err_msg=field)
+        else:
+            assert t[field] == j[field], field
+
+
+def test_evaluate_policy_rescales_to_200_steps():
+    """total_rewards are the raw episode returns times 200/n_steps (eval.py:300)."""
+    (_, _), (tapply, tweights) = nl_models()
+    t = teval.evaluate_policy("oracle", ENV, DELAY, SEEDS, config=TConfig(dt=DT), roll_outs=K,
+                              time_steps=T, dtype=torch.float64, device="cpu", draws=replay(SEEDS))
+    env, cfg, params, dyn = teval.build_planner("oracle", ENV, DELAY, TConfig(dt=DT), roll_outs=K,
+                                                time_steps=T, dtype=torch.float64, device="cpu")
+    raw, _ = trollout.make_episode_fn(env, dyn, cfg, params,
+                                      trollout.EpisodeSettings(delay=DELAY, n_steps=N_STEPS))(replay(SEEDS))
+    np.testing.assert_allclose(t["total_rewards"], raw.numpy() * 200.0 / N_STEPS, rtol=1e-12)
+    np.testing.assert_allclose(t["total_reward"], np.mean(t["total_rewards"]), rtol=1e-12)
+    np.testing.assert_allclose(t["total_reward_std"], np.std(t["total_rewards"]), rtol=1e-12)
+
+
+def test_evaluate_policy_seeds_are_reproducible():
+    """Without replayed draws each seed draws from its own generator: the
+    same seed gives the same return, whatever seeds run beside it."""
+    kw = dict(config=TConfig(dt=DT), roll_outs=K, time_steps=T, dtype=torch.float64, device="cpu")
+    a = teval.evaluate_policy("oracle", ENV, DELAY, [4, 8], **kw)
+    b = teval.evaluate_policy("oracle", ENV, DELAY, [8], **kw)
+    np.testing.assert_allclose(a["total_rewards"][1], b["total_rewards"][0], rtol=1e-10)
+    assert a["total_rewards"][0] != a["total_rewards"][1]
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [{"shard_seeds": True}, {"shard_rollouts": True}, {"shard_grid": (1, 1)}, {"devices": []},
+     {"save_video": True}, {"change_goal": True}, {"profile_trace_dir": "trace"}],
+    ids=["shard_seeds", "shard_rollouts", "shard_grid", "devices", "video", "change_goal", "profile_trace"],
+)
+def test_evaluate_policy_unported_flags_raise(kwargs):
+    with pytest.raises(NotImplementedError):
+        teval.evaluate_policy("oracle", ENV, DELAY, [0], config=TConfig(dt=DT), roll_outs=K,
+                              time_steps=T, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("model_name,cfg", [("latent_ode", TConfig()), ("node", TConfig()),
+                                            ("nl", TConfig(nl_planner_precompute=True))])
+def test_evaluate_policy_unported_models_raise(model_name, cfg):
+    (_, _), (tapply, tweights) = nl_models()
+    with pytest.raises(NotImplementedError):
+        teval.evaluate_policy(model_name, ENV, DELAY, [0], config=cfg, model_apply=tapply,
+                              params=tweights, roll_outs=K, time_steps=T, dtype=torch.float64,
+                              device="cpu")
+
+
+def result_records():
+    """Records of three models on two cells; delay 2 has no reference constants."""
+    rng = np.random.default_rng(4)
+    recs = []
+    for delay in (1, 2):
+        for model, center in (("random", -9000.0), ("oracle", -150.0), ("nl", -300.0)):
+            seeds = list(range(20))
+            rewards = list(center + rng.standard_normal(20) * abs(center) * 0.1)
+            recs.append({"env_name": ENV, "model_name": model, "delay": delay, "seeds": seeds,
+                         "total_rewards": rewards, "total_reward": float(np.mean(rewards))})
+    return recs
+
+
+@pytest.mark.parametrize("agg", ["std", "ci95"])
+@pytest.mark.parametrize("clip", [True, False])
+def test_normalized_scores_match_jax(agg, clip):
+    recs = result_records()
+    got = tprocess.normalized_scores(recs, clip=clip, agg=agg)
+    exp = jprocess.normalized_scores(recs, clip=clip, agg=agg)
+    assert got.keys() == exp.keys() and len(got) == 6
+    for k in exp:
+        np.testing.assert_allclose(got[k], exp[k], rtol=1e-12)
+
+
+def test_normalized_scores_fall_back_on_reference_baselines():
+    """A run without its own oracle/random uses the reference constants for
+    delays 0/1 and skips other delays."""
+    recs = [r for r in result_records() if r["model_name"] == "nl"]
+    got = tprocess.normalized_scores(recs)
+    assert got == jprocess.normalized_scores(recs)
+    assert list(got) == [(1, ENV, "nl")]
+    r_rand, r_orac = tprocess.REFERENCE_BASELINES[1][ENV]
+    scores = [max(0.0, 100.0 * (v - r_rand) / (r_orac - r_rand)) for v in recs[0]["total_rewards"]]
+    np.testing.assert_allclose(got[(1, ENV, "nl")][0], np.mean(scores), rtol=1e-12)
+    assert tprocess.REFERENCE_BASELINES == jprocess.REFERENCE_BASELINES
+    assert tprocess.expand_records(recs) == jprocess.expand_records(recs)
+
+
+@pytest.mark.parametrize("n", [1, 2, 20])
+def test_mean_confidence_interval_matches_jax(n):
+    data = np.random.default_rng(n).standard_normal(n) * 3.0 + 1.0
+    for conf in (0.9, 0.95):
+        np.testing.assert_allclose(tprocess.mean_confidence_interval(data, conf),
+                                   jprocess.mean_confidence_interval(data, conf), rtol=1e-12)

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 import neurallaplacecontrol_tpu_torch as port
+from neurallaplacecontrol_tpu_torch.data import collect_expert_data, load_replay_buffer, save_replay_buffer
+from neurallaplacecontrol_tpu_torch.training import SeedDraws, evaluate_policy
 from neurallaplacecontrol_tpu_torch.utils import checkpoint
 
 torch.set_num_threads(1)
@@ -72,6 +74,10 @@ def test_port_and_chip_smoke_import_and_tick_without_jax():
                                     roll_outs=16, time_steps=4, device="cpu")
         action, state = ctrl.step(ctrl.reset(0), torch.zeros(5))
         assert action.shape == (1,) and bool(torch.isfinite(action).all())
+        from neurallaplacecontrol_tpu_torch.training import evaluate_policy
+        r = evaluate_policy("nl", env, 1, [0, 1], cfg.replace(dt=2.5), model_apply=model.apply,
+                            params=params, roll_outs=8, time_steps=2, device="cpu")
+        assert len(r["total_rewards"]) == 2
         loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                         or m == "neurallaplacecontrol_tpu"
                         or m.startswith("neurallaplacecontrol_tpu."))
@@ -85,7 +91,7 @@ def test_port_and_chip_smoke_import_and_tick_without_jax():
     assert "OK oderl-cartpole" in out.stdout
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """Entry points default to device='cuda' and raise rather than drop to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -95,6 +101,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     name = checkpoint.model_checkpoint_name("nl", "oderl-cartpole", 1, "exp", 0, True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         checkpoint.load_pytree(checkpoint.resolve_checkpoint(name))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_policy("oracle", "oderl-cartpole", 1, [0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SeedDraws([0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        collect_expert_data("oderl-pendulum", 1, port.Config(offline_datasets_path=str(tmp_path)))
+    path = tmp_path / "buf.npz"
+    save_replay_buffer(path, *(torch.zeros(2, 1) for _ in range(4)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_replay_buffer(path)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
