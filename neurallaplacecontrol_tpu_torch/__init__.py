@@ -6,11 +6,14 @@ counterpart at the same relative path under ``neurallaplacecontrol_tpu/``,
 which stays the reference the port is tested against. The port imports
 ``torch`` and numpy only; it never imports ``jax`` or the JAX package.
 
-This slice covers one serving-controller tick of the NL flagship
-(``serving.make_controller``): checkpoint loading, the NL model with its
-fourier ILT, the delay-aware MPPI core, the environments' physics and
-rewards, and the planner-path NL forward as a hand-written CUDA kernel
-(``ops.pallas_nl``; ``ops.pallas_ilt`` holds its head-only sibling).
+The port covers the NL flagship end to end: checkpoints, the NL model
+under all six ILT algorithms, the environments and their oracles, the
+delay-aware MPPI planner with the serving controller
+(``serving.make_controller``), seed-batched evaluation
+(``training.evaluate_policy``), expert and synthetic data (``data``) and
+training (``training.train_model``). The planner-path NL forward is a
+hand-written CUDA kernel (``ops.pallas_nl``; ``ops.pallas_ilt`` holds its
+head-only sibling).
 
 Entry points take ``device="cuda"`` by default and raise when CUDA is
 absent; pass ``device="cpu"`` to run on the CPU, where every kernel wrapper
@@ -23,3 +26,4 @@ from .config import Config  # noqa: F401
 from .envs import make_env  # noqa: F401
 from .models import make_model  # noqa: F401
 from .serving import Controller, ControllerState, make_controller  # noqa: F401
+from .training import evaluate_policy, train_model  # noqa: F401

@@ -10,6 +10,7 @@ import torch
 
 from ..config import Config
 from .base import DynamicsModel, NormStats, norm_stats_for  # noqa: F401
+from .common import count_params  # noqa: F401
 from .nl import make_nl_model
 
 
@@ -31,6 +32,7 @@ def make_model(
         state_dim,
         action_dim,
         norm,
+        hidden_units=config.nl_hidden_units,
         s_recon_terms=config.nl_s_recon_terms,
         ilt_algorithm=config.nl_ilt_algorithm,
         compute_dtype=config.nl_compute_dtype,

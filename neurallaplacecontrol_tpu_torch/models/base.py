@@ -17,6 +17,7 @@ import numpy as np
 @dataclass(frozen=True)
 class DynamicsModel:
     name: str
+    init: Callable  # (generator) -> params
     apply: Callable  # (params, obs, action_buffer, ts) -> state_diff
     # (params, t) -> apply-compatible forward through the fused kernel
     make_fused_planner_apply: Callable

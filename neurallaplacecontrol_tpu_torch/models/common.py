@@ -2,12 +2,91 @@
 
 Parameters keep the JAX layout: a linear layer is ``{"w": [in, out], "b":
 [out]}`` and a GRU layer is ``{"w_ih": [in, 3H], "w_hh": [H, 3H], "b_ih",
-"b_hh"}`` with the gate blocks in r/z/n order.
+"b_hh"}`` with the gate blocks in r/z/n order. A tree is nested dicts and
+lists of tensors; ``tree_leaves`` walks it in the JAX package's order
+(dict keys sorted).
+
+The initializers draw the JAX package's distributions (xavier-uniform
+linear weights, U(+-1/sqrt(in)) biases, U(+-1/sqrt(H)) GRU tensors) from an
+explicit ``torch.Generator``: the stream is the port's own, so the values
+differ from JAX's; tests carry a JAX init across with ``from_jax_params``.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Sequence
+
 import torch
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a parameter tree, dict keys in sorted order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and of ``rest``, same structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` (in ``tree_leaves`` order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+
+    return build(like)
+
+
+def count_params(params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def _uniform(generator, shape, bound: float, dtype) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, dtype=dtype,
+                   device=generator.device if generator is not None else None)
+    return (u * 2.0 - 1.0) * bound
+
+
+def linear_init(generator, in_dim: int, out_dim: int, xavier: bool = True, dtype=torch.float32):
+    bound = math.sqrt(6.0 / (in_dim + out_dim)) if xavier else 1.0 / math.sqrt(in_dim)
+    return {
+        "w": _uniform(generator, (in_dim, out_dim), bound, dtype),
+        "b": _uniform(generator, (out_dim,), 1.0 / math.sqrt(in_dim), dtype),
+    }
+
+
+def mlp_init(generator, sizes: Sequence[int], xavier: bool = True, dtype=torch.float32):
+    return [linear_init(generator, sizes[i], sizes[i + 1], xavier=xavier, dtype=dtype)
+            for i in range(len(sizes) - 1)]
+
+
+def gru_init(generator, in_dim: int, hidden: int, num_layers: int = 1, dtype=torch.float32):
+    bound = 1.0 / math.sqrt(hidden)
+    params = []
+    for layer in range(num_layers):
+        d_in = in_dim if layer == 0 else hidden
+        params.append({
+            "w_ih": _uniform(generator, (d_in, 3 * hidden), bound, dtype),
+            "w_hh": _uniform(generator, (hidden, 3 * hidden), bound, dtype),
+            "b_ih": _uniform(generator, (3 * hidden,), bound, dtype),
+            "b_hh": _uniform(generator, (3 * hidden,), bound, dtype),
+        })
+    return params
 
 
 def linear_apply(p, x):

@@ -9,12 +9,14 @@ Architecture per reference w_nl.py:
   Riemann-sphere angles theta in (-pi, pi), phi in (-pi/2, pi/2) via scaled
   tanh.
 - forward (:117-145): normalize state/action (time by dt*8), encode actions,
-  p = concat(obs, action_latent), reconstruct the state-diff through the
-  fourier ILT (ops.ilt.laplace_reconstruct, 17 terms).
+  p = concat(obs, action_latent), reconstruct the state-diff through the ILT
+  (ops.ilt.laplace_reconstruct, default algorithm 'fourier', 17 terms).
 
-``apply`` is the plain PyTorch forward at any float dtype; the planner's
+``apply`` is the plain PyTorch forward at any float dtype, under any of the
+six ILT algorithms, and the one that training differentiates; the planner's
 ``make_fused_planner_apply`` runs the whole forward as one CUDA kernel
-(ops.pallas_nl) on weights packed for one shared query time.
+(ops.pallas_nl) on weights packed for one shared query time, for the
+fourier ILT and the widths the kernel takes only.
 """
 
 from __future__ import annotations
@@ -24,20 +26,38 @@ import math
 import numpy as np
 import torch
 
+from ..config import snap_cme_terms
 from ..ops.ilt import effective_terms, laplace_reconstruct
 from ..ops.pallas_ilt import to_device
 from ..ops.pallas_nl import nl_forward_fused, pack_nl_forward, repack_nl_forward
 from ..utils.device import resolve_device
 from .base import DynamicsModel, NormStats
-from .common import gru_apply, linear_apply, mlp_apply_tanh
+from .common import gru_apply, gru_init, linear_apply, linear_init, mlp_apply_tanh, mlp_init, tree_map
 
 _ACTION_LATENT = 2  # w_nl.py:89
+# widths the CUDA forward takes (csrc/nl_kernels.cu forward_plan): the GRU
+# hidden size H a multiple of 8 (one warp per 8 units) and at most 64 (16
+# warps, two layers), the trunk width a multiple of 16 (the MMA's M)
+_KERNEL_GRU_GROUP, _KERNEL_GRU_MAX, _KERNEL_TRUNK_ALIGN = 8, 64, 16
+
+
+def _check_kernel_widths(gru_hidden: int, trunk_hidden: int) -> None:
+    """Raise ``ValueError`` for a width the fused forward kernel cannot take."""
+    if (gru_hidden % _KERNEL_GRU_GROUP or gru_hidden > _KERNEL_GRU_MAX
+            or trunk_hidden % _KERNEL_TRUNK_ALIGN):
+        raise ValueError(
+            f"the fused NL forward takes a GRU hidden size that is a multiple of "
+            f"{_KERNEL_GRU_GROUP} and at most {_KERNEL_GRU_MAX} (nl_hidden_units <= "
+            f"{2 * _KERNEL_GRU_MAX}) and a trunk width that is a multiple of "
+            f"{_KERNEL_TRUNK_ALIGN}; got GRU {gru_hidden}, trunk {trunk_hidden}"
+        )
 
 
 def make_nl_model(
     state_dim: int,
     action_dim: int,
     norm: NormStats,
+    hidden_units: int = 128,
     s_recon_terms: int = 17,
     ilt_algorithm: str = "fourier",
     encode_obs_time: bool = False,
@@ -49,18 +69,38 @@ def make_nl_model(
     device="cuda",
 ) -> DynamicsModel:
     device = resolve_device(device)
-    if ilt_algorithm != "fourier":
-        raise NotImplementedError(f"NL with ILT {ilt_algorithm!r} is not ported yet; only 'fourier' is")
     if compute_dtype != "float32":
         raise NotImplementedError(f"nl_compute_dtype={compute_dtype!r} is not ported yet")
+    if ilt_algorithm == "cme":
+        s_recon_terms = snap_cme_terms(s_recon_terms)  # w_nl.py:86-88
+    # every algorithm's true node count; the MLP head is sized from it
     s_recon_terms = effective_terms(s_recon_terms, ilt_algorithm)
+    laplace_latent_dim = state_dim + _ACTION_LATENT  # w_nl.py:90
     gru_in = action_dim + (1 if encode_obs_time else 0)
+    gru_hidden = hidden_units // 2
 
     def tensor(x):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
     state_mean, state_std = tensor(norm.state_mean), tensor(norm.state_std)
     action_mean, action_std = tensor(norm.action_mean), tensor(norm.action_std)
+
+    def init(generator=None):
+        """Fresh parameters with the JAX tree's keys and shapes, drawn from
+        ``generator`` (on its device) and placed on the model's device."""
+        params = {
+            "encoder": {
+                "gru": gru_init(generator, gru_in, gru_hidden, num_layers=2, dtype=dtype),
+                "out": linear_init(generator, gru_hidden, _ACTION_LATENT, dtype=dtype),
+            },
+            "laplace_rep": mlp_init(
+                generator,
+                [s_recon_terms * 2 + laplace_latent_dim, hidden_units, hidden_units,
+                 s_recon_terms * 2 * state_dim],
+                dtype=dtype,
+            ),
+        }
+        return tree_map(lambda x: x.to(device), params)
 
     def rep_fn(params, theta_s, phi_s, p):
         """(theta_s, phi_s)[B,terms] + p[B,L] -> sphere angles [B,D,terms]."""
@@ -123,7 +163,15 @@ def make_nl_model(
         folded into the packed float32 weights, so the kernel consumes RAW obs
         and action buffers; the returned function ignores its params and ts
         arguments (re-specialize after a parameter update).
+
+        Raises ``ValueError`` for another ILT than fourier and for widths the
+        kernel does not take (``_check_kernel_widths``): it never falls back
+        to the plain forward.
         """
+        if ilt_algorithm != "fourier":
+            raise ValueError(f"the fused planner path is fourier-only, not {ilt_algorithm!r}")
+        _check_kernel_widths(params["encoder"]["gru"][0]["w_hh"].shape[0],
+                            params["laplace_rep"][1]["w"].shape[0])
         t_model = t / (dt * 8.0) if (normalize and normalize_time) else t
         t_floor = 2.5e-3 if (normalize and normalize_time) else 2.5e-3 * dt * 8.0
         t_model = max(t_model, t_floor)
@@ -149,4 +197,4 @@ def make_nl_model(
         apply_fused.hopper = hopper
         return apply_fused
 
-    return DynamicsModel(name="nl", apply=apply, make_fused_planner_apply=make_fused_planner_apply)
+    return DynamicsModel(name="nl", init=init, apply=apply, make_fused_planner_apply=make_fused_planner_apply)

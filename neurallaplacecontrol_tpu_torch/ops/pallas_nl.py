@@ -103,8 +103,8 @@ def pack_nl_forward(
     ) + head
 
 
-def nl_forward_plain(obs, acts_flat, packed, state_dim: int, in_dim: int):
-    """The forward kernel's function in plain PyTorch, on the same packed operands."""
+def nl_trunk_plain(obs, acts_flat, packed, in_dim: int):
+    """The GRU, encoder and trunk of ``nl_forward_plain``: the head's input [B, hid]."""
     (
         w_ih1, w_hh1, b_ih1, b_hh1, w_ih2, w_hh2, b_ih2, b_hh2,
         w_enc, b_enc, w1_obs, w1_act, b1, w2, b2,
@@ -122,8 +122,12 @@ def nl_forward_plain(obs, acts_flat, packed, state_dim: int, in_dim: int):
         h2 = gru_gates(h1 @ w_ih2 + b_ih2, h2 @ w_hh2 + b_hh2, h2)
     p_act = h2 @ w_enc + b_enc
     hid = torch.tanh(obs @ w1_obs + p_act @ w1_act + b1)
-    hid = torch.tanh(hid @ w2 + b2)
-    return nl_head_plain(hid, packed[15:], state_dim)
+    return torch.tanh(hid @ w2 + b2)
+
+
+def nl_forward_plain(obs, acts_flat, packed, state_dim: int, in_dim: int):
+    """The forward kernel's function in plain PyTorch, on the same packed operands."""
+    return nl_head_plain(nl_trunk_plain(obs, acts_flat, packed, in_dim), packed[15:], state_dim)
 
 
 def _frag_index(K: int, M: int):

@@ -1,4 +1,4 @@
-"""Episodes, planner closures and policy evaluation (training itself is a later slice)."""
+"""Training, episodes, planner closures and policy evaluation."""
 
 from .eval import evaluate_policy  # noqa: F401
 from .rollout import (  # noqa: F401
@@ -12,3 +12,4 @@ from .rollout import (  # noqa: F401
     make_batched_episode_fn,
     make_episode_fn,
 )
+from .train import make_optimizer, make_train_segment_fn, train_model  # noqa: F401

@@ -1,4 +1,4 @@
-"""NL checkpoints: the JAX package's ``.npz`` format, read into torch tensors.
+"""NL checkpoints: the JAX package's ``.npz`` format, as torch tensors.
 
 A checkpoint is a flat ``.npz`` whose keys are the parameter tree's paths
 joined by ``/`` (``neurallaplacecontrol_tpu/utils/checkpoint.py:17-49``),
@@ -7,23 +7,28 @@ numbered path parts. The port keeps the tree as it is: nested dicts and
 lists of tensors with the JAX layout, so ``from_jax_params`` is the whole
 weight carry-over and the tests can hand both packages the same numbers.
 
-Trained weights are read from ``artifacts/checkpoints/`` only: the tracked
-directory that every checkout carries.
+``save_pytree`` writes the format the JAX package's ``load_pytree`` reads,
+and ``load_pytree`` reads the files the JAX package writes.
+``resolve_checkpoint`` finds the trained weights tracked under
+``artifacts/checkpoints/``, the directory every checkout carries;
+``checkpoint_read_path`` is training's rule for where a load may come from.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..config import Config
 from .device import resolve_device
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 
 
-def _unflatten(flat: dict):
+def unflatten_params(flat: dict):
     """``{"a/0/b": x}`` -> ``{"a": [{"b": x}]}``: numbered parts become lists."""
     tree: dict = {}
     for key, value in flat.items():
@@ -80,20 +85,74 @@ def from_jax_params(tree, device="cuda", dtype=None):
     return convert(tree)
 
 
-def load_pytree(path, device="cuda", dtype=None):
-    """Load a checkpoint ``.npz`` into the JAX package's tree, as torch tensors."""
+def save_pytree(path, params) -> None:
+    """Write ``params`` as the JAX package's flat ``/``-joined ``.npz``."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **flatten_params(params))
+
+
+def load_pytree(path, device="cuda", dtype=None, like=None):
+    """Load a checkpoint ``.npz`` into the JAX package's tree, as torch tensors.
+
+    With ``like`` (a parameter tree), the file must hold exactly its keys
+    with its shapes, else ``ValueError``; each leaf takes the dtype and the
+    device of its counterpart in ``like``, and ``device``/``dtype`` are not
+    read.
+    """
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
-    return from_jax_params(_unflatten(flat), device=device, dtype=dtype)
+    if like is None:
+        return from_jax_params(unflatten_params(flat), device=device, dtype=dtype)
+    want = flatten_params(like)
+    if sorted(flat) != sorted(want):
+        raise ValueError(f"{path}: keys {sorted(flat)} differ from the model's {sorted(want)}")
+    for key, value in want.items():
+        if flat[key].shape != value.shape:
+            raise ValueError(f"{path}: {key} has shape {flat[key].shape}, the model {value.shape}")
+    return _unflatten_like(flat, like)
+
+
+def _unflatten_like(flat: dict, like, prefix: str = ""):
+    if isinstance(like, dict):
+        return {k: _unflatten_like(flat, v, f"{prefix}/{k}" if prefix else k) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return [_unflatten_like(flat, v, f"{prefix}/{i}" if prefix else str(i)) for i, v in enumerate(like)]
+    return torch.as_tensor(flat[prefix], dtype=like.dtype, device=like.device)
+
+
+def tracked_checkpoint_path(name: str, repo_root=None) -> Path:
+    """Where a tracked checkpoint of this name lives, whether or not it exists."""
+    return (Path(repo_root) if repo_root else REPO_ROOT) / "artifacts" / "checkpoints" / name
 
 
 def resolve_checkpoint(name: str, repo_root=None) -> str:
     """Path of a tracked checkpoint under ``artifacts/checkpoints/``."""
-    root = Path(repo_root) if repo_root else REPO_ROOT
-    path = root / "artifacts" / "checkpoints" / name
+    path = tracked_checkpoint_path(name, repo_root)
     if not path.is_file():
         raise FileNotFoundError(f"no tracked checkpoint {path}")
     return str(path)
+
+
+def checkpoint_read_path(name: str, config: Config, retrain: bool, force_retrain: bool) -> str:
+    """Where a checkpoint load may come from (saves always go to
+    ``saved_models_path``): the JAX package's ``training/train.py``
+    ``_checkpoint_read_path``.
+
+    ``config.saved_models_path`` first. Only an eval-only load (neither
+    ``retrain`` nor ``force_retrain``) with the path at its default, compared
+    by ``realpath``, falls back on the tracked ``artifacts/checkpoints/`` when
+    the path has no file: a training run never warm-starts from the tracked
+    weights, and a custom path stays strict.
+    """
+    path = os.path.join(config.saved_models_path, name)
+    if (
+        not retrain
+        and not force_retrain
+        and not os.path.isfile(path)
+        and os.path.realpath(config.saved_models_path) == os.path.realpath(Config.saved_models_path)
+    ):
+        return str(tracked_checkpoint_path(name))
+    return path
 
 
 def model_checkpoint_name(

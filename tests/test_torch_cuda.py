@@ -229,3 +229,85 @@ def test_seed_batched_planner_equals_single_ticks(cuda_device):
         a1, U1, _ = mppi_command(cfg, mppi_params, dynamics, cost, U[s], obs[s], buffer[s], noise=noise[s])
         assert float((action[s] - a1).abs().max()) < TOL
         assert float((U_new[s] - U1).abs().max()) < TOL
+
+
+def _copy(tree, device):
+    from neurallaplacecontrol_tpu_torch.models.common import tree_map
+
+    return tree_map(lambda x: x.to(device), tree)
+
+
+@pytest.mark.cuda
+def test_training_segment_on_card_matches_cpu_f64(cuda_device):
+    """50 updates of a narrow NL (nl_hidden_units=16) at f64 on the card and
+    on the CPU from the same init, data and batch order: the losses, params,
+    moments and count agree at rtol 1e-6 (the card's f64 products add in
+    another order; early training's pole-scale losses amplify that over the
+    updates). The guard's rejections agree too: one planted spike batch."""
+    from neurallaplacecontrol_tpu_torch.models.common import tree_leaves
+    from neurallaplacecontrol_tpu_torch.training import make_optimizer, make_train_segment_fn
+
+    cfg = Config(nl_hidden_units=16)
+    rng = np.random.default_rng(0)
+    n = 400
+    data = [rng.standard_normal((n, 3)), rng.uniform(-2.0, 2.0, (n, 4, 1)), None, rng.exponential(0.05, (n, 1))]
+    data[2] = data[0] + 0.1 * rng.standard_normal((n, 3))
+    idx = rng.permutation(n).reshape(50, 8)
+    data[2][idx[10]] = 1e7  # a batch far above the cap
+    results = []
+    for dev in (torch.device("cpu"), cuda_device):
+        model = make_model("nl", "oderl-pendulum", 3, 1, 2.0, cfg, dtype=torch.float64, device=dev)
+        params = _copy(model.init(torch.Generator().manual_seed(0)), "cpu") if dev.type == "cpu" else \
+            _copy(results[0][3], dev)
+        opt = make_optimizer(cfg)
+        tensors = [torch.tensor(x, device=dev) for x in data]
+        p, state, losses = make_train_segment_fn(model, opt)(params, opt.init(params), *tensors,
+                                                              torch.tensor(idx, device=dev), 1e11)
+        results.append((_copy(p, "cpu"), _copy([state.mu, state.nu], "cpu"), (int(state.count), losses.cpu()),
+                        _copy(params, "cpu")))
+    (p_cpu, m_cpu, (c_cpu, l_cpu), _), (p_gpu, m_gpu, (c_gpu, l_gpu), _) = results
+    assert c_cpu == c_gpu == 49
+    np.testing.assert_allclose(l_gpu.numpy(), l_cpu.numpy(), rtol=1e-6)
+    for a, b in zip(tree_leaves([p_gpu, m_gpu]), tree_leaves([p_cpu, m_cpu])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["fourier", "dehoog", "stehfest", "fixed_talbot", "euler", "cme"])
+def test_nl_every_ilt_on_card_matches_cpu_f64(algorithm, cuda_device):
+    """The NL forward under each ILT and its gradient on the card against the
+    CPU at f64 (complex128 on both): rtol 1e-9 (stehfest 1e-5 of the largest
+    value: its 3.6e9 weights cancel, and the card adds in another order)."""
+    from neurallaplacecontrol_tpu_torch.models.common import tree_leaves
+
+    cfg = Config(nl_hidden_units=16, nl_ilt_algorithm=algorithm)
+    rng = np.random.default_rng(1)
+    inputs = (rng.standard_normal((32, 3)), rng.uniform(-2.0, 2.0, (32, 4, 1)), rng.uniform(0.02, 0.1, (32, 1)))
+    weights = rng.standard_normal((32, 3))
+    outs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        model = make_model("nl", "oderl-pendulum", 3, 1, 2.0, cfg, dtype=torch.float64, device=dev)
+        params = _copy(model.init(torch.Generator().manual_seed(2)), dev)
+        leaves = [x.requires_grad_(True) for x in tree_leaves(params)]
+        out = model.apply(params, *(torch.tensor(x, device=dev) for x in inputs))
+        grads = torch.autograd.grad(torch.sum(out * torch.tensor(weights, device=dev)), leaves)
+        outs.append([out.detach().cpu()] + [g.cpu() for g in grads])
+    rtol = 1e-5 if algorithm == "stehfest" else 1e-9
+    for got, exp in zip(outs[1], outs[0]):
+        assert bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.numpy(), exp.numpy(), rtol=rtol, atol=rtol * float(exp.abs().max()))
+
+
+@pytest.mark.cuda
+def test_fused_planner_refuses_bad_widths_on_card(cuda_device):
+    """Widths the forward kernel cannot take raise before anything is packed
+    or launched; the plain forward is never used in its place."""
+    before = tnl.nl_forward_fused.launches
+    for hidden in (24, 160):
+        model = make_model("nl", "oderl-pendulum", 3, 1, 2.0, Config(nl_hidden_units=hidden), device=cuda_device)
+        with pytest.raises(ValueError, match="fused NL forward takes"):
+            model.make_fused_planner_apply(model.init(torch.Generator().manual_seed(0)), DT)
+    model = make_model("nl", "oderl-pendulum", 3, 1, 2.0, Config(nl_ilt_algorithm="cme"), device=cuda_device)
+    with pytest.raises(ValueError, match="fourier-only"):
+        model.make_fused_planner_apply(model.init(torch.Generator().manual_seed(0)), DT)
+    assert tnl.nl_forward_fused.launches == before

@@ -12,6 +12,7 @@ their error against the 1e-3 limit (KERNEL_TOL) that tests/test_torch_cuda.py
 and chip_smoke.py hold the CUDA kernels to on a GPU.
 """
 
+import sys
 from pathlib import Path
 
 import jax
@@ -31,7 +32,7 @@ from neurallaplacecontrol_tpu_torch.models import make_model as torch_make_model
 from neurallaplacecontrol_tpu_torch.ops import nl_cuda
 from neurallaplacecontrol_tpu_torch.ops import pallas_ilt as tilt
 from neurallaplacecontrol_tpu_torch.ops import pallas_nl as tnl
-from neurallaplacecontrol_tpu_torch.utils.checkpoint import load_pytree, model_checkpoint_name
+from neurallaplacecontrol_tpu_torch.utils.checkpoint import from_jax_params, load_pytree, model_checkpoint_name
 
 torch.set_num_threads(1)
 
@@ -450,3 +451,38 @@ def test_repack_rejects_terms_past_the_block():
     packed = tilt.pack_head_weights(head["w"], head["b"], 5, 17, 0.125)
     with pytest.raises(ValueError, match="terms=33"):
         tilt.repack_head(packed, 5, 33)
+
+
+@pytest.mark.parametrize("weights", ["init", "final"])
+def test_forward_errors_scale_to_the_fourier_terms(weights):
+    """chip_smoke.forward_errors, which holds the forward kernel on weights
+    early in training, on the JAX run's weights of artifacts/port/
+    jax_train_pendulum_d1.npz (init and after 250 updates). With the f32
+    plain forward as the kernel's output it reads 0 against the plain
+    forward and the plain forward's own distance to the f64 one. A shift of
+    1e-3 times each output's term size, 1 + sum_k |term_k| with every term
+    formed apart here, reads as 1e-3 in ``kernel_cond`` to within that
+    distance, while ``kernel_vs_plain`` reads it as more than 1."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    params = chip_smoke.read_jax_train_reference()[weights]
+    model = torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, TConfig(), device="cpu")
+    packed = model.make_fused_planner_apply(from_jax_params(params, device="cpu"), DT).packed
+    obs, acts = (torch.as_tensor(x) for x in draw("oderl-pendulum", 300))
+    acts = acts.reshape(300, -1)
+    plain = tnl.nl_forward_plain(obs, acts, packed, 3, 1)
+    e = chip_smoke.forward_errors(plain, obs, acts, packed, 3, 1)
+    assert e["kernel_vs_plain"] == 0.0 and e["kernel_cond"] == e["plain_cond"] < 1e-5
+    assert e["max_term_sum"] >= e["max_abs_out"] > 1e3  # outputs cancel terms far larger
+
+    p64 = tuple(x.double() for x in packed)
+    hid = tnl.nl_trunk_plain(obs.double(), acts.double(), p64, 1)
+    w_t, w_p, b_t, b_p, s_re, s_im = p64[15:]
+    f_re, f_im = tilt._sphere_f(hid @ w_t + b_t, hid @ w_p + b_p)
+    terms = f_re[:, :, None] * s_re[None] - f_im[:, :, None] * s_im[None]  # [B, cols, D]
+    size = 1.0 + (f_re[:, :, None] * s_re[None]).abs().sum(1) + (f_im[:, :, None] * s_im[None]).abs().sum(1)
+    exp64 = terms.sum(1)[:, :3]
+    shifted = (exp64 + 1e-3 * size[:, :3]).float()
+    s = chip_smoke.forward_errors(shifted, obs, acts, packed, 3, 1)
+    assert abs(s["kernel_cond"] - 1e-3) < 1e-5 and s["kernel_vs_plain"] > 1.0

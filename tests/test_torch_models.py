@@ -131,9 +131,92 @@ def test_unported_models_raise():
     with pytest.raises(NotImplementedError):
         torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0,
                          TConfig(nl_compute_dtype="bfloat16"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0,
-                         TConfig(nl_ilt_algorithm="dehoog"), device="cpu")
+    # the fused planner forward takes the fourier ILT and the kernel's widths only
+    model = torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, TConfig(nl_ilt_algorithm="dehoog"),
+                             device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="fourier-only"):
+        model.make_fused_planner_apply(params, 0.05)
+    for hidden in (24, 160):  # GRU 12 (not a multiple of 8); GRU 80 (above 64)
+        model = torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, TConfig(nl_hidden_units=hidden),
+                                 device="cpu")
+        with pytest.raises(ValueError, match="fused NL forward takes"):
+            model.make_fused_planner_apply(model.init(torch.Generator().manual_seed(0)), 0.05)
+
+
+@pytest.mark.parametrize("hidden", [16, 48, 128])
+@pytest.mark.parametrize("encode_obs_time", [False, True])
+def test_init_matches_jax_tree(hidden, encode_obs_time):
+    """The port's init has JAX's keys, shapes and dtypes; its values lie in
+    the JAX distributions' bounds (xavier for linear weights, 1/sqrt(in)
+    for linear biases, 1/sqrt(H) for the GRU); count_params agrees."""
+    from neurallaplacecontrol_tpu.models import count_params as jax_count_params
+    from neurallaplacecontrol_tpu.utils.checkpoint import _flatten
+    from neurallaplacecontrol_tpu_torch.models import count_params
+    from neurallaplacecontrol_tpu_torch.utils.checkpoint import flatten_params
+
+    env = "oderl-acrobot"
+    n, m, high = ENV_DIMS[env]
+    kw = dict(nl_hidden_units=hidden, encode_obs_time=encode_obs_time)
+    jparams = jax_make_model("nl", env, n, m, high, JConfig(**kw), dtype=jnp.float64).init(jax.random.PRNGKey(0))
+    tmodel = torch_make_model("nl", env, n, m, high, TConfig(**kw), dtype=torch.float64, device="cpu")
+    tparams = tmodel.init(torch.Generator().manual_seed(0))
+    jflat, tflat = _flatten(jparams), flatten_params(tparams)
+    assert sorted(jflat) == sorted(tflat)
+    for key, exp in jflat.items():
+        got = tflat[key]
+        assert got.shape == exp.shape and got.dtype == exp.dtype, key
+        fan_in = got.shape[0]
+        if "gru" in key:
+            bound = 1.0 / np.sqrt(tparams["encoder"]["gru"][0]["w_hh"].shape[0])
+        elif key.endswith("/w"):
+            bound = np.sqrt(6.0 / (got.shape[0] + got.shape[1]))
+        else:  # a linear bias: bound from its layer's weight
+            fan_in = tflat[key[:-1] + "w"].shape[0]
+            bound = 1.0 / np.sqrt(fan_in)
+        assert np.abs(got).max() <= bound, key
+        if got.size >= 64:  # enough draws to reach the top half of the range
+            assert np.abs(got).max() > 0.5 * bound, key
+    assert count_params(tparams) == jax_count_params(jparams)
+    # the same generator seed gives the same init; another seed another
+    again = tmodel.init(torch.Generator().manual_seed(0))
+    other = tmodel.init(torch.Generator().manual_seed(1))
+    np.testing.assert_array_equal(flatten_params(again)["laplace_rep/0/w"], tflat["laplace_rep/0/w"])
+    assert not np.array_equal(flatten_params(other)["laplace_rep/0/w"], tflat["laplace_rep/0/w"])
+
+
+@pytest.mark.parametrize("algorithm", ["fourier", "dehoog", "stehfest", "fixed_talbot", "euler", "cme"])
+def test_nl_apply_every_ilt_matches_jax_f64(algorithm):
+    """A narrow NL (nl_hidden_units=16) under each ILT, JAX's init carried
+    over by from_jax_params: cme snaps its terms (17 -> 15) in both. At query
+    times around dt; rtol 1e-9, atol 1e-9 (stehfest: 1e-5 of the largest
+    output, the rounding of its 3.6e9-weight sum in another order)."""
+    env = "oderl-pendulum"
+    n, m, high = ENV_DIMS[env]
+    cfg = JConfig(nl_hidden_units=16, nl_ilt_algorithm=algorithm)
+    model, japply = jax_apply(env, jnp.float64, cfg)
+    jparams = model.init(jax.random.PRNGKey(0))
+    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    assert tparams["laplace_rep"][-1]["w"].shape == jparams["laplace_rep"][-1]["w"].shape
+    obs, abuf, _ = inputs(env, B=32, seed=4)
+    ts = np.random.default_rng(5).uniform(0.02, 0.1, (32, 1))
+    got, exp = run_both(env, jparams, tparams, obs, abuf, ts, "f64", cfg,
+                        TConfig(nl_hidden_units=16, nl_ilt_algorithm=algorithm))
+    assert np.all(np.isfinite(got))
+    if algorithm == "stehfest":
+        np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-5 * np.abs(exp).max())
+    else:
+        np.testing.assert_allclose(got, exp, rtol=1e-9, atol=1e-9)
+
+
+def test_cme_terms_match_jax():
+    from neurallaplacecontrol_tpu.config import cme_reconstruction_terms as jterms
+    from neurallaplacecontrol_tpu.config import snap_cme_terms as jsnap
+    from neurallaplacecontrol_tpu_torch.config import cme_reconstruction_terms, snap_cme_terms
+
+    assert cme_reconstruction_terms() == jterms()
+    for terms in (5, 16, 17, 33, 100, 217, 600):
+        assert snap_cme_terms(terms) == jsnap(terms)
 
 
 def test_config_fields_match_jax_defaults():

@@ -14,8 +14,14 @@ import pytest
 import torch
 
 import neurallaplacecontrol_tpu_torch as port
-from neurallaplacecontrol_tpu_torch.data import collect_expert_data, load_replay_buffer, save_replay_buffer
-from neurallaplacecontrol_tpu_torch.training import SeedDraws, evaluate_policy
+from neurallaplacecontrol_tpu_torch.data import (
+    SyntheticDraws,
+    collect_expert_data,
+    get_val_loss_delay_time_multi,
+    load_replay_buffer,
+    save_replay_buffer,
+)
+from neurallaplacecontrol_tpu_torch.training import SeedDraws, evaluate_policy, train_model
 from neurallaplacecontrol_tpu_torch.utils import checkpoint
 
 torch.set_num_threads(1)
@@ -78,6 +84,35 @@ def test_port_and_chip_smoke_import_and_tick_without_jax():
         r = evaluate_policy("nl", env, 1, [0, 1], cfg.replace(dt=2.5), model_apply=model.apply,
                             params=params, roll_outs=8, time_steps=2, device="cpu")
         assert len(r["total_rewards"]) == 2
+        # the training slice: the JAX run's artifact through chip_smoke's
+        # reader, a few port updates on it, synthetic data, validation, all ILTs
+        from neurallaplacecontrol_tpu_torch.data import SyntheticDraws, get_val_loss_delay_time_multi
+        from neurallaplacecontrol_tpu_torch.ops import inverse_laplace
+        from neurallaplacecontrol_tpu_torch.training import make_optimizer, make_train_segment_fn, train_model
+        from neurallaplacecontrol_tpu_torch.utils.checkpoint import from_jax_params
+        ref = chip_smoke.read_jax_train_reference()
+        assert ref["losses"].shape == ref["losses64"].shape == (1, 250) and ref["meta"]["env"] == "oderl-pendulum"
+        pmodel = port.make_model("nl", "oderl-pendulum", 3, 1, 2.0, port.Config(), device="cpu")
+        p0 = from_jax_params(ref["init"], device="cpu")
+        opt = make_optimizer(port.Config())
+        data = [torch.as_tensor(ref["data"][k]) for k in ("s0", "a0", "sn", "ts")]
+        idx = torch.as_tensor(ref["batch_idx"][0][:3], dtype=torch.long)
+        _, state, losses = make_train_segment_fn(pmodel, opt)(p0, opt.init(p0), *data, idx)
+        assert int(state.count) == 3 and bool(torch.isfinite(losses).all())
+        env_p = port.make_env("oderl-pendulum")
+        val = get_val_loss_delay_time_multi(pmodel.apply, p0, env_p, 1, samples_per_dim=2, device="cpu")
+        assert val > 0
+        for alg in ("fourier", "dehoog", "stehfest", "fixed_talbot", "euler", "cme"):
+            f = inverse_laplace(lambda s: 1.0 / (s + 1.0), torch.tensor([0.5, 1.0]), 17, alg)
+            assert bool(torch.isfinite(f).all()), alg
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            tcfg = port.Config(train_with_expert_trajectories=False, train_samples_per_dim=2,
+                               nl_hidden_units=16, training_epochs=1, saved_models_path=tmp + "/",
+                               end_training_after_seconds=None)
+            _, _, res = train_model("nl", "oderl-pendulum", tcfg, delay=1, retrain=True,
+                                    force_retrain=True, device="cpu")
+            assert len(res["epoch_losses"]) == 1
         loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                         or m == "neurallaplacecontrol_tpu"
                         or m.startswith("neurallaplacecontrol_tpu."))
@@ -111,6 +146,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     save_replay_buffer(path, *(torch.zeros(2, 1) for _ in range(4)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_replay_buffer(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_model("nl", "oderl-pendulum", port.Config(saved_models_path=str(tmp_path) + "/"), retrain=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticDraws(0)
+    env = port.make_env("oderl-pendulum")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_val_loss_delay_time_multi(lambda *a: None, None, env, 1)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
