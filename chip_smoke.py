@@ -26,7 +26,17 @@ the closed forms. Phase ``train`` runs the port's first training segment
 forward against them, trains with ``training.train_model`` on the collected
 buffer (full width, 4 epochs), checks the forward kernel on the weights it
 trained against the f64 forward, and evaluates them through the kernel with
-the oracle and random over seeds 0-19.
+the oracle and random over seeds 0-19. Phase ``baselines`` runs the four
+baseline families (rnn, delta_t_rnn, node, latent_ode) on pendulum d1 at
+full width from their tracked checkpoints: each forward against the JAX
+package's f64 outputs in ``artifacts/port/jax_baselines_pendulum_d1.npz``
+(made by ``scripts/port_jax_baselines_reference.py``), the latent ODE's also
+over one 40-step carried horizon; ``evaluate_policy`` of rnn, delta_t_rnn
+and node over seeds 0-19 (200 steps), with the oracle and random, against
+the JAX package's recorded returns; the latent ODE's episode with carried
+history, cut to its first steps (``scripts/port_baselines_eval.py eval``
+runs it in full); ``train_model`` of each family on the collected buffer;
+and the reference's 20-update training segments at f64.
 
 Every phase prints ``phase <name> start`` and ``phase <name> done <seconds>``.
 Any failure raises, and the script exits non-zero. The last three lines are
@@ -58,21 +68,27 @@ from neurallaplacecontrol_tpu_torch.data import (
     get_val_loss_delay_time_multi,
     load_replay_buffer,
     replay_buffer_filename,
+    save_replay_buffer,
 )
 from neurallaplacecontrol_tpu_torch.envs import env_step, make_env
-from neurallaplacecontrol_tpu_torch.models import make_model
+from neurallaplacecontrol_tpu_torch.models import make_carried_dynamics, make_latent_ode_model, make_model
+from neurallaplacecontrol_tpu_torch.models.base import norm_stats_for
+from neurallaplacecontrol_tpu_torch.models.common import mlp_apply_tanh
 from neurallaplacecontrol_tpu_torch.ops import ilt, nl_cuda, pallas_ilt, pallas_nl
+from neurallaplacecontrol_tpu_torch.ops.integrate import odeint_dopri5_with_stats
 from neurallaplacecontrol_tpu_torch.results import mean_confidence_interval, normalized_scores
 from neurallaplacecontrol_tpu_torch.training import (
     EpisodeSettings,
     SeedDraws,
     evaluate_policy,
+    make_batched_episode_fn,
     make_episode_fn,
     train_model,
 )
 from neurallaplacecontrol_tpu_torch.training.eval import build_planner
 from neurallaplacecontrol_tpu_torch.models.common import tree_leaves
 from neurallaplacecontrol_tpu_torch.training.train import make_optimizer, make_train_segment_fn, median
+from neurallaplacecontrol_tpu_torch.training.train_latent_ode import build_history_windows, make_latent_ode_segment_fn
 from neurallaplacecontrol_tpu_torch.utils.checkpoint import (
     from_jax_params,
     load_pytree,
@@ -166,6 +182,31 @@ CME_PAIRS = (
     (lambda s: s / (s * s + 1), np.cos, 4e-4, 1e-5),
     (lambda s: 1 / torch.sqrt(s), lambda t: 1 / np.sqrt(np.pi * t), 3e-5, 5e-7),
 )
+# Phase ``baselines``: the four baseline families on pendulum d1, the one cell
+# with a tracked checkpoint of every family, against the JAX package's f64
+# run of ``scripts/port_jax_baselines_reference.py``
+JAX_BASELINES_REFERENCE = ROOT / "artifacts" / "port" / "jax_baselines_pendulum_d1.npz"
+BASELINE_ENV = "oderl-pendulum"
+BASELINE_FAMILIES = ("rnn", "delta_t_rnn", "node", "latent_ode")
+BASELINE_EVAL_FAMILIES = ("rnn", "delta_t_rnn", "node")  # evaluated in full: 20 seeds, 200 steps
+DT = 0.05  # Config().dt, the planner's query horizon
+BASELINE_FORWARD_TOL = 1e-3  # rel_err of the f32 forward on the card against JAX's f64
+# The latent ODE's episode is cut to its first steps here (a tick took 2.8 s on
+# an NVIDIA H100 80GB HBM3 at 700 W, host-bound); scripts/port_baselines_eval.py
+# runs all 200 and traces a tick
+LATENT_ODE_STEPS = 5
+# pendulum's reward per step is -(l^2 ((1 - cos)^2 + sin^2) + c thdot^2 + c_u u^2):
+# the JAX random policy averages -2.9 on this cell; a cut episode of planned
+# steps stays above this floor unless it diverges
+LATENT_ODE_MIN_REWARD = -20.0
+BASELINE_TRAIN_ROWS = 800  # train_model's data: the collected buffer's first rows
+BASELINE_TRAINING = {  # family: (epochs, iters_per_log, training_use_only_samples)
+    "rnn": (3, 25, None),
+    "delta_t_rnn": (3, 25, None),
+    "node": (2, 50, 100),  # batch size 1: 100 updates an epoch
+    "latent_ode": (2, 25, None),
+}
+BASELINE_SEGMENT_LIMIT = 1e-7  # each f64 update's loss against JAX's, relative
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (NVIDIA data sheet)
 SPLIT_PASSES = 3  # split TF32: hi*hi + hi*lo + lo*hi per product
@@ -563,7 +604,7 @@ def run_eval(device, smi: str) -> dict:
                         "jax_commit": ref["commit"]}
 
     # three seed-batched ticks of the same episode loop under torch.profiler
-    env_t, mppi_cfg, mppi_params, dynamics = build_planner(
+    env_t, mppi_cfg, mppi_params, dynamics, _ = build_planner(
         "nl", MAIN_ENV, DELAY, cfg, model_apply=model.apply, params=params, roll_outs=K, time_steps=T,
         device=device)
     ticks = make_episode_fn(env_t, dynamics, mppi_cfg, mppi_params,
@@ -816,6 +857,7 @@ def run_train(device, smi: str, tmp: str) -> dict:
         "eval": {name: policy_stats(r) for name, r in results.items()}, "nl_normalized_ci95": [mean, ci],
     }
     print("train " + json.dumps(out), flush=True)
+    out["eval_results"] = results  # phase baselines scores its families against this oracle and random
 
     for what, (value, limit) in jax_checks.items():
         if not value < limit:
@@ -842,6 +884,254 @@ def run_train(device, smi: str, tmp: str) -> dict:
     if launches["nl_forward"] != (EVAL_STEPS + 1) * T:
         raise RuntimeError(f"nl_forward launched {launches['nl_forward']} times in phase train")
     return out
+
+
+def read_jax_baselines_reference(path=JAX_BASELINES_REFERENCE) -> dict:
+    """The record of ``scripts/port_jax_baselines_reference.py``: its arrays by
+    name ("inputs/obs", "out/rnn", ...), with ``meta`` and ``jax_returns``
+    parsed from their JSON."""
+    with np.load(path) as z:
+        rec = {k: z[k] for k in z.files}
+    rec["meta"] = json.loads(str(rec["meta"]))
+    rec["jax_returns"] = json.loads(str(rec["jax_returns"]))
+    return rec
+
+
+def load_family(family: str, device, dtype=torch.float32, z0_noise=None, config=None):
+    """(model, params) of a baseline family on its tracked pendulum-d1
+    checkpoint, loaded into the model's own tree (``load_pytree(like=...)``).
+    ``z0_noise`` replaces the latent ODE's fixed draw."""
+    cfg = config or port.Config()
+    if family == "latent_ode" and z0_noise is not None:
+        model = make_latent_ode_model(3, 1, norm_stats_for(BASELINE_ENV, 2.0, 1), dt=cfg.dt, dtype=dtype,
+                                      device=device, z0_noise=torch.as_tensor(z0_noise))
+    else:
+        model = make_model(family, BASELINE_ENV, 3, 1, 2.0, cfg, dtype=dtype, device=device)
+    path = resolve_checkpoint(model_checkpoint_name(family, BASELINE_ENV, DELAY, "exp", 0, True))
+    return model, load_pytree(path, like=model.init(torch.Generator(device=device).manual_seed(0)))
+
+
+def latent_ode_accepted_steps(model, params, obs, abuf, ts, eps) -> torch.Tensor:
+    """Each row's accepted dopri5 steps in the latent ODE's forward from
+    z0 = z_mean + z_std * eps (the decode ``predict_diff`` runs)."""
+    A = abuf.shape[1]
+    z_mean, z_std = model.encode_history(params, obs[:, None].expand(-1, A, -1), abuf[..., :model.action_dim])
+    t1 = ts.reshape(-1)
+    _, n_acc = odeint_dopri5_with_stats(
+        lambda z, _t: mlp_apply_tanh(params["dec_ode"], z), z_mean + z_std * eps,
+        torch.stack([torch.zeros_like(t1), t1], dim=1), rtol=1e-3, atol=1e-4, max_steps=24)
+    return n_acc[0]
+
+
+def baseline_forwards(ref: dict, device) -> dict:
+    """Each family's f32 forward on the card against the JAX package's f64
+    forward on the reference's 1,000 queries, as ``rel_err``; the latent ODE
+    on JAX's z0 draw, with the share of rows whose accepted dopri5 step count
+    differs from JAX's, the error over the rows whose counts agree and over
+    all rows, ``decoder_nfes`` against JAX's, and the carried dynamics over
+    one 40-step horizon (the final states of all rows, every step's states
+    of the first 100)."""
+    q = [torch.as_tensor(ref[f"inputs/{k}"], device=device) for k in ("obs", "abuf", "ts")]
+    out = {}
+    with torch.no_grad():
+        for family in BASELINE_FAMILIES:
+            model, params = load_family(family, device, z0_noise=ref["latent_ode/z0"])
+            t0 = time.perf_counter()
+            got = model.apply(params, *q)
+            torch.cuda.synchronize()
+            exp = torch.as_tensor(ref[f"out/{family}"], device=device)
+            rec = {"rel_err": rel_err(got.double(), exp), "max_abs_err": float((got.double() - exp).abs().max()),
+                   "finite": bool(torch.isfinite(got).all()), "ms": 1e3 * (time.perf_counter() - t0)}
+            if family == "latent_ode":
+                eps = torch.as_tensor(ref["latent_ode/z0"], dtype=torch.float32, device=device)
+                n_acc = latent_ode_accepted_steps(model, params, *q, eps).cpu().numpy()
+                agree = n_acc == ref["latent_ode/n_acc"]
+                row_err = ((got.double() - exp).abs() / (1.0 + exp.abs())).amax(dim=1).cpu().numpy()
+                nfes = model.decoder_nfes(params, *q).cpu().numpy()
+                rec.update({"steps_differ_share": float(1.0 - agree.mean()), "rel_err_all_rows": rec["rel_err"],
+                            "rel_err": float(row_err[agree].max()) if agree.any() else math.inf,
+                            "nfes": nfes.tolist(), "jax_nfes": ref["latent_ode/nfes"].tolist()})
+                carry_init, dyn = make_carried_dynamics(model, params, DT, 3, 1)
+                state = torch.as_tensor(ref["carried/state0"], device=device)
+                full = torch.as_tensor(ref["carried/full"], device=device)
+                carry, traced = carry_init(state), []
+                for t in range(full.shape[1] - 3):
+                    carry, state = dyn(carry, state, full[:, t:t + 4])
+                    traced.append(state[:ref["carried/states"].shape[1]])
+                rec["carried_final_rel_err"] = rel_err(state.double(), torch.as_tensor(ref["carried/final"],
+                                                                                        device=device))
+                rec["carried_steps_rel_err"] = rel_err(torch.stack(traced).double(),
+                                                       torch.as_tensor(ref["carried/states"], device=device).double())
+            out[family] = rec
+    return out
+
+
+def baseline_segments(ref: dict, device, dtype=torch.float64, config=None) -> dict:
+    """The reference's 20-update training segment of each family from its
+    checkpoint at ``dtype``, on the same data and batch indices (and, for the
+    latent ODE, JAX's IWAE draws): the largest relative gap of one update's
+    loss to JAX's f64 run. ``config`` replaces the default (a planted fault)."""
+    cfg = config or port.Config()
+    data = read_jax_train_reference()["data"]
+    s0, a0, sn, ts = (torch.as_tensor(data[k], dtype=dtype, device=device) for k in ("s0", "a0", "sn", "ts"))
+    optimizer = make_optimizer(cfg)
+    out = {}
+    for family in BASELINE_FAMILIES:
+        model, params = load_family(family, device, dtype=dtype, config=cfg)
+        idx = torch.as_tensor(ref[f"train/{family}/batch_idx"], dtype=torch.long, device=device)
+        t0 = time.perf_counter()
+        if family == "latent_ode":
+            windows = build_history_windows(s0, a0, sn, ts, cfg.action_buffer_size)
+            eps = torch.as_tensor(ref["train/latent_ode/eps"], dtype=dtype, device=device)
+            _, _, losses = make_latent_ode_segment_fn(model, optimizer)(params, optimizer.init(params), eps,
+                                                                          *windows, idx)
+        else:
+            _, _, losses = make_train_segment_fn(model, optimizer)(params, optimizer.init(params), s0, a0, sn, ts,
+                                                                   idx)
+        losses = losses.double().cpu().numpy()
+        exp = ref[f"train/{family}/losses"]
+        out[family] = {"update_loss_rel_gap": float(np.max(np.abs(losses - exp) / np.abs(exp))),
+                       "ms_per_update": 1e3 * (time.perf_counter() - t0) / len(losses),
+                       "first_loss": float(losses[0]), "last_loss": float(losses[-1])}
+    return out
+
+
+def family_training(device, tmp: str) -> dict:
+    """``train_model`` of each family on the first ``BASELINE_TRAIN_ROWS`` rows
+    of the buffer phase ``collect`` wrote, from the port's init at the default
+    config but for the epochs and the log cadence: node at batch size 1, the
+    latent ODE through ``train_latent_ode``. Epoch mean losses, first and last."""
+    rows = load_replay_buffer(Path(tmp) / replay_buffer_filename(COLLECT_ENV, DELAY), device=device)
+    data_dir = Path(tmp) / "baselines"
+    save_replay_buffer(data_dir / replay_buffer_filename(COLLECT_ENV, DELAY),
+                       *(x[:BASELINE_TRAIN_ROWS] for x in rows))
+    out = {}
+    for family, (epochs, per_log, subset) in BASELINE_TRAINING.items():
+        cfg = port.Config(offline_datasets_path=str(data_dir), saved_models_path=str(data_dir / "saved") + "/",
+                          training_epochs=epochs, iters_per_log=per_log, training_use_only_samples=subset,
+                          end_training_after_seconds=None)
+        t0 = time.perf_counter()
+        _, _, res = train_model(family, BASELINE_ENV, cfg, delay=DELAY, retrain=True, force_retrain=True,
+                                device=device)
+        torch.cuda.synchronize()
+        out[family] = {"epochs": epochs, "iters_per_log": per_log, "samples": subset or BASELINE_TRAIN_ROWS,
+                       "epoch_losses": res["epoch_losses"],
+                       "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def run_baselines(device, smi: str, tmp: str, baselines: dict) -> dict:
+    """Phase ``baselines``: the four baseline families on pendulum d1 at full
+    width, each held against the JAX package: the forwards on the card
+    against JAX's f64 outputs; the 20-seed, 200-step evaluation of rnn,
+    delta_t_rnn and node, with the oracle and random, against the JAX
+    package's recorded returns; a cut episode of the latent ODE with carried
+    history; ``train_model`` of each family on the collected buffer; and
+    the reference's 20-update segments at f64. ``baselines`` holds the
+    ``evaluate_policy`` results of random and the oracle on this cell (phase
+    ``train`` runs them)."""
+    ref = read_jax_baselines_reference()
+    timings = {}
+    t0 = time.perf_counter()
+    forwards = baseline_forwards(ref, device)
+    timings["forwards_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    n = len(EVAL_SEEDS)
+    results = {name: baselines[name] for name in ("random", "oracle")}
+    families = {}
+    for name in BASELINE_EVAL_FAMILIES:
+        model, params = load_family(name, device)
+        results[name] = evaluate_policy(name, BASELINE_ENV, DELAY, EVAL_SEEDS, port.Config(),
+                                        model_apply=model.apply, params=params, roll_outs=K, time_steps=T,
+                                        device=device)
+        env_t, mppi_cfg, mppi_params, dynamics, _ = build_planner(
+            name, BASELINE_ENV, DELAY, port.Config(), model_apply=model.apply, params=params, roll_outs=K,
+            time_steps=T, device=device)
+        tick = make_episode_fn(env_t, dynamics, mppi_cfg, mppi_params, EpisodeSettings(delay=DELAY, n_steps=1))
+        families[name] = {"trace": trace_ticks(lambda: tick(SeedDraws(EVAL_SEEDS, device=device))[0].cpu(), 1,
+                                               1e3 * results[name]["episode_elapsed_time"] / EVAL_STEPS)}
+    timings["eval_s"] = time.perf_counter() - t0
+    scores = normalized_scores(results.values(), agg="std")
+    checks = {}
+    for name, r in results.items():
+        got = np.asarray(r["total_rewards"])
+        jax_ret = np.asarray(ref["jax_returns"][name]["total_rewards"])
+        gap = abs(float(got.mean() - jax_ret.mean()))
+        limit = 3.0 * math.sqrt(jax_ret.var(ddof=1) / n + got.var(ddof=1) / n)
+        line = {"family": name, **policy_stats(r), "jax_mean": float(jax_ret.mean()),
+                "jax_std": float(jax_ret.std()), "gap_to_jax": gap, "limit": limit,
+                "jax_file": ref["jax_returns"][name]["file"], "card": smi}
+        if name in families:
+            line["normalized_std"] = list(scores[(DELAY, BASELINE_ENV, name)][:2])
+            line.update(families[name])
+            line["forward"] = forwards[name]
+            checks[name] = (gap, limit)
+        families[name] = line
+        print("baselines " + json.dumps(line), flush=True)
+
+    # the latent ODE: a cut episode with carried history, 20 seeds in lockstep
+    t0 = time.perf_counter()
+    model, params = load_family("latent_ode", device)
+    env_t, mppi_cfg, mppi_params, dynamics, carry_init = build_planner(
+        "latent_ode", BASELINE_ENV, DELAY, port.Config(), model_apply=model, params=params, roll_outs=K,
+        time_steps=T, device=device)
+    episodes = make_batched_episode_fn(env_t, dynamics, mppi_cfg, mppi_params,
+                                       EpisodeSettings(delay=DELAY, n_steps=LATENT_ODE_STEPS),
+                                       dynamics_carry_init=carry_init)
+    totals, records = episodes(EVAL_SEEDS)
+    torch.cuda.synchronize()
+    cut_s = time.perf_counter() - t0
+    tick_ms = 1e3 * cut_s / LATENT_ODE_STEPS
+    timings["latent_ode_cut_episode_s"] = cut_s
+    per_step = records.reward.cpu().numpy()
+    states = records.sn.cpu().numpy()
+    line = {"family": "latent_ode", "steps": LATENT_ODE_STEPS, "of_steps": EVAL_STEPS, "seeds": n,
+            "cut_return_mean": float(totals.mean()), "reward_per_step_min": float(per_step.min()),
+            "reward_per_step_mean": float(per_step.mean()), "episode_batch_s": cut_s, "tick_ms": tick_ms,
+            "ticks_per_s": 1e3 / tick_ms, "forward": forwards["latent_ode"], "card": smi}
+    families["latent_ode"] = line
+    print("baselines " + json.dumps(line), flush=True)
+
+    t0 = time.perf_counter()
+    training = family_training(device, tmp)
+    timings["train_model_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    segments = baseline_segments(ref, device)
+    timings["segments_f64_s"] = time.perf_counter() - t0
+    out = {"env": BASELINE_ENV, "delay": DELAY, "K": K, "T": T, "train_model": training,
+           "segments_f64": segments, "timings": timings, "jax_commit": ref["meta"]["commit"], "card": smi}
+    print("baselines " + json.dumps(out), flush=True)
+
+    for family, rec in forwards.items():
+        if not rec["finite"] or not rec["rel_err"] < BASELINE_FORWARD_TOL:
+            raise RuntimeError(f"{family} forward: {rec['rel_err']} is not below {BASELINE_FORWARD_TOL}: {rec}")
+    lode = forwards["latent_ode"]
+    if not lode["carried_final_rel_err"] < BASELINE_FORWARD_TOL:
+        raise RuntimeError(f"latent_ode carried horizon: {lode['carried_final_rel_err']} is not below "
+                           f"{BASELINE_FORWARD_TOL}")
+    if lode["nfes"] != lode["jax_nfes"]:
+        raise RuntimeError(f"latent_ode decoder_nfes {lode['nfes']}, JAX {lode['jax_nfes']}")
+    for name, (gap, limit) in checks.items():
+        if not gap <= limit:
+            raise RuntimeError(f"{name} mean return is {gap:.3f} from the JAX package's, over the limit {limit:.3f}")
+    returns = [x for r in results.values() for x in r["total_rewards"]]
+    if not all(math.isfinite(x) for x in returns):
+        raise RuntimeError("non-finite episode return in the baselines' evaluation")
+    state_max = np.asarray(env_t.state_max)
+    if not (np.isfinite(per_step).all() and np.isfinite(states).all() and (per_step <= 0.0).all()
+            and per_step.min() >= LATENT_ODE_MIN_REWARD):
+        raise RuntimeError(f"latent_ode cut episode not finite and bounded: rewards {per_step.min()}..{per_step.max()}, "
+                           f"state max {np.abs(states).max()} (box {state_max})")
+    for family, rec in training.items():
+        losses = rec["epoch_losses"]
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"{family}: train_model's loss did not fall: {losses}")
+    for family, rec in segments.items():
+        if not rec["update_loss_rel_gap"] < BASELINE_SEGMENT_LIMIT:
+            raise RuntimeError(f"{family} f64 segment: {rec['update_loss_rel_gap']} is not below "
+                               f"{BASELINE_SEGMENT_LIMIT}")
+    return {"families": families, **out}
 
 
 def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict) -> dict:
@@ -928,6 +1218,9 @@ def main() -> int:
 
         with phase("train"):
             training = run_train(device, smi, tmp)
+
+        with phase("baselines"):
+            run_baselines(device, smi, tmp, training["eval_results"])
 
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     launches = {"controller": result["launches"], "eval": evaluation["launches"],

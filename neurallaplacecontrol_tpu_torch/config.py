@@ -45,11 +45,19 @@ class Config:
     rand_sample: bool = True
     reuse_state_actions_when_sampling_times: bool = False
 
-    # NL model
+    # models
     nl_ilt_algorithm: str = "fourier"
     nl_hidden_units: int = 128
     nl_s_recon_terms: int = 17
     nl_compute_dtype: str = "float32"
+
+    # baseline families
+    node_method: str = "euler"
+    node_augment_dim: int = 1
+    node_hidden_units: int = 270
+    rnn_hidden_units: int = 160
+    latent_ode_hidden_units: int = 128
+    latent_ode_obsrv_std: float = 0.01
 
     # MPPI planner
     mppi_roll_outs: int = 1000

@@ -18,9 +18,10 @@
 //
 // Design. One CTA of 16 warps owns kRows = 8 batch rows, the N side of the MMA, so 125 CTAs
 // cover B = 1000, one per SM. The GRU's and the trunk's products run on the tensor cores in
-// split TF32 ("3xTF32", mma.sync.m16n8k8): x = hi + lo with hi a TF32 value, and
-// a*b ~ hi*hi + hi*lo + lo*hi, each of the three summed in its own f32 accumulator; one pass
-// of TF32 errs by up to 2^-10 per operand and misses the 1e-3 limit. The weights are split
+// split TF32 ("3xTF32", mma.sync.m16n8k8): x = hi + lo with hi and lo TF32 values, and
+// a*b ~ hi*hi + hi*lo + lo*hi, each of the three summed in its own f32 accumulator (the
+// hi*hi one by f32 adds, see mma3); one pass of TF32 errs by up to 2^-11 per operand and
+// misses the 1e-3 limit. The weights are split
 // in registers as they are loaded; each activation is split once, when it is computed, and
 // stored as two planes. The head's two products run in f32 on the CUDA cores (see
 // head_tile). The weights are staged in dynamic shared memory by bulk asynchronous copies
@@ -159,13 +160,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity = 0) {
 
 // ---- split-TF32 tensor-core products ----
 
-// x = hi + lo with hi = x truncated to a TF32 value (its low 13 mantissa bits cleared: one
-// logic operation) and lo = x - hi, exact in f32. The tensor core reads lo's top 11
-// significant bits, which leaves an error below 2^-20 |x|, where one pass of TF32 errs by up to
-// 2^-10 |x|. (cvt.rna.tf32.f32 runs at the conversion unit's quarter rate.)
+// x = hi + lo with hi the TF32 value nearest x and lo the TF32 value nearest x - hi (CUTLASS's
+// 3xTF32 split; x - hi is exact in f32). What the pair leaves of x is below 2^-22 |x|, where
+// one pass of TF32 errs by up to 2^-11 |x|. (Truncating hi, and the tensor core then reading
+// lo truncated too, left up to 2^-20 |x|: 2.6 times the f32 forward's error on early weights.)
+// to_tf32 rounds to nearest with ties away from zero in two integer operations: the bits of
+// cvt.rna.tf32.f32 for every finite x, at the full ALU rate where the conversion takes a
+// quarter (PERF.md, kernel table, times both).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
 }
 
 // An activation that the tensor cores read is stored split once, by the thread that computes
@@ -178,7 +186,7 @@ __device__ __forceinline__ void put_split(float* X, int ld, int r, int k, float 
 }
 
 __device__ __forceinline__ float get_split(const float* X, int ld, int r, int k) {
-  return X[r * ld + k] + X[(kRows + r) * ld + k];  // exact: hi + lo == v
+  return X[r * ld + k] + X[(kRows + r) * ld + k];  // hi + lo: v to within 2^-22 |v|
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -221,7 +229,12 @@ __device__ __forceinline__ void mma3(Acc& acc, float a0, float a1, float a2, flo
   split(a3, hi[3], lo[3]);
   mma_tf32(acc.lh, lo, b.hi[0], b.hi[1]);
   mma_tf32(acc.hl, hi, b.lo[0], b.lo[1]);
-  mma_tf32(acc.hh, hi, b.hi[0], b.hi[1]);
+  // The tensor core truncates when it adds to its accumulator, an error that grows with the
+  // k-steps; the large product is formed apart and added in f32, rounded to nearest.
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, hi, b.hi[0], b.hi[1]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc.hh[j] += t[j];
 }
 
 // acc += W^T X over `ksteps` steps of 8 for one tile, W in fragment order [ksteps][32][4].
@@ -255,7 +268,7 @@ __device__ __forceinline__ void store_tanh(const Acc& acc, const float* bias, fl
 __device__ __forceinline__ float logisticf(float x) { return 1.f / (1.f + expf(-x)); }
 
 // One GRU layer at one step for hidden units 8*group .. 8*group+7 (gates r/z/n,
-// models/common.py gru_gates): h_out = (1 - z) n + z h_in. x (split, row stride ldx) is the
+// models/common.py gru_gates): h_out = (1 - z) n + z h_in, formed as n + z (h_in - n). x (split, row stride ldx) is the
 // layer's input over kx steps of 8; h_in / h_out are split, row stride ldh. w holds the
 // layer's tiles (per group: the r/z tile over [x; h], then the candidate's half tiles),
 // bias = b_ih [3H] | b_hh [3H].
@@ -293,7 +306,7 @@ __device__ __forceinline__ void gru_group(const float* w, const float* bias, int
     const float r = logisticf(rz.get(q) + b_ih[u] + b_hh[u]);
     const float z = logisticf(rz.get(2 + q) + b_ih[H + u] + b_hh[H + u]);
     const float n = tanhf(nn.get(q) + b_ih[2 * H + u] + r * (nn.get(2 + q) + b_hh[2 * H + u]));
-    put_split(h_out, ldh, row, u, (1.f - z) * n + z * get_split(h_in, ldh, row, u));
+    put_split(h_out, ldh, row, u, fmaf(z, get_split(h_in, ldh, row, u) - n, n));  // n + z (h - n)
   }
 }
 

@@ -9,7 +9,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -19,8 +19,8 @@ class DynamicsModel:
     name: str
     init: Callable  # (generator) -> params
     apply: Callable  # (params, obs, action_buffer, ts) -> state_diff
-    # (params, t) -> apply-compatible forward through the fused kernel
-    make_fused_planner_apply: Callable
+    # (params, t) -> apply-compatible forward through the fused kernel (NL only)
+    make_fused_planner_apply: Optional[Callable] = None
 
 
 @dataclass(frozen=True)

@@ -90,6 +90,8 @@ def gru_init(generator, in_dim: int, hidden: int, num_layers: int = 1, dtype=tor
 
 
 def linear_apply(p, x):
+    if x.dim() == 2:  # one fused launch
+        return torch.addmm(p["b"], x, p["w"])
     return x @ p["w"] + p["b"]
 
 
@@ -102,19 +104,18 @@ def mlp_apply_tanh(layers, x):
 
 def gru_gates(gi, gh, h):
     """GRU gate nonlinearity (r/z/n blocks; the candidate's hidden path is
-    gated by reset after the hidden matmul and its own bias)."""
-    i_r, i_z, i_n = torch.chunk(gi, 3, dim=-1)
-    h_r, h_z, h_n = torch.chunk(gh, 3, dim=-1)
-    r = torch.sigmoid(i_r + h_r)
-    z = torch.sigmoid(i_z + h_z)
-    n = torch.tanh(i_n + r * h_n)
-    return (1.0 - z) * n + z * h
+    gated by reset after the hidden matmul and its own bias): h' = (1 - z) n
+    + z h, as n + z (h - n). The r and z gates share one add and one sigmoid,
+    so a step is five elementwise launches."""
+    H = h.shape[-1]
+    rz = torch.sigmoid(gi[..., : 2 * H] + gh[..., : 2 * H])
+    n = torch.tanh(torch.addcmul(gi[..., 2 * H :], rz[..., :H], gh[..., 2 * H :]))
+    return torch.lerp(n, h, rz[..., H:])
 
 
 def _gru_cell(p, h, x):
-    gi = x @ p["w_ih"] + p["b_ih"]
-    gh = h @ p["w_hh"] + p["b_hh"]
-    return gru_gates(gi, gh, h)
+    return gru_gates(linear_apply({"w": p["w_ih"], "b": p["b_ih"]}, x),
+                     linear_apply({"w": p["w_hh"], "b": p["b_hh"]}, h), h)
 
 
 def gru_apply(params, xs):

@@ -16,7 +16,8 @@ takes and returns it.
 
 The JAX horizon ``lax.scan`` is a Python loop over T here, and the JAX
 evaluator's ``vmap`` over seeds is a leading seed axis S on the planner's
-inputs. This module ports the flags the serving controller sets; the JAX module's
+inputs. This module ports the flags the serving controller and the evaluator
+set, carried dynamics (``dynamics_carry_init``) among them; the JAX module's
 ``sample_null_action``, ``noise_abs_cost`` and ``u_per_command`` are not
 fields here, and its other planner features raise ``NotImplementedError``.
 """
@@ -124,11 +125,15 @@ def mppi_command_core(
     only. This is the port's counterpart of ``jax.vmap`` over the planner.
     Without the seed axis the outputs have none either (action [nu], U
     [T, nu], cost_total and omega [K]).
+
+    With ``dynamics_carry_init`` the dynamics carry state through the
+    rollout: ``carry = dynamics_carry_init(state0 [S*K, nx])`` is built anew
+    at every plan, and ``dynamics_fn(carry, state, window) -> (carry,
+    next_state)`` runs at each horizon step (the latent ODE's history,
+    ``models.latent_ode.make_carried_dynamics``).
     """
     if terminal_state_cost is not None:
         _not_ported("terminal_state_cost")
-    if dynamics_carry_init is not None:
-        _not_ported("carried dynamics (dynamics_carry_init)")
     if axis is not None:
         _not_ported("sharding (axis)")
     if window_encoder is not None:
@@ -141,8 +146,8 @@ def mppi_command_core(
     if U.dim() == 2:  # one plan: the S=1 case without its seed axis
         action, U, aux = mppi_command_core(
             cfg, params, dynamics_fn, running_cost_fn, U[None], obs[None], action_buffer[None],
-            noise[None], time_buffer=None if time_buffer is None else time_buffer[None],
-            cost_args=cost_args,
+            noise[None], dynamics_carry_init=dynamics_carry_init,
+            time_buffer=None if time_buffer is None else time_buffer[None], cost_args=cost_args,
         )
         return action[0], U[0], {k: v[0] for k, v in aux.items()}
 
@@ -170,17 +175,21 @@ def mppi_command_core(
 
     # 4. rollout over the horizon, all S*K rows in one dynamics call per step
     state = obs[:, None].expand((S, K) + tuple(obs.shape[1:])).reshape((S * K,) + tuple(obs.shape[1:]))
+    carry = dynamics_carry_init(state) if dynamics_carry_init is not None else None
     costs = []
     for t in range(T):
         window = full[:, :, t : t + A, :].reshape(S * K, A, nu)
-        # time_buffer += dt; roll; newest age = 0
-        ages = torch.roll(ages + cfg.dt, -1, dims=1)
-        ages[:, -1] = 0.0
         dyn_in = window
         if cfg.encode_obs_time:
+            # time_buffer += dt; roll; newest age = 0
+            ages = torch.roll(ages + cfg.dt, -1, dims=1)
+            ages[:, -1] = 0.0
             a = ages[:, None, :, None].expand(S, K, A, 1).reshape(S * K, A, 1).to(window.dtype)
             dyn_in = torch.cat([window, a], dim=2)
-        state = dynamics_fn(state, dyn_in)
+        if carry is None:
+            state = dynamics_fn(state, dyn_in)
+        else:
+            carry, state = dynamics_fn(carry, state, dyn_in)
         costs.append(running_cost_fn(state, window[:, -1, :], *cost_args))
     cost_total = torch.sum(torch.stack(costs), dim=0).reshape(S, K)
 
@@ -210,6 +219,7 @@ def mppi_command(
     noise: Optional[torch.Tensor] = None,
     time_buffer: Optional[torch.Tensor] = None,
     cost_args: tuple = (),
+    dynamics_carry_init: Optional[Callable] = None,
 ):
     """One planning step. Returns (action [S, nu] or [nu] in env units, new U, aux).
 
@@ -225,5 +235,5 @@ def mppi_command(
         noise = _sample_noise(generator, cfg, params)
     return mppi_command_core(
         cfg, params, dynamics_fn, running_cost_fn, U, obs, action_buffer, noise,
-        time_buffer=time_buffer, cost_args=cost_args,
+        dynamics_carry_init=dynamics_carry_init, time_buffer=time_buffer, cost_args=cost_args,
     )

@@ -15,10 +15,12 @@ nominal control interval. The delay is the plant's: ``step`` returns the
 freshly planned action and the caller's plant applies it ``delay`` ticks
 late.
 
-With ``Config.fused_nl_planner`` the NL planner dynamics run through the
-fused forward kernel (ops.pallas_nl), as ``training/eval.py`` does in the
-JAX package. Exporting the step and the compile cache of the JAX module
-are later slices.
+The planner is ``training.eval``'s: the oracle, or a learned family, the
+latent ODE with carried or tiled history as its ``model_apply`` says. With
+``Config.fused_nl_planner`` the NL planner dynamics run through the fused
+forward kernel (ops.pallas_nl), as ``training/eval.py`` does in the JAX
+package. Exporting the step and the compile cache of the JAX module are
+later slices.
 """
 
 from __future__ import annotations
@@ -28,16 +30,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from .config import Config
-from .envs import make_env
-from .models import make_model
-from .planners import (
-    MPPIConfig,
-    default_noise_sigma,
-    make_mppi_params,
-    mppi_command,
-    mppi_reset,
-)
-from .training.rollout import build_learned_dynamics, build_running_cost
+from .planners import mppi_command, mppi_reset
+from .training.eval import build_planner
+from .training.rollout import build_running_cost
 from .utils.device import resolve_device
 
 
@@ -53,7 +48,7 @@ class Controller:
     """A planner tick bound to one (model, env, delay) triple."""
 
     def __init__(self, mppi_cfg, mppi_params, dynamics, cost_fn, n_obs, action_delay,
-                 action_buffer_size, dtype, device):
+                 action_buffer_size, dtype, device, dynamics_carry_init=None):
         self.mppi_cfg = mppi_cfg
         self.mppi_params = mppi_params
         self.dynamics = dynamics
@@ -63,6 +58,7 @@ class Controller:
         self.action_buffer_size = action_buffer_size
         self.dtype = dtype
         self.device = device
+        self.dynamics_carry_init = dynamics_carry_init
         self.generator = torch.Generator(device=device)
 
     def reset(self, seed: int = 0) -> ControllerState:
@@ -84,6 +80,7 @@ class Controller:
             state.U, obs, state.action_buffer,
             generator=self.generator, noise=noise,
             time_buffer=state.ages if self.mppi_cfg.encode_obs_time else None,
+            dynamics_carry_init=self.dynamics_carry_init,
         )
         buffer = torch.roll(state.action_buffer, -1, dims=0)
         buffer[-1] = action
@@ -108,55 +105,28 @@ def make_controller(
 ) -> Controller:
     """Assemble the serving controller (the JAX ``serving.make_controller``).
 
-    ``model_name`` is "nl" with ``model_apply``/``params`` supplied
-    (``models.make_model(...).apply`` and ``utils.checkpoint.load_pytree``);
-    the oracle and the other families are later slices. With
-    ``config.fused_nl_planner`` the planner runs the fused forward kernel on
-    ``params`` (float32 only) in place of ``model_apply``.
+    ``model_name`` is "oracle" (no model), or a learned family with
+    ``model_apply``/``params`` supplied (``models.make_model(...).apply`` and
+    ``utils.checkpoint.load_pytree``), planned as ``training.eval.build_planner``
+    plans it. For "latent_ode", pass the model itself as ``model_apply`` to
+    plan with carried history, its ``apply`` for tiled history. With
+    ``config.fused_nl_planner`` the NL planner runs the fused forward kernel
+    on ``params`` (float32 only) in place of ``model_apply``.
     """
-    device = resolve_device(device)
-    if model_name != "nl":
-        raise NotImplementedError(f"controller for {model_name!r} is not ported yet; only 'nl' is")
-    if model_apply is None or params is None:
-        raise ValueError("learned models need model_apply/params")
-    roll_outs = roll_outs or config.mppi_roll_outs
-    time_steps = time_steps or config.mppi_time_steps
-    dt = config.dt
-    env = make_env(env_name, dt=dt, friction=config.friction)
-    spec = env.spec
-
-    mppi_cfg = MPPIConfig(
-        num_samples=roll_outs,
-        horizon=time_steps,
-        nu=spec.m,
-        lambda_=config.mppi_lambda,
-        u_scale=spec.action_high,
-        u_min=-spec.action_high,
-        u_max=spec.action_high,
-        encode_obs_time=config.encode_obs_time,
-        dt=dt,
-    )
-    mppi_params = make_mppi_params(
-        default_noise_sigma(spec.m, config.mppi_sigma, dtype=dtype, device=device)
-    )
-
-    if config.fused_nl_planner and config.nl_ilt_algorithm == "fourier":
-        if dtype != torch.float32:
-            raise ValueError("the fused NL planner runs in float32")
-        model = make_model(
-            "nl", env_name, spec.n_obs, spec.m, spec.action_high, config,
-            dtype=torch.float32, device=device,
-        )
-        model_apply = model.make_fused_planner_apply(params, dt)
-    dynamics = build_learned_dynamics(model_apply, params, dt)
+    if model_name == "random":
+        raise ValueError("the random policy plans nothing: there is no controller to serve")
+    env, mppi_cfg, mppi_params, dynamics, carry_init = build_planner(
+        model_name, env_name, action_delay, config, model_apply, params, roll_outs, time_steps,
+        dtype=dtype, device=device)
     return Controller(
         mppi_cfg=mppi_cfg,
         mppi_params=mppi_params,
         dynamics=dynamics,
         cost_fn=build_running_cost(env, state_constraint=state_constraint),
-        n_obs=spec.n_obs,
+        n_obs=env.spec.n_obs,
         action_delay=action_delay,
         action_buffer_size=config.action_buffer_size,
         dtype=dtype,
-        device=device,
+        device=resolve_device(device),
+        dynamics_carry_init=carry_init,
     )

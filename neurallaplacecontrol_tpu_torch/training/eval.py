@@ -5,6 +5,13 @@ Equivalent of reference mppi_with_model.mppi_with_model_evaluate_single_step
 (training.rollout), the port's counterpart of the JAX module's vmap over
 PRNG keys; the NL planner dynamics run through the fused forward kernel
 under ``Config.fused_nl_planner``.
+
+The baseline families plan through their plain forward. The latent ODE's
+contract is the JAX module's: handed the model itself (a
+``models.LatentODEModel``) as ``model_apply``, it plans with the rollout's
+own history carried through the horizon (``make_carried_dynamics``); handed
+its bare ``apply``, with the current observation tiled as history. Its
+planner window carries no age channel.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import torch
 
 from ..config import Config
 from ..envs import make_env
-from ..models import make_model
+from ..models import make_carried_dynamics, make_model
 from ..planners import MPPIConfig, default_noise_sigma, make_mppi_params, mppi_command
 from ..utils.device import resolve_device
 from .rollout import (
@@ -28,9 +35,9 @@ from .rollout import (
     make_episode_fn,
 )
 
-EVAL_MODELS = ("nl", "oracle", "random")
-# the JAX package's other evaluation models; their families are not ported yet
-NOT_PORTED_MODELS = ("delta_t_rnn", "rnn", "node", "latent_ode", "latent_ode_ref")
+EVAL_MODELS = ("nl", "oracle", "random", "delta_t_rnn", "rnn", "node", "latent_ode")
+# the JAX package's other evaluation model; its family is not ported yet
+NOT_PORTED_MODELS = ("latent_ode_ref",)
 
 
 def build_planner(
@@ -45,8 +52,9 @@ def build_planner(
     dtype=torch.float32,
     device="cuda",
 ):
-    """(env, mppi_cfg, mppi_params, dynamics) for one policy, as
-    ``evaluate_policy`` plans it; dynamics is None for "random"."""
+    """(env, mppi_cfg, mppi_params, dynamics, dynamics_carry_init) for one
+    policy, as ``evaluate_policy`` plans it; dynamics is None for "random",
+    dynamics_carry_init None but for the latent ODE's carried history."""
     if model_name in NOT_PORTED_MODELS:
         raise NotImplementedError(f"evaluation of {model_name!r} is not ported yet")
     if model_name not in EVAL_MODELS:
@@ -68,18 +76,26 @@ def build_planner(
         u_scale=spec.action_high,
         u_min=-spec.action_high,
         u_max=spec.action_high,
-        encode_obs_time=config.encode_obs_time,
+        # the latent ODE takes no age channel (models.latent_ode)
+        encode_obs_time=config.encode_obs_time and model_name != "latent_ode",
         dt=dt,
     )
     mppi_params = make_mppi_params(default_noise_sigma(spec.m, config.mppi_sigma, dtype=dtype, device=device))
 
     if model_name == "oracle":
-        return env, mppi_cfg, mppi_params, build_oracle_dynamics(env, dt, action_delay)
+        return env, mppi_cfg, mppi_params, build_oracle_dynamics(env, dt, action_delay), None
     if model_name == "random":
-        return env, mppi_cfg, mppi_params, None
+        return env, mppi_cfg, mppi_params, None, None
     if model_apply is None or params is None:
         raise ValueError("learned models need model_apply/params (utils.checkpoint.load_pytree)")
-    if config.fused_nl_planner and config.nl_ilt_algorithm == "fourier":
+    if model_name == "latent_ode" and hasattr(model_apply, "predict_diff"):
+        carry_init, dynamics = make_carried_dynamics(model_apply, params, dt, spec.n_obs, spec.m,
+                                                     action_buffer_size=config.action_buffer_size)
+        return env, mppi_cfg, mppi_params, dynamics, carry_init
+    if not callable(model_apply):
+        raise ValueError(f"model_apply for {model_name!r} must be callable; for latent_ode pass the "
+                         "model itself (carried history) or its apply (tiled history)")
+    if model_name == "nl" and config.fused_nl_planner and config.nl_ilt_algorithm == "fourier":
         # the planner-path forward through the fused kernel (ops.pallas_nl);
         # the model structure is rebuilt from config to reach the specializer
         if dtype != torch.float32:
@@ -87,13 +103,13 @@ def build_planner(
         model = make_model("nl", env_name, spec.n_obs, spec.m, spec.action_high, config,
                            dtype=torch.float32, device=device)
         model_apply = model.make_fused_planner_apply(params, dt)
-    elif config.nl_planner_precompute:
+    elif model_name == "nl" and config.nl_planner_precompute:
         raise NotImplementedError("nl_planner_precompute (window_encoder) is not ported yet")
-    return env, mppi_cfg, mppi_params, build_learned_dynamics(model_apply, params, dt)
+    return env, mppi_cfg, mppi_params, build_learned_dynamics(model_apply, params, dt), None
 
 
 def _warm_up_tick(env, mppi_cfg, mppi_params, dynamics, n_seeds: int, action_buffer_size: int,
-                 state_constraint: bool = False):
+                 state_constraint: bool = False, dynamics_carry_init=None):
     """One throwaway seed-batched planner tick on noise from a generator of
     its own: it builds and loads the kernel and sets up the device's
     libraries and memory pool, the counterpart of the JAX evaluator's
@@ -106,7 +122,7 @@ def _warm_up_tick(env, mppi_cfg, mppi_params, dynamics, n_seeds: int, action_buf
     noise = torch.randn((S, mppi_cfg.num_samples, T, nu), generator=g, **like) @ chol.T
     mppi_command(mppi_cfg, mppi_params, dynamics, build_running_cost(env, state_constraint),
                  torch.zeros((S, T, nu), **like), obs, torch.zeros((S, action_buffer_size, nu), **like),
-                 noise=noise)
+                 noise=noise, dynamics_carry_init=dynamics_carry_init)
     if chol.device.type == "cuda":
         torch.cuda.synchronize(chol.device)
 
@@ -143,8 +159,9 @@ def evaluate_policy(
     and ends when the device is done.
 
     The JAX function's shard flags, ``devices``, video, profile trace and
-    change_goal raise ``NotImplementedError``, as do the model families not
-    ported yet.
+    change_goal raise ``NotImplementedError``, as does ``latent_ode_ref``.
+    For ``latent_ode``, ``model_apply`` is the model itself (carried
+    history) or its ``apply`` (tiled history), as in the JAX package.
     """
     if shard_seeds or shard_rollouts or shard_grid is not None or devices is not None:
         raise NotImplementedError("sharded evaluation is not ported yet")
@@ -155,7 +172,7 @@ def evaluate_policy(
     if config.save_video if save_video is None else save_video:
         raise NotImplementedError("episode video is not ported yet")
     seeds = [int(s) for s in seeds]  # consumed more than once below
-    env, mppi_cfg, mppi_params, dynamics = build_planner(
+    env, mppi_cfg, mppi_params, dynamics, carry_init = build_planner(
         model_name, env_name, action_delay, config, model_apply, params, roll_outs, time_steps,
         dtype=dtype, device=device,
     )
@@ -168,7 +185,7 @@ def evaluate_policy(
         encode_obs_time=mppi_cfg.encode_obs_time,
         state_constraint=state_constraint,
     )
-    episode = make_episode_fn(env, dynamics, mppi_cfg, mppi_params, settings)
+    episode = make_episode_fn(env, dynamics, mppi_cfg, mppi_params, settings, dynamics_carry_init=carry_init)
     chol = mppi_params.noise_chol
     if draws is None:
         draws = SeedDraws(seeds, dtype=chol.dtype, device=chol.device)
@@ -176,7 +193,7 @@ def evaluate_policy(
         raise ValueError(f"draws for {len(draws)} seeds, {len(seeds)} seeds given")
     if dynamics is not None:
         _warm_up_tick(env, mppi_cfg, mppi_params, dynamics, len(seeds), settings.action_buffer_size,
-                     state_constraint)
+                     state_constraint, carry_init)
 
     t0 = time.perf_counter()
     totals, _records = episode(draws)

@@ -195,11 +195,11 @@ def make_episode_fn(
     seeds; the S episodes run in lockstep. total_reward is each episode's raw
     return (sum of per-step diff rewards, reference
     mppi_with_model.py:272,288); callers rescale by 200/n_steps.
+    ``dynamics_carry_init`` makes ``dynamics_fn`` carried dynamics (the
+    planner's ``mppi_command_core``): the latent ODE's history.
     """
     if settings.change_goal:
         _not_ported("change_goal")
-    if dynamics_carry_init is not None:
-        _not_ported("carried dynamics (dynamics_carry_init)")
     if command_fn is not None:
         _not_ported("command_fn (the sharded planner)")
     if window_encoder is not None:
@@ -230,6 +230,7 @@ def make_episode_fn(
                     mppi_cfg, mppi_params, dynamics_fn, running_cost, U, obs, buffer,
                     noise=draws.planner_noise(it, mppi_cfg, mppi_params),
                     time_buffer=ages if settings.encode_obs_time else None,
+                    dynamics_carry_init=dynamics_carry_init,
                 )
             if settings.explore_noise is not None and not settings.random_policy:
                 # expert-collection exploration on top of the planner action

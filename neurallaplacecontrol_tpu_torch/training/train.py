@@ -210,8 +210,10 @@ def train_model(
     The init draws from a ``torch.Generator`` seeded with ``model_seed``, the
     epoch data, the sample subset and the batch order from one seeded with
     ``model_seed + 10_000``: the streams are the port's own, not JAX's.
-    Only ``"nl"`` is ported; ``make_model`` raises ``NotImplementedError``
-    for the other families (``latent_ode`` and ``node`` included).
+    ``node`` trains at batch size 1, and ``latent_ode`` through
+    ``training.train_latent_ode`` (its own loss, no guard), as in the JAX
+    package; ``make_model`` raises ``NotImplementedError`` for
+    ``latent_ode_ref``.
     """
     device = resolve_device(device)
     ckpt_name = model_checkpoint_name(
@@ -244,9 +246,18 @@ def train_model(
         if start_from_checkpoint and os.path.isfile(ckpt_path):
             params = load_pytree(ckpt_path, like=params)
 
+    if model_name == "latent_ode":
+        from .train_latent_ode import train_latent_ode
+
+        # the caller's budget override goes along
+        return train_latent_ode(model, params, env, env_name, config, delay, ckpt_path,
+                                end_training_after_seconds=end_training_after_seconds, dtype=dtype,
+                                device=device)
+
     optimizer = make_optimizer(config)
     opt_state = optimizer.init(params)
     segment_fn = make_train_segment_fn(model, optimizer)
+    batch_size_cfg = 1 if model_name == "node" else config.training_batch_size  # the JAX training/train.py:244
 
     budget = (
         end_training_after_seconds
@@ -282,7 +293,7 @@ def train_model(
                 idx = idx.to(device)
                 s0, a0, sn, ts = s0[idx], a0[idx], sn[idx], ts[idx]
         n = s0.shape[0]
-        batch_size = min(config.training_batch_size, n)
+        batch_size = min(batch_size_cfg, n)
         perm = torch.randperm(n, generator=data_gen)
         n_batches = n // batch_size
         seg_len = max(1, min(config.iters_per_log, n_batches))

@@ -2,6 +2,7 @@
 
     python scripts/port_train_numerics.py gaps [cpu|cuda]   # the port's training against the JAX run
     python3 scripts/port_train_numerics.py kernel           # GPU: the forward kernel on early weights
+    python3 scripts/port_train_numerics.py timing OLD.cu    # GPU: the forward kernel against an older source
 
 ``gaps`` runs ``chip_smoke.train_against_jax`` on the device named (the CPU
 by default): the port's first segment (250 updates) on the init, data and
@@ -23,6 +24,13 @@ its weights after 250 updates, the tracked d1 checkpoints of the three
 envs, and weights that ``train_model`` trains on the card for 4 epochs of
 20 collected episodes, as ``chip_smoke.py`` phase ``train`` does. Each mode
 prints one JSON line per measurement.
+
+``timing`` builds the forward kernel from ``OLD.cu`` (an older revision of
+``csrc/nl_kernels.cu``, for example ``git show REV:neurallaplacecontrol_tpu_torch/
+csrc/nl_kernels.cu``) and from the checkout's source, and times each in turns
+(old, new, new, old) on cartpole's tracked d1 weights at 1,000 and 20,000
+rows, 20 launches captured in one CUDA graph per reading (``chip_smoke.graph_ms``),
+with each build's error against the plain forward.
 """
 
 from __future__ import annotations
@@ -185,8 +193,40 @@ def kernel() -> None:
     print(chip_smoke.nvidia_smi(), flush=True)
 
 
+def timing(old_source: str) -> None:
+    from neurallaplacecontrol_tpu_torch.ops import nl_cuda
+
+    device = torch.device("cuda")  # raises without a GPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = port.Config()
+    env, params, model = chip_smoke.load_nl(chip_smoke.MAIN_ENV, device)
+    spec = env.spec
+    fused = model.make_fused_planner_apply(params, cfg.dt)
+    inputs = {}
+    for rows in ROWS:
+        rng = np.random.default_rng(rows)
+        obs = torch.tensor(rng.standard_normal((rows, spec.n_obs)), dtype=torch.float32, device=device)
+        acts = torch.tensor(rng.uniform(-spec.action_high, spec.action_high, (rows, cfg.action_buffer_size * spec.m)),
+                            dtype=torch.float32, device=device)
+        inputs[rows] = (obs, acts, pallas_nl.nl_forward_plain(obs, acts, fused.packed, spec.n_obs, spec.m))
+    sources = {"old": Path(old_source).read_text(), "new": nl_cuda.SOURCES[0].read_text()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for turn, which in enumerate(("old", "new", "new", "old")):
+            use_kernel_source(sources[which], tmp)
+            for rows, (obs, acts, exp) in inputs.items():
+                def run():
+                    return pallas_nl.nl_forward_fused(obs, acts, fused.packed, spec.n_obs, spec.m,
+                                                      terms=cfg.nl_s_recon_terms, hopper=fused.hopper)
+
+                got = run()
+                print(json.dumps({"mode": "timing", "turn": turn, "source": which, "rows": rows,
+                                  "ms": chip_smoke.graph_ms(run, 20), "rel_err": chip_smoke.rel_err(got, exp),
+                                  "device": torch.cuda.get_device_name(0)}), flush=True)
+    print(chip_smoke.nvidia_smi(), flush=True)
+
+
 if __name__ == "__main__":
-    modes = {"gaps": gaps, "kernel": kernel}
+    modes = {"gaps": gaps, "kernel": kernel, "timing": timing}
     if len(sys.argv) not in (2, 3) or sys.argv[1] not in modes:
         sys.exit(f"usage: {sys.argv[0]} {{{'|'.join(modes)}}} [device]")
     modes[sys.argv[1]](*sys.argv[2:])

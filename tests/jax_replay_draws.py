@@ -73,3 +73,18 @@ def seed_keys(seeds):
 
 def to_numpy(x):
     return x.numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def z0_draws(key, rows, latents, n_samples=1, dtype=np.float64):
+    """The JAX latent ODE's draws of z0's noise from ``key``
+    (models/latent_ode.py predict_diff): one [rows, latents] standard normal
+    per sample, from ``jax.random.split(key, n_samples)``, in the model's
+    dtype (f32 and f64 draws differ); [S, rows, latents]."""
+    return np.stack([np.asarray(jax.random.normal(k, (rows, latents), dtype=dtype))
+                     for k in jax.random.split(key, n_samples)])
+
+
+def fixed_z0_draw(rows, latents, dtype=np.float64):
+    """The draw of the JAX latent ODE's ``apply`` and carried dynamics, which
+    take ``PRNGKey(0)`` on every call: [rows, latents]."""
+    return z0_draws(jax.random.PRNGKey(0), rows, latents, dtype=dtype)[0]

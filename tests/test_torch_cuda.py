@@ -211,7 +211,7 @@ def test_seed_batched_planner_equals_single_ticks(cuda_device):
     n, m, high = ENV_DIMS[env_name]
     params = trained(env_name, cuda_device)
     model = make_model("nl", env_name, n, m, high, device=cuda_device)
-    env, cfg, mppi_params, dynamics = build_planner(
+    env, cfg, mppi_params, dynamics, _ = build_planner(
         "nl", env_name, 1, Config(fused_nl_planner=True), model_apply=model.apply, params=params,
         roll_outs=B, time_steps=40, device=cuda_device)
     cost = build_running_cost(env)
@@ -311,3 +311,76 @@ def test_fused_planner_refuses_bad_widths_on_card(cuda_device):
     with pytest.raises(ValueError, match="fourier-only"):
         model.make_fused_planner_apply(model.init(torch.Generator().manual_seed(0)), DT)
     assert tnl.nl_forward_fused.launches == before
+
+
+def family(name, device, dtype=torch.float32):
+    """A baseline family on its tracked pendulum-d1 checkpoint."""
+    env = "oderl-pendulum"
+    n, m, high = ENV_DIMS[env]
+    model = make_model(name, env, n, m, high, Config(), dtype=dtype, device=device)
+    path = REPO / "artifacts" / "checkpoints" / model_checkpoint_name(name, env, 1, "exp", 0, True)
+    return model, load_pytree(path, like=model.init(torch.Generator(device=device).manual_seed(0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rnn", "delta_t_rnn", "node", "latent_ode"])
+def test_family_forward_on_card_matches_cpu_f64(name, cuda_device):
+    """Each baseline family's f32 forward on the card against the port's f64
+    forward on the CPU, 1,000 rows of exp-grid horizons (the latent ODE's
+    fixed z0 draw is the same on both devices): within 1e-3."""
+    gpu_model, gpu_params = family(name, cuda_device)
+    cpu_model, cpu_params = family(name, "cpu", torch.float64)
+    rng = np.random.default_rng(5)
+    obs = rng.standard_normal((B, 3))
+    abuf = rng.uniform(-2.0, 2.0, (B, 4, 1))
+    ts = rng.exponential(0.05, (B, 1))
+    got = gpu_model.apply(gpu_params, *(torch.tensor(x, dtype=torch.float32, device=cuda_device)
+                                        for x in (obs, abuf, ts)))
+    exp = cpu_model.apply(cpu_params, *(torch.tensor(x) for x in (obs, abuf, ts)))
+    assert got.shape == (B, 3) and bool(torch.isfinite(got).all())
+    assert rel_err(got.double().cpu(), exp) < TOL
+
+
+@pytest.mark.cuda
+def test_dopri5_masked_steps_on_card(cuda_device):
+    """The masked per-row dopri5 on the card at f64 against the CPU: the same
+    solution to 1e-10 and the same accepted-step counts, on horizons from
+    1e-4 to 10."""
+    from neurallaplacecontrol_tpu_torch.ops.integrate import odeint_dopri5_with_stats
+
+    rng = np.random.default_rng(6)
+    w1, w2 = rng.standard_normal((5, 32)) / 2.0, rng.standard_normal((32, 5)) / 4.0
+    y0 = rng.standard_normal((256, 5))
+    t1 = 10.0 ** rng.uniform(-4.0, 1.0, 256)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        a, b = torch.tensor(w1, device=dev), torch.tensor(w2, device=dev)
+        ts = torch.stack([torch.zeros(256, dtype=torch.float64, device=dev), torch.tensor(t1, device=dev)], dim=1)
+        out[str(dev)] = odeint_dopri5_with_stats(lambda y, t: torch.tanh(y @ a) @ b, torch.tensor(y0, device=dev),
+                                                 ts, max_steps=48)
+    (ys_cpu, n_cpu), (ys_gpu, n_gpu) = out["cpu"], out[str(cuda_device)]
+    assert torch.equal(n_gpu.cpu(), n_cpu) and int(n_cpu.max()) > int(n_cpu.min())
+    assert float((ys_gpu.cpu() - ys_cpu).abs().max()) < 1e-10
+
+
+@pytest.mark.cuda
+def test_carried_planner_ticks_on_card(cuda_device):
+    """Three latent-ODE controller ticks with carried history on the card
+    (K=1000, T=40, f32) against the same ticks at f64 on the CPU, on the
+    same noise and z0 draw: the actions within 0.05 (pendulum acts in ±2)."""
+    actions = {}
+    noise = torch.randn((3, B, 40, 1), generator=torch.Generator().manual_seed(7), dtype=torch.float64)
+    for dev, dtype in ((cuda_device, torch.float32), ("cpu", torch.float64)):
+        model, params = family("latent_ode", dev, dtype)
+        ctrl = make_controller("latent_ode", "oderl-pendulum", 1, Config(), model_apply=model, params=params,
+                               roll_outs=B, time_steps=40, dtype=dtype, device=dev)
+        state = ctrl.reset(0)
+        state = state._replace(U=torch.zeros_like(state.U))
+        obs = torch.tensor([-1.0, 0.1, 0.5], dtype=dtype, device=dev)
+        acts = []
+        for tick in range(3):
+            action, state = ctrl.step(state, obs, noise=(noise[tick] @ ctrl.mppi_params.noise_chol.T.cpu().double())
+                                      .to(dtype=dtype, device=dev))
+            acts.append(action.double().cpu())
+        actions[str(dev)] = torch.stack(acts)
+    assert float((actions[str(cuda_device)] - actions["cpu"]).abs().max()) < 0.05

@@ -15,16 +15,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax_replay_draws import JaxDraws, seed_keys
+from jax_replay_draws import JaxDraws, fixed_z0_draw, seed_keys
 
 from neurallaplacecontrol_tpu.config import Config as JConfig
 from neurallaplacecontrol_tpu.envs import make_env as jax_make_env
 from neurallaplacecontrol_tpu.models import make_model as jax_make_model
+from neurallaplacecontrol_tpu.models.latent_ode import make_carried_dynamics as jax_carried
 from neurallaplacecontrol_tpu.planners import mppi_delay as jmppi
 from neurallaplacecontrol_tpu.training import rollout as jrollout
 from neurallaplacecontrol_tpu_torch.config import Config as TConfig
 from neurallaplacecontrol_tpu_torch.envs import make_env as torch_make_env
 from neurallaplacecontrol_tpu_torch.models import make_model as torch_make_model
+from neurallaplacecontrol_tpu_torch.models.base import norm_stats_for
+from neurallaplacecontrol_tpu_torch.models.latent_ode import make_carried_dynamics, make_latent_ode_model
 from neurallaplacecontrol_tpu_torch.planners import mppi_delay as tmppi
 from neurallaplacecontrol_tpu_torch.training import rollout as trollout
 from neurallaplacecontrol_tpu_torch.utils.checkpoint import load_pytree, model_checkpoint_name
@@ -168,16 +171,56 @@ def test_batched_planner_reduces_per_seed():
 @pytest.mark.parametrize(
     "kwargs,settings_kw",
     [
-        ({"dynamics_carry_init": lambda s: s}, {}),
         ({"command_fn": lambda *a, **k: None}, {}),
         ({"window_encoder": lambda w: w}, {}),
         ({"vary_axis": "seeds"}, {}),
         ({}, {"change_goal": True}),
     ],
-    ids=["carried", "command_fn", "window_encoder", "vary_axis", "change_goal"],
+    ids=["command_fn", "window_encoder", "vary_axis", "change_goal"],
 )
 def test_unported_episode_features_raise(kwargs, settings_kw):
     (_, _, _, _), (tenv, tcfg, tparams, tdyn) = build("oderl-cartpole", 1, "oracle")
     with pytest.raises(NotImplementedError):
         trollout.make_episode_fn(tenv, tdyn, tcfg, tparams,
                                  trollout.EpisodeSettings(delay=1, **settings_kw), **kwargs)
+
+
+@pytest.mark.parametrize("family,carried", [("rnn", False), ("delta_t_rnn", False), ("node", False),
+                                            ("latent_ode", True), ("latent_ode", False)],
+                         ids=["rnn", "delta_t_rnn", "node", "latent_ode_carried", "latent_ode_tiled"])
+def test_family_episode_matches_jax_f64(family, carried):
+    """A short seed-batched episode of each baseline family on its tracked
+    pendulum-d1 checkpoint, on JAX's draws (the latent ODE's fixed z0 draw
+    included): the latent ODE with carried history, and with the tiled
+    history of its bare apply. Records and returns within rtol 1e-10."""
+    env_name, delay = "oderl-pendulum", 1
+    (jenv, jcfg, jparams, _), (tenv, tcfg, tparams, _) = build(env_name, delay, "oracle")
+    spec = jenv.spec
+    ckpt = model_checkpoint_name(family, env_name, delay, "exp", 0, True)
+    tw = load_pytree(REPO / "artifacts" / "checkpoints" / ckpt, device="cpu", dtype=torch.float64)
+    jw = jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()), tw)
+    jm = jax_make_model(family, env_name, spec.n_obs, spec.m, spec.action_high, JConfig(), dtype=jnp.float64)
+    if family == "latent_ode":
+        tm = make_latent_ode_model(spec.n_obs, spec.m, norm_stats_for(env_name, spec.action_high, spec.m),
+                                   dtype=torch.float64, device="cpu",
+                                   z0_noise=torch.tensor(fixed_z0_draw(K, spec.n_obs + 2)))
+    else:
+        tm = torch_make_model(family, env_name, spec.n_obs, spec.m, spec.action_high, TConfig(),
+                              dtype=torch.float64, device="cpu")
+    if carried:
+        jinit, jdyn = jax_carried(jm, jw, DT, spec.n_obs, spec.m)
+        tinit, tdyn = make_carried_dynamics(tm, tw, DT, spec.n_obs, spec.m)
+    else:
+        jinit = tinit = None
+        jdyn = jrollout.build_learned_dynamics(jenv, jm.apply, jw, K, DT)
+        tdyn = trollout.build_learned_dynamics(tm.apply, tw, DT)
+    n_steps = 3 if family == "latent_ode" else N_STEPS
+    jset = jrollout.EpisodeSettings(delay=delay, n_steps=n_steps)
+    tset = trollout.EpisodeSettings(delay=delay, n_steps=n_steps)
+    keys = seed_keys(SEEDS)
+    jtot, jrec = jrollout.make_batched_episode_fn(jenv, jdyn, jcfg, jparams, jset,
+                                                  dynamics_carry_init=jinit)(jnp.stack(keys))
+    ttot, trec = trollout.make_episode_fn(tenv, tdyn, tcfg, tparams, tset, dynamics_carry_init=tinit)(
+        JaxDraws(keys, jenv, jcfg, jparams, n_steps))
+    np.testing.assert_allclose(ttot.numpy(), np.asarray(jtot), rtol=RTOL)
+    assert_records_match(jrec, trec)

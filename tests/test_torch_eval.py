@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax_replay_draws import JaxDraws, seed_keys
+from jax_replay_draws import JaxDraws, fixed_z0_draw, seed_keys
 
 from neurallaplacecontrol_tpu.config import Config as JConfig
 from neurallaplacecontrol_tpu.envs import make_env as jax_make_env
@@ -24,6 +24,8 @@ from neurallaplacecontrol_tpu.results import process as jprocess
 from neurallaplacecontrol_tpu.training.eval import evaluate_policy as jax_evaluate
 from neurallaplacecontrol_tpu_torch.config import Config as TConfig
 from neurallaplacecontrol_tpu_torch.models import make_model as torch_make_model
+from neurallaplacecontrol_tpu_torch.models.base import norm_stats_for
+from neurallaplacecontrol_tpu_torch.models.latent_ode import make_latent_ode_model
 from neurallaplacecontrol_tpu_torch.results import process as tprocess
 from neurallaplacecontrol_tpu_torch.training import eval as teval
 from neurallaplacecontrol_tpu_torch.training import rollout as trollout
@@ -82,7 +84,7 @@ def test_evaluate_policy_rescales_to_200_steps():
     (_, _), (tapply, tweights) = nl_models()
     t = teval.evaluate_policy("oracle", ENV, DELAY, SEEDS, config=TConfig(dt=DT), roll_outs=K,
                               time_steps=T, dtype=torch.float64, device="cpu", draws=replay(SEEDS))
-    env, cfg, params, dyn = teval.build_planner("oracle", ENV, DELAY, TConfig(dt=DT), roll_outs=K,
+    env, cfg, params, dyn, _ = teval.build_planner("oracle", ENV, DELAY, TConfig(dt=DT), roll_outs=K,
                                                 time_steps=T, dtype=torch.float64, device="cpu")
     raw, _ = trollout.make_episode_fn(env, dyn, cfg, params,
                                       trollout.EpisodeSettings(delay=DELAY, n_steps=N_STEPS))(replay(SEEDS))
@@ -113,7 +115,7 @@ def test_evaluate_policy_unported_flags_raise(kwargs):
                               time_steps=T, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("model_name,cfg", [("latent_ode", TConfig()), ("node", TConfig()),
+@pytest.mark.parametrize("model_name,cfg", [("latent_ode_ref", TConfig()),
                                             ("nl", TConfig(nl_planner_precompute=True))])
 def test_evaluate_policy_unported_models_raise(model_name, cfg):
     (_, _), (tapply, tweights) = nl_models()
@@ -121,6 +123,41 @@ def test_evaluate_policy_unported_models_raise(model_name, cfg):
         teval.evaluate_policy(model_name, ENV, DELAY, [0], config=cfg, model_apply=tapply,
                               params=tweights, roll_outs=K, time_steps=T, dtype=torch.float64,
                               device="cpu")
+
+
+@pytest.mark.parametrize("family,carried", [("rnn", False), ("delta_t_rnn", False), ("node", False),
+                                            ("latent_ode", True), ("latent_ode", False)],
+                         ids=["rnn", "delta_t_rnn", "node", "latent_ode_carried", "latent_ode_apply"])
+def test_evaluate_policy_families_match_jax_f64(family, carried):
+    """``evaluate_policy`` of each baseline family on its tracked pendulum-d1
+    checkpoint against JAX's at f64 on JAX's draws (the latent ODE's fixed z0
+    draw included). The latent ODE's contract: the model itself plans with
+    carried history, its bare apply with tiled history. Returns within rtol
+    1e-10, every other field but the timings equal."""
+    env_name = "oderl-pendulum"
+    ckpt = REPO / "artifacts" / "checkpoints" / model_checkpoint_name(family, env_name, DELAY, "exp", 0, True)
+    tweights = load_pytree(ckpt, device="cpu", dtype=torch.float64)
+    jweights = jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()), tweights)
+    jm = jax_make_model(family, env_name, 3, 1, 2.0, JConfig(dt=DT), dtype=jnp.float64)
+    if family == "latent_ode":
+        tm = make_latent_ode_model(3, 1, norm_stats_for(env_name, 2.0, 1), dt=DT, dtype=torch.float64,
+                                   device="cpu", z0_noise=torch.tensor(fixed_z0_draw(K, 5)))
+    else:
+        tm = torch_make_model(family, env_name, 3, 1, 2.0, TConfig(dt=DT), dtype=torch.float64, device="cpu")
+    japply, tapply = (jm, tm) if carried else (jm.apply, tm.apply)
+    seeds = SEEDS[:2]
+    j = jax_evaluate(family, env_name, DELAY, seeds, config=JConfig(dt=DT), model_apply=japply,
+                     params=jweights, roll_outs=K, time_steps=T)
+    jenv = jax_make_env(env_name, dt=DT)
+    jcfg = jmppi.MPPIConfig(num_samples=K, horizon=T, nu=1)
+    jparams = jmppi.make_mppi_params(jmppi.default_noise_sigma(1, 1.0, dtype=jnp.float64))
+    t = teval.evaluate_policy(family, env_name, DELAY, seeds, config=TConfig(dt=DT), model_apply=tapply,
+                              params=tweights, roll_outs=K, time_steps=T, dtype=torch.float64, device="cpu",
+                              draws=JaxDraws(seed_keys(seeds), jenv, jcfg, jparams, N_STEPS))
+    assert set(t) == set(j)
+    np.testing.assert_allclose(t["total_rewards"], j["total_rewards"], rtol=1e-10)
+    for key in set(j) - set(TIMINGS) - {"total_rewards", "total_reward", "total_reward_std"}:
+        assert t[key] == j[key], key
 
 
 def result_records():

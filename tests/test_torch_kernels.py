@@ -283,7 +283,7 @@ def forward_repacked_plain(obs, acts_flat, buf, dims, matmul=torch.matmul):
         z = torch.sigmoid(rz[:, H:] + b_ih[H : 2 * H] + b_hh[H : 2 * H])
         cand = torch.tanh(matmul(x, w_ih[:, 2 * H :]) + b_ih[2 * H :]
                           + r * (matmul(h, w_hh[:, 2 * H :]) + b_hh[2 * H :]))
-        return (1.0 - z) * cand + z * h
+        return cand + z * (h - cand)
 
     h1 = obs.new_zeros((B, H))
     h2 = obs.new_zeros((B, H))
@@ -298,17 +298,17 @@ def forward_repacked_plain(obs, acts_flat, buf, dims, matmul=torch.matmul):
     return head_repacked_plain(hid2, p["head"], D, terms)
 
 
-def truncate_tf32(x):
-    """The TF32 value a tensor core reads from a float32 register: the low 13
-    mantissa bits dropped."""
-    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+def round_tf32(x):
+    """The TF32 value nearest a float32, ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: the low 13 mantissa bits rounded off."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def split_tf32(x):
-    """x = hi + lo as the kernels split it: hi = x truncated to TF32, lo = x - hi
-    (exact in float32), which the tensor core reads truncated as well."""
-    hi = truncate_tf32(x)
-    return hi, truncate_tf32(x - hi)
+    """x = hi + lo as the kernels split it: hi = the TF32 value nearest x, lo =
+    the TF32 value nearest x - hi (x - hi is exact in float32)."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
 
 
 def split_tf32_matmul(a, b):
@@ -415,19 +415,42 @@ def test_split_tf32_emulation_within_kernel_tol(env):
 
 
 def test_tf32_split():
-    x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 3 * 2.0**-11, -1.0 - 3 * 2.0**-12, 3.0e-5, 7.1], dtype=torch.float32)
+    x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 3 * 2.0**-11, -1.0 - 3 * 2.0**-12, 3.0e-5, 7.1,
+                      1.0 + 2.0**-11 - 2.0**-23], dtype=torch.float32)
     hi, lo = split_tf32(x)
     assert (hi.view(torch.int32) & 0x1FFF == 0).all() and (lo.view(torch.int32) & 0x1FFF == 0).all()
-    assert hi[0] == 1.0 and hi[1] == 1.0 and hi[2] == 1.0 + 2.0**-10  # toward zero
-    assert hi[3] == -1.0
-    assert torch.equal(hi + (x - hi), x) and ((x - hi).abs() < x.abs() * 2.0**-10).all()
-    assert ((x - hi - lo).abs() < x.abs() * 2.0**-20).all()
+    # to nearest, ties away from zero
+    assert hi[0] == 1.0 and hi[1] == 1.0 + 2.0**-10 and hi[2] == 1.0 + 2.0**-9
+    assert hi[3] == -1.0 - 2.0**-10 and hi[6] == 1.0
+    assert torch.equal(hi + (x - hi), x) and ((x - hi).abs() <= x.abs() * 2.0**-11).all()
+    assert ((x - hi - lo).abs() <= x.abs() * 2.0**-22).all()
     rng = np.random.default_rng(0)
     a = torch.tensor(rng.standard_normal((64, 128)), dtype=torch.float32)
     b = torch.tensor(rng.standard_normal((128, 96)), dtype=torch.float32)
     ref = a.double() @ b.double()
     assert float((split_tf32_matmul(a, b).double() - ref).abs().max()) < 1e-4
     assert float((one_pass_tf32_matmul(a, b).double() - ref).abs().max()) > 1e-3
+
+
+def test_split_tf32_on_early_weights():
+    """On the JAX run's init weights (artifacts/port/jax_train_pendulum_d1.npz)
+    at B=1,000, with the inputs of scripts/port_train_numerics.py kernel, the
+    emulated split forward lies no further from the f64 forward than 1.5
+    times the f32 plain forward does (chip_smoke.forward_errors). A split
+    that truncates hi, and has lo read truncated, lies 2.4 times as far."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    params = chip_smoke.read_jax_train_reference()["init"]
+    model = torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, TConfig(), device="cpu")
+    fused = model.make_fused_planner_apply(from_jax_params(params, device="cpu"), DT)
+    rng = np.random.default_rng(1000)
+    obs = torch.tensor(rng.standard_normal((1000, 3)), dtype=torch.float32)
+    acts = torch.tensor(rng.uniform(-2.0, 2.0, (1000, 4)), dtype=torch.float32)
+    got = forward_repacked_plain(obs, acts, fused.hopper, (3, 1, 64, 128, 3, 17), split_tf32_matmul)
+    e = chip_smoke.forward_errors(got, obs, acts, fused.packed, 3, 1)
+    print(f"split {e['kernel_vs_plain64']:.3e}, f32 plain {e['plain_vs_plain64']:.3e}")
+    assert e["kernel_vs_plain64"] <= 1.5 * e["plain_vs_plain64"]
 
 
 @pytest.mark.parametrize("env,terms", [(env, 17) for env in sorted(ENV_DIMS)] + [("oderl-cartpole", 32)])

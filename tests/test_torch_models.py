@@ -127,7 +127,7 @@ def test_norm_stats_match_jax(env):
 
 def test_unported_models_raise():
     with pytest.raises(NotImplementedError):
-        torch_make_model("rnn", "oderl-pendulum", 3, 1, 2.0, device="cpu")
+        torch_make_model("latent_ode_ref", "oderl-pendulum", 3, 1, 2.0, device="cpu")
     with pytest.raises(NotImplementedError):
         torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0,
                          TConfig(nl_compute_dtype="bfloat16"), device="cpu")

@@ -113,6 +113,29 @@ def test_port_and_chip_smoke_import_and_tick_without_jax():
             _, _, res = train_model("nl", "oderl-pendulum", tcfg, delay=1, retrain=True,
                                     force_retrain=True, device="cpu")
             assert len(res["epoch_losses"]) == 1
+        # the baseline families: the reference's forwards through chip_smoke's
+        # reader, a carried latent-ODE tick, and a latent-ODE training segment
+        bref = chip_smoke.read_jax_baselines_reference()
+        assert bref["meta"]["env"] == "oderl-pendulum" and bref["inputs/obs"].shape == (1000, 3)
+        assert set(bref["jax_returns"]) >= {"rnn", "delta_t_rnn", "node", "latent_ode", "oracle", "random"}
+        q = [torch.as_tensor(bref[f"inputs/{k}"][:64]) for k in ("obs", "abuf", "ts")]
+        for fam in ("rnn", "delta_t_rnn", "node", "latent_ode"):
+            fmodel, fparams = chip_smoke.load_family(fam, torch.device("cpu"), z0_noise=bref["latent_ode/z0"][:64])
+            got = fmodel.apply(fparams, *q)
+            assert float(((got.double() - torch.as_tensor(bref[f"out/{fam}"][:64])).abs()).max()) < 1e-3, fam
+        lode, lparams = chip_smoke.load_family("latent_ode", torch.device("cpu"))
+        lctrl = port.make_controller("latent_ode", "oderl-pendulum", 1, port.Config(), model_apply=lode,
+                                     params=lparams, roll_outs=8, time_steps=2, device="cpu")
+        action, _ = lctrl.step(lctrl.reset(0), torch.zeros(3))
+        assert action.shape == (1,) and bool(torch.isfinite(action).all())
+        from neurallaplacecontrol_tpu_torch.training.train_latent_ode import (
+            build_history_windows, make_latent_ode_segment_fn)
+        windows = build_history_windows(*data, 4)
+        eps = torch.as_tensor(bref["train/latent_ode/eps"][:2], dtype=torch.float32)
+        _, lstate, llosses = make_latent_ode_segment_fn(lode, opt)(
+            lparams, opt.init(lparams), eps, *windows,
+            torch.as_tensor(bref["train/latent_ode/batch_idx"][:2], dtype=torch.long))
+        assert int(lstate.count) == 2 and bool(torch.isfinite(llosses).all())
         loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                         or m == "neurallaplacecontrol_tpu"
                         or m.startswith("neurallaplacecontrol_tpu."))
@@ -153,6 +176,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     env = port.make_env("oderl-pendulum")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_val_loss_delay_time_multi(lambda *a: None, None, env, 1)
+    for family in ("rnn", "delta_t_rnn", "node", "latent_ode"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port.make_model(family, "oderl-pendulum", 3, 1, 2.0)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port.make_controller(family, "oderl-pendulum", 1, model_apply=lambda *a: None, params={})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.make_controller("oracle", "oderl-pendulum", 1)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

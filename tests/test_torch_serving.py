@@ -18,7 +18,10 @@ from neurallaplacecontrol_tpu.planners import mppi_delay as jmppi
 from neurallaplacecontrol_tpu_torch import serving as tserving
 from neurallaplacecontrol_tpu_torch.config import Config as TConfig
 from neurallaplacecontrol_tpu_torch.models import make_model as torch_make_model
+from neurallaplacecontrol_tpu_torch.models.base import norm_stats_for
+from neurallaplacecontrol_tpu_torch.models.latent_ode import make_latent_ode_model
 from neurallaplacecontrol_tpu_torch.utils.checkpoint import load_pytree, model_checkpoint_name
+from jax_replay_draws import fixed_z0_draw
 
 torch.set_num_threads(1)
 
@@ -104,8 +107,56 @@ def test_reset_is_seeded():
 
 def test_make_controller_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError):
-        tserving.make_controller("oracle", ENV, DELAY, device="cpu")
+        tserving.make_controller("latent_ode_ref", ENV, DELAY, device="cpu")
     with pytest.raises(ValueError):
         tserving.make_controller("nl", ENV, DELAY, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         torch_controller(TConfig(fused_nl_planner=True), torch.float64)
+
+
+@pytest.mark.parametrize("model_name", ["oracle", "rnn", "delta_t_rnn", "node", "latent_ode"])
+def test_controllers_match_jax_on_jax_noise(model_name):
+    """The oracle's and each baseline family's controller (tracked pendulum-d1
+    checkpoints; the latent ODE handed in whole, so with carried history, and
+    JAX's fixed z0 draw) against JAX's on JAX's noise: three closed-loop
+    ticks at f64, actions and U within rtol 1e-9."""
+    env_name = "oderl-pendulum"
+    jenv = jax_make_env(env_name)
+    spec = jenv.spec
+    jparams = tparams = jmodel = tmodel = None
+    japply = tapply = None
+    if model_name != "oracle":
+        path = REPO / "artifacts" / "checkpoints" / model_checkpoint_name(model_name, env_name, DELAY, "exp", 0, True)
+        tparams = load_pytree(path, device="cpu", dtype=torch.float64)
+        jparams = jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()), tparams)
+        jmodel = jax_make_model(model_name, env_name, spec.n_obs, spec.m, spec.action_high, JConfig(),
+                                dtype=jnp.float64)
+        if model_name == "latent_ode":
+            tmodel = make_latent_ode_model(spec.n_obs, spec.m, norm_stats_for(env_name, spec.action_high, spec.m),
+                                           dtype=torch.float64, device="cpu",
+                                           z0_noise=torch.tensor(fixed_z0_draw(K, spec.n_obs + 2)))
+            japply, tapply = jmodel, tmodel
+        else:
+            tmodel = torch_make_model(model_name, env_name, spec.n_obs, spec.m, spec.action_high, TConfig(),
+                                      dtype=torch.float64, device="cpu")
+            japply, tapply = jmodel.apply, tmodel.apply
+    jctrl = jserving.make_controller(model_name, env_name, DELAY, JConfig(), model_apply=japply,
+                                     params=jparams, roll_outs=K, time_steps=T)
+    tctrl = tserving.make_controller(model_name, env_name, DELAY, TConfig(), model_apply=tapply,
+                                     params=tparams, roll_outs=K, time_steps=T, dtype=torch.float64,
+                                     device="cpu")
+    jsig = jmppi.make_mppi_params(jmppi.default_noise_sigma(spec.m, 1.0, dtype=jnp.float64))
+    jstate = jctrl.reset(jax.random.PRNGKey(1))
+    tstate = tctrl.reset(0)._replace(U=torch.tensor(np.asarray(jstate.U)))
+    raw = jnp.asarray([jnp.pi - 0.4, 0.7])
+    executed = jnp.zeros(spec.m)
+    for _ in range(3):
+        obs = jenv.observe(raw)
+        _, k_noise = jax.random.split(jstate.key)
+        noise = jmppi._sample_noise(k_noise, jctrl.mppi_cfg, jsig)
+        jaction, jstate = jctrl.step(jstate, obs)
+        taction, tstate = tctrl.step(tstate, torch.tensor(np.asarray(obs)), noise=torch.tensor(np.asarray(noise)))
+        np.testing.assert_allclose(taction.numpy(), np.asarray(jaction), rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(tstate.U.numpy(), np.asarray(jstate.U), rtol=1e-9, atol=1e-12)
+        raw = jax_env_step(jenv, raw, executed, spec.dt)
+        executed = jaction
