@@ -36,7 +36,13 @@ and node over seeds 0-19 (200 steps), with the oracle and random, against
 the JAX package's recorded returns; the latent ODE's episode with carried
 history, cut to its first steps (``scripts/port_baselines_eval.py eval``
 runs it in full); ``train_model`` of each family on the collected buffer;
-and the reference's 20-update training segments at f64.
+and the reference's 20-update training segments at f64. Phase ``driver`` runs
+the grid driver ``run_exp_multi_torch.main`` on the card: the 20-seed grid of
+pendulum and acrobot d1 for nl, the oracle and random (held to the JAX
+package's runs of those cells), per-delay NL training with ``--train_gate``,
+a delta_t_rnn delay ensemble with ``--ensemble_gate`` (and its f64 segment
+against its members' own), the MPPI sweep through the kernel
+(``training.run_mppi_sweep``) and a cell traced with ``--profile_trace_dir``.
 
 Every phase prints ``phase <name> start`` and ``phase <name> done <seconds>``.
 Any failure raises, and the script exits non-zero. The last three lines are
@@ -49,13 +55,15 @@ one CUDA device, and fails without either.
 
 from __future__ import annotations
 
+import hashlib
+import io
 import json
 import math
 import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 from functools import partial
 from pathlib import Path
 
@@ -76,7 +84,7 @@ from neurallaplacecontrol_tpu_torch.models.base import norm_stats_for
 from neurallaplacecontrol_tpu_torch.models.common import mlp_apply_tanh
 from neurallaplacecontrol_tpu_torch.ops import ilt, nl_cuda, pallas_ilt, pallas_nl
 from neurallaplacecontrol_tpu_torch.ops.integrate import odeint_dopri5_with_stats
-from neurallaplacecontrol_tpu_torch.results import mean_confidence_interval, normalized_scores
+from neurallaplacecontrol_tpu_torch.results import latex_table, mean_confidence_interval, normalized_scores, summarize
 from neurallaplacecontrol_tpu_torch.training import (
     EpisodeSettings,
     SeedDraws,
@@ -85,7 +93,9 @@ from neurallaplacecontrol_tpu_torch.training import (
     make_episode_fn,
     train_model,
 )
+from neurallaplacecontrol_tpu_torch.training import ensemble
 from neurallaplacecontrol_tpu_torch.training.eval import build_planner
+from neurallaplacecontrol_tpu_torch.training.sweep import SweepSpec, run_mppi_sweep
 from neurallaplacecontrol_tpu_torch.models.common import tree_leaves
 from neurallaplacecontrol_tpu_torch.training.train import make_optimizer, make_train_segment_fn, median
 from neurallaplacecontrol_tpu_torch.training.train_latent_ode import build_history_windows, make_latent_ode_segment_fn
@@ -94,6 +104,7 @@ from neurallaplacecontrol_tpu_torch.utils.checkpoint import (
     load_pytree,
     model_checkpoint_name,
     resolve_checkpoint,
+    tracked_checkpoint_path,
     unflatten_params,
 )
 
@@ -207,6 +218,22 @@ BASELINE_TRAINING = {  # family: (epochs, iters_per_log, training_use_only_sampl
     "latent_ode": (2, 25, None),
 }
 BASELINE_SEGMENT_LIMIT = 1e-7  # each f64 update's loss against JAX's, relative
+# Phase ``driver``: the grid driver (run_exp_multi_torch.main) on the card.
+# Its evaluation cells (20 seeds, 200 steps, K=1000, T=40) are held to the JAX
+# package: the oracle to its records of the paper's full run, NL to its run at
+# HEAD (scripts/port_jax_driver_reference.py), since those records predate the
+# per-hemisphere sphere map, which moves the NL forward's f32 bits (pendulum
+# d1: record -125.87 +- 12.82, the package at HEAD -135.26 +- 3.43)
+JAX_RESULTS = ROOT / "artifacts" / "results_full_r5.jsonl"
+JAX_DRIVER_REFERENCE = ROOT / "artifacts" / "port" / "jax_eval_driver_d1.json"
+DRIVER_ENVS = ("oderl-pendulum", "oderl-acrobot")
+DRIVER_GATE_SEEDS = 5  # the gates' seeds and the training parts' final evaluation
+DRIVER_TRAIN_SECONDS = 10  # the NL draw gated against random; a 10 s draw may fail the margin
+ENSEMBLE_TRAIN_SECONDS = 5
+ENSEMBLE_ROWS = 4000  # the ensemble's buffers: phase collect's d1, the driver's own d0
+ENSEMBLE_SEGMENT_LIMIT = 1e-10  # f64, each update's loss: ensemble member vs its own segment
+SWEEP = dict(n_trials=3, base_seeds=2, max_seeds=6, roll_outs=(256, 1000, 4096), time_steps=(20, 40))
+TRACE_SEEDS = 2
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (NVIDIA data sheet)
 SPLIT_PASSES = 3  # split TF32: hi*hi + hi*lo + lo*hi per product
@@ -397,33 +424,42 @@ def check_kernels(device) -> dict:
     return records
 
 
-def check_forward_seed_batch(device) -> dict:
-    """The forward on cartpole at the evaluation's S*K = 20,000 rows against
-    its plain version, with its graph-timed ms and bounds at that size."""
-    env, params, model = load_nl(MAIN_ENV, device)
+def check_forward_rows(device, env_name: str, rows: int, timed: bool = False) -> dict:
+    """The forward on ``env_name``'s tracked weights at ``rows`` batch rows
+    against its plain version (``KERNEL_TOL``); with ``timed``, also its
+    graph-timed ms and bounds at that size."""
+    env, params, model = load_nl(env_name, device)
     spec = env.spec
     terms, A = port.Config().nl_s_recon_terms, port.Config().action_buffer_size
     fused = model.make_fused_planner_apply(params, port.Config().dt)
     packed, n, in_dim = fused.packed, spec.n_obs, spec.m
     rng = np.random.default_rng(20)
-    obs = torch.tensor(rng.standard_normal((SEED_ROWS, n)), dtype=torch.float32, device=device)
-    acts = torch.tensor(rng.uniform(-spec.action_high, spec.action_high, (SEED_ROWS, A * in_dim)),
+    obs = torch.tensor(rng.standard_normal((rows, n)), dtype=torch.float32, device=device)
+    acts = torch.tensor(rng.uniform(-spec.action_high, spec.action_high, (rows, A * in_dim)),
                         dtype=torch.float32, device=device)
     kernel = partial(pallas_nl.nl_forward_fused, obs, acts, packed, n, in_dim, terms=terms, hopper=fused.hopper)
     plain = partial(pallas_nl.nl_forward_plain, obs, acts, packed, n, in_dim)
     got, exp = kernel(), plain()
     torch.cuda.synchronize()
-    if got.shape != (SEED_ROWS, n) or not bool(torch.isfinite(got).all()):
-        raise RuntimeError(f"nl_forward at B={SEED_ROWS}: shape {tuple(got.shape)} or non-finite output")
+    if got.shape != (rows, n) or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"nl_forward {env_name} at B={rows}: shape {tuple(got.shape)} or non-finite output")
     rel = rel_err(got, exp)
     if not rel < KERNEL_TOL:
-        raise RuntimeError(f"nl_forward at B={SEED_ROWS}: relative error {rel:.3e} >= {KERNEL_TOL}")
-    rec = {"env": MAIN_ENV, "B": SEED_ROWS, "max_abs_err": float((got - exp).abs().max()), "max_rel_err": rel,
-           "ms": graph_ms(kernel, 20), "plain_ms": graph_ms(plain, 5)}
-    hid = packed[13].shape[0]
-    rec.update(bounds(*forward_cost(SEED_ROWS, n, A, in_dim, packed[1].shape[0], hid, n, terms, packed)))
-    tight = min(("bound_ms", "bound_tc_ms"), key=rec.get)
-    rec["bound_share"], rec["bound_share_of"] = rec[tight] / rec["ms"], tight
+        raise RuntimeError(f"nl_forward {env_name} at B={rows}: relative error {rel:.3e} >= {KERNEL_TOL}")
+    rec = {"env": env_name, "B": rows, "max_abs_err": float((got - exp).abs().max()), "max_rel_err": rel}
+    if timed:
+        rec.update(ms=graph_ms(kernel, 20), plain_ms=graph_ms(plain, 5))
+        hid = packed[13].shape[0]
+        rec.update(bounds(*forward_cost(rows, n, A, in_dim, packed[1].shape[0], hid, n, terms, packed)))
+        tight = min(("bound_ms", "bound_tc_ms"), key=rec.get)
+        rec["bound_share"], rec["bound_share_of"] = rec[tight] / rec["ms"], tight
+    return rec
+
+
+def check_forward_seed_batch(device) -> dict:
+    """The forward on cartpole at the evaluation's S*K = 20,000 rows against
+    its plain version, with its graph-timed ms and bounds at that size."""
+    rec = check_forward_rows(device, MAIN_ENV, SEED_ROWS, timed=True)
     print("kernel nl_forward seed batch: " + json.dumps(rec), flush=True)
     return rec
 
@@ -1134,6 +1170,262 @@ def run_baselines(device, smi: str, tmp: str, baselines: dict) -> dict:
     return {"families": families, **out}
 
 
+def driver_args(tmp: str, part: str, *args) -> list:
+    """The driver's command line for one part of phase ``driver``: its results,
+    logs and checkpoints under ``tmp/driver/<part>``, on the card."""
+    out = Path(tmp) / "driver" / part
+    return ["--device", "cuda", "--results", str(out / "results.jsonl"), "--log_folder", str(out / "logs"),
+            "--saved_models_path", str(out / "saved") + "/", *args]
+
+
+def jax_cell_returns(env_name: str, delay: int, model_name: str) -> np.ndarray:
+    """The JAX package's per-seed returns of one cell: NL's from its run at
+    HEAD (``JAX_DRIVER_REFERENCE``), on the tracked checkpoint that the grid
+    loads here (its path and sha256 must match the reference's), the
+    others' from the full run's records (``JAX_RESULTS``)."""
+    if model_name == "nl":
+        ref = json.loads(JAX_DRIVER_REFERENCE.read_text())
+        if ref["delay"] != delay or ref["seeds"] != EVAL_SEEDS:
+            raise RuntimeError(f"{JAX_DRIVER_REFERENCE} holds another cell: d{ref['delay']}, seeds {ref['seeds']}")
+        cell = ref["cells"][f"{env_name}/nl"]
+        path = tracked_checkpoint_path(model_checkpoint_name("nl", env_name, delay, "exp", 0, True))
+        digest = hashlib.sha256(path.read_bytes()).hexdigest()
+        if (ROOT / cell["checkpoint"]["path"]).resolve() != path.resolve() or cell["checkpoint"]["sha256"] != digest:
+            raise RuntimeError(f"{JAX_DRIVER_REFERENCE} ran {env_name} NL on {cell['checkpoint']}, the grid loads "
+                               f"{path} (sha256 {digest})")
+        return np.asarray(cell["total_rewards"])
+    for line in JAX_RESULTS.read_text().splitlines():
+        r = json.loads(line)
+        if (r["env_name"], r["delay"], r["model_name"]) == (env_name, delay, model_name) and not r.get("errored"):
+            return np.asarray(r["total_rewards"])
+    raise RuntimeError(f"{JAX_RESULTS} has no record of {env_name} d{delay} {model_name}")
+
+
+def ensemble_segments_f64(device, tmp: str) -> dict:
+    """One 20-update segment of a 2-delay delta_t_rnn ensemble at f64 on the
+    card (the tracked pendulum d0 and d1 checkpoints, each on the first rows
+    of its own collected buffer, one shared batch order) against each
+    member's own ``train_model`` segment: the largest relative gap of one
+    update's loss, and of one parameter after the segment."""
+    cfg = port.Config()
+    model = make_model("delta_t_rnn", COLLECT_ENV, 3, 1, 2.0, cfg, dtype=torch.float64, device=device)
+    members, data = [], []
+    for d in (0, 1):
+        members.append(load_pytree(resolve_checkpoint(model_checkpoint_name("delta_t_rnn", COLLECT_ENV, d, "exp", 0,
+                                                                             True)), device=device, dtype=torch.float64))
+        rows = load_replay_buffer(Path(tmp) / replay_buffer_filename(COLLECT_ENV, d), device=device)
+        data.append([x[:ENSEMBLE_ROWS].double() for x in rows])
+    stacked = [torch.stack([data[0][i], data[1][i]]) for i in range(4)]
+    idx = torch.as_tensor(np.random.default_rng(9).permutation(ENSEMBLE_ROWS)[:320].reshape(20, 16), device=device)
+    optimizer = make_optimizer(cfg)
+    ens_segment = ensemble.make_ensemble_segment_fn(model.apply, optimizer)
+    segment = make_train_segment_fn(model, optimizer)
+
+    def run_ensemble():
+        return ens_segment(ensemble.stack_trees(members),
+                           ensemble.stack_states([optimizer.init(m) for m in members]), *stacked, idx)
+
+    def run_members():
+        return [segment(m, optimizer.init(m), *data[i], idx) for i, m in enumerate(members)]
+
+    ms = {}
+    for name, run in (("ensemble", run_ensemble), ("members", run_members)):
+        run()  # warm: each path's first call, then one timed call, its wall time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0) / idx.shape[0]
+        if name == "ensemble":
+            p_e, _, losses_e = result
+        else:
+            per_member = result
+    loss_gap, param_gap = 0.0, 0.0
+    for i, (p_i, _, losses_i) in enumerate(per_member):
+        loss_gap = max(loss_gap, float(((losses_e[i] - losses_i).abs() / losses_i.abs()).max()))
+        for a, b in zip(tree_leaves(ensemble.slice_tree(p_e, i)), tree_leaves(p_i)):
+            param_gap = max(param_gap, float(((a - b).abs() / (1e-12 + b.abs())).max()))
+    return {"family": "delta_t_rnn", "delays": [0, 1], "updates": idx.shape[0], "batch": idx.shape[1],
+            "update_loss_rel_gap": loss_gap, "param_rel_gap": param_gap, "limit": ENSEMBLE_SEGMENT_LIMIT,
+            "ensemble_ms_per_update": ms["ensemble"], "members_ms_per_update": ms["members"]}
+
+
+def run_driver(device, smi: str, tmp: str) -> dict:
+    """Phase ``driver``: the grid driver ``run_exp_multi_torch.main`` on the
+    card, through its five uses. 1. The evaluation grid: pendulum and acrobot
+    d1, nl (the tracked checkpoints, through the forward kernel), the oracle
+    and random over 20 seeds, NL held to the JAX package's run at HEAD and the
+    oracle to its records of the same cells, summarized as
+    ``results.summarize`` does. 2. Per-delay training of
+    NL on phase collect's buffer with ``--train_gate nl``. 3. A delay ensemble
+    of delta_t_rnn over d0 and d1 with ``--ensemble_gate``, and the f64
+    ensemble segment against its members' own segments. 4. The MPPI sweep
+    on cartpole d1 through the kernel. 5. A driver call with
+    ``--profile_trace_dir``. The launches of the forward kernel are counted
+    in each part, and the kernel is held to its plain version on the tracked
+    weights of each env at each row count that a part gave it."""
+    import run_exp_multi_torch as driver
+
+    fwd = pallas_nl.nl_forward_fused
+    seconds, out, failures = {}, {"card": smi}, []
+    shapes = set()  # (env, rows per launch) that the parts gave the forward kernel
+
+    # 1. the evaluation grid
+    pallas_nl.nl_forward_fused.launches = pallas_nl.nl_forward_fused.rows = 0
+    t0 = time.perf_counter()
+    grid = driver.main(driver_args(tmp, "grid", "--envs", ",".join(DRIVER_ENVS), "--delays", str(DELAY),
+                                   "--models", "nl,oracle,random", "--seed_runs", str(len(EVAL_SEEDS)),
+                                   "--fused_nl_planner", "true",
+                                   "--saved_models_path", str(ROOT / "artifacts" / "checkpoints") + "/"))
+    torch.cuda.synchronize()
+    seconds["grid"] = time.perf_counter() - t0
+    recs = grid["records"]
+    launches = {"grid": fwd.launches}
+    rows = fwd.rows / max(1, fwd.launches)
+    errored = [r for r in recs if r.get("errored")]
+    cells, n = {}, len(EVAL_SEEDS)
+    scores = normalized_scores([r for r in recs if not r.get("errored")], agg="std")
+    for r in recs:
+        if r.get("errored"):
+            continue
+        got = np.asarray(r["total_rewards"])
+        cell = {"mean": float(got.mean()), "std": float(got.std()), "ticks_per_s": EVAL_STEPS / r["episode_elapsed_time"],
+                "episode_batch_s": r["episode_elapsed_time"],
+                "normalized_std": list(scores[(DELAY, r["env_name"], r["model_name"])][:2])}
+        if r["model_name"] in ("nl", "oracle"):
+            jax_ret = jax_cell_returns(r["env_name"], DELAY, r["model_name"])
+            cell["jax_mean"] = float(jax_ret.mean())
+            cell["gap_to_jax"] = abs(float(got.mean() - jax_ret.mean()))
+            cell["limit"] = 3.0 * math.sqrt(jax_ret.var(ddof=1) / n + got.var(ddof=1) / n)
+            if not cell["gap_to_jax"] <= cell["limit"]:
+                failures.append(f"{r['env_name']} {r['model_name']}: mean {cell['mean']:.3f} is {cell['gap_to_jax']:.3f} "
+                                f"from the JAX record's, over the limit {cell['limit']:.3f}")
+        cells[f"{r['env_name']}/{r['model_name']}"] = cell
+    stdout = io.StringIO()
+    with redirect_stdout(stdout):
+        summarize.main([str(Path(tmp) / "driver" / "grid" / "results.jsonl")])
+    table = latex_table([r for r in recs if not r.get("errored")])
+    out["grid"] = {"cells": cells, "records": len(recs), "errored": len(errored), "forward_rows_per_launch": rows,
+                   "summarize_equals_latex_table": stdout.getvalue().rstrip().endswith(table)}
+    print("driver grid " + json.dumps(out["grid"]), flush=True)
+    print(table, flush=True)
+    nl_cells = sum(r["model_name"] == "nl" for r in recs)
+    if errored or len(recs) != len(DRIVER_ENVS) * 3:
+        failures.append(f"grid: {len(recs)} records, {len(errored)} errored: {errored}")
+    if not out["grid"]["summarize_equals_latex_table"]:
+        failures.append("grid: summarize over the JSONL does not print the driver's latex_table")
+    if launches["grid"] != nl_cells * (EVAL_STEPS + 1) * T or rows != SEED_ROWS:
+        failures.append(f"grid: nl_forward launched {launches['grid']} times at {rows} rows, expected "
+                        f"{nl_cells * (EVAL_STEPS + 1) * T} at {SEED_ROWS}")
+    shapes.update((env_name, SEED_ROWS) for env_name in DRIVER_ENVS)
+
+    # 2. per-delay training of NL on the collected buffer, with the train gate
+    fwd.launches = fwd.rows = 0
+    t0 = time.perf_counter()
+    trained = driver.main(driver_args(
+        tmp, "train_gate", "--envs", COLLECT_ENV, "--delays", str(DELAY), "--models", "nl", "--retrain", "true",
+        "--force_retrain", "true", "--train_seconds", str(DRIVER_TRAIN_SECONDS), "--train_gate", "nl",
+        "--train_gate_retries", "1", "--ensemble_gate_seeds", str(DRIVER_GATE_SEEDS),
+        "--seed_runs", str(DRIVER_GATE_SEEDS), "--fused_nl_planner", "true", "--offline_datasets_path", tmp))
+    torch.cuda.synchronize()
+    seconds["train_gate"] = time.perf_counter() - t0
+    launches["train_gate"] = fwd.launches
+    final = trained["records"]
+    out["train_gate"] = {"gates": trained["gates"], "final": [
+        {k: r.get(k) for k in ("model_name", "total_reward", "total_reward_std", "errored")} for r in final]}
+    print("driver train_gate " + json.dumps(out["train_gate"]), flush=True)
+    evals = len(trained["gates"]) + 1  # every gate check and the cell's own evaluation
+    if not trained["gates"] or len(final) != 1 or final[0].get("errored") or not math.isfinite(final[0]["total_reward"]):
+        failures.append(f"train_gate: gates {trained['gates']}, final records {final}")
+    if launches["train_gate"] != evals * (EVAL_STEPS + 1) * T or fwd.rows != launches["train_gate"] * DRIVER_GATE_SEEDS * K:
+        failures.append(f"train_gate: nl_forward launched {launches['train_gate']} times over {fwd.rows} rows, "
+                        f"expected {evals * (EVAL_STEPS + 1) * T} at {DRIVER_GATE_SEEDS * K}")
+    shapes.add((COLLECT_ENV, DRIVER_GATE_SEEDS * K))
+
+    # 3. the delay ensemble, and its f64 segment against the members' own
+    t0 = time.perf_counter()
+    ens = driver.main(driver_args(
+        tmp, "ensemble", "--envs", COLLECT_ENV, "--delays", "0,1", "--models", "delta_t_rnn", "--retrain", "true",
+        "--force_retrain", "true", "--ensemble_delays", "true", "--ensemble_exclude", "none", "--ensemble_gate",
+        "delta_t_rnn", "--train_seconds", str(ENSEMBLE_TRAIN_SECONDS), "--seed_runs", str(DRIVER_GATE_SEEDS),
+        "--ensemble_gate_seeds", str(DRIVER_GATE_SEEDS), "--collect_expert_samples", str(ENSEMBLE_ROWS),
+        "--offline_datasets_path", tmp))
+    torch.cuda.synchronize()
+    seconds["ensemble"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    segments = ensemble_segments_f64(device, tmp)
+    seconds["ensemble_f64_segments"] = time.perf_counter() - t0
+    out["ensemble"] = {"gates": ens["gates"], "final": [
+        {k: r.get(k) for k in ("delay", "total_reward", "total_reward_std", "errored")} for r in ens["records"]],
+        "f64_segments": segments}
+    print("driver ensemble " + json.dumps(out["ensemble"]), flush=True)
+    if len(ens["records"]) != 2 or any(r.get("errored") or not math.isfinite(r["total_reward"])
+                                       for r in ens["records"]) or len(ens["gates"]) < 2:
+        failures.append(f"ensemble: gates {ens['gates']}, records {ens['records']}")
+    if not segments["update_loss_rel_gap"] < ENSEMBLE_SEGMENT_LIMIT:
+        failures.append(f"ensemble f64 segment: {segments['update_loss_rel_gap']} is not below {ENSEMBLE_SEGMENT_LIMIT}")
+
+    # 4. the MPPI sweep through the kernel
+    _, params, model = load_nl(MAIN_ENV, device)
+    fwd.launches = fwd.rows = 0
+    t0 = time.perf_counter()
+    best = run_mppi_sweep("nl", MAIN_ENV, DELAY, port.Config(fused_nl_planner=True), SweepSpec(**SWEEP),
+                          model_apply=model.apply, params=params, device=device)
+    torch.cuda.synchronize()
+    seconds["sweep"] = time.perf_counter() - t0
+    launches["sweep"] = fwd.launches
+    trials = best.pop("trials")
+    out["sweep"] = {"trials": trials, "best": best}
+    print("driver sweep " + json.dumps(out["sweep"]), flush=True)
+    expected = sum((EVAL_STEPS + 1) * t["mppi_time_steps"] for t in trials)
+    expected_rows = sum((EVAL_STEPS + 1) * t["mppi_time_steps"] * t["n_seeds"] * t["mppi_roll_outs"] for t in trials)
+    last = [t for t in trials if t["rung"] == trials[-1]["rung"]]
+    if (launches["sweep"] != expected or fwd.rows != expected_rows
+            or not all(math.isfinite(t["total_reward"]) for t in trials)):
+        failures.append(f"sweep: nl_forward launched {launches['sweep']} times over {fwd.rows} rows (expected "
+                        f"{expected} over {expected_rows}); trials {trials}")
+    shapes.update((MAIN_ENV, t["n_seeds"] * t["mppi_roll_outs"]) for t in trials)
+    shapes.add((MAIN_ENV, SWEEP["max_seeds"] * max(SWEEP["roll_outs"])))  # the most a sweep trial can give
+    if best["total_reward"] != max(t["total_reward"] for t in last):
+        failures.append(f"sweep: best {best} is not the best of the last rung {last}")
+
+    # 5. a driver call with --profile_trace_dir
+    trace_dir = Path(tmp) / "driver" / "trace"
+    fwd.launches = fwd.rows = 0
+    t0 = time.perf_counter()
+    traced = driver.main(driver_args(tmp, "trace", "--envs", COLLECT_ENV, "--delays", str(DELAY), "--models", "nl",
+                                     "--seed_runs", str(TRACE_SEEDS), "--fused_nl_planner", "true",
+                                     "--profile_trace_dir", str(trace_dir),
+                                     "--saved_models_path", str(ROOT / "artifacts" / "checkpoints") + "/"))
+    seconds["trace"] = time.perf_counter() - t0
+    launches["trace"] = fwd.launches
+    files = sorted((trace_dir / f"{COLLECT_ENV}_nl_d{DELAY}").glob("*.pt.trace.json"))
+    text = files[0].read_text() if files else ""
+    out["trace"] = {"files": [f.name for f in files], "bytes": len(text),
+                    "nl_forward_kernel_mentions": text.count("nl_forward_kernel"),
+                    "episode_s": traced["records"][0].get("episode_elapsed_time")}
+    print("driver trace " + json.dumps(out["trace"]), flush=True)
+    if len(files) != 1 or out["trace"]["nl_forward_kernel_mentions"] == 0 or traced["records"][0].get("errored"):
+        failures.append(f"trace: {out['trace']}")
+    if launches["trace"] != (EVAL_STEPS + 1) * T or fwd.rows != launches["trace"] * TRACE_SEEDS * K:
+        failures.append(f"trace: nl_forward launched {launches['trace']} times over {fwd.rows} rows, expected "
+                        f"{(EVAL_STEPS + 1) * T} at {TRACE_SEEDS * K}")
+    shapes.add((COLLECT_ENV, TRACE_SEEDS * K))
+
+    # the forward kernel against its plain version at every (env, rows) above
+    t0 = time.perf_counter()
+    checks = [check_forward_rows(device, env_name, rows) for env_name, rows in sorted(shapes)]
+    seconds["kernel_checks"] = time.perf_counter() - t0
+    out["kernel_checks"] = [{k: c[k] for k in ("env", "B", "max_rel_err")} for c in checks]
+    print("driver kernel_checks " + json.dumps(out["kernel_checks"]), flush=True)
+
+    out["seconds"], out["launches"] = seconds, launches
+    print("driver " + json.dumps({k: v for k, v in out.items() if k != "sweep"} | {"sweep_best": best}), flush=True)
+    if failures:
+        raise RuntimeError("phase driver: " + "; ".join(failures))
+    return out
+
+
 def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict) -> dict:
     """One entry per kernel. The forward's times and bounds are at the
     evaluation's 20,000 rows, its launches the evaluation's; ``serving_tick``
@@ -1171,6 +1463,7 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
             out[-1]["trained_weights"] = {"launches": launches["train"][name],
                                           "max_rel_err": training["kernel_on_trained_weights"],
                                           "max_cond_err": training["kernel_cond_on_trained_weights"]}
+            out[-1]["driver"] = {"launches": launches["driver"]}
     return {"kernels": out}
 
 
@@ -1222,9 +1515,12 @@ def main() -> int:
         with phase("baselines"):
             run_baselines(device, smi, tmp, training["eval_results"])
 
+        with phase("driver"):
+            driving = run_driver(device, smi, tmp)
+
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     launches = {"controller": result["launches"], "eval": evaluation["launches"],
-                "train": training["launches"]}
+                "train": training["launches"], "driver": driving["launches"]}
     print(json.dumps(kernels_line(records, seed_batch, launches, training)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

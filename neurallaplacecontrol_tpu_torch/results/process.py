@@ -3,14 +3,16 @@
 Headline score (reference process_logs.py:183-190):
     normalized = 100 * (R - R_random) / (R_oracle - R_random), clipped >= 0
 aggregated as mean +/- spread over seeds. The functions are the JAX
-module's, copied: they work on plain result dicts and numpy. The log
-parser and the LaTeX table of that module are not ported yet.
+module's, copied: they work on plain result dicts and numpy, and on the
+driver's log files (``parse_log_file``).
 """
 
 from __future__ import annotations
 
+import ast
+import re
 from collections import defaultdict
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 
@@ -28,6 +30,40 @@ REFERENCE_BASELINES = {
         "oderl-pendulum": (-575.98, -123.44),
     },
 }
+
+
+_LOG_MARKER = "[Model Completed evaluation mppi]"
+_SENTINELS = {"__nan__": float("nan"), "__inf__": float("inf"), "__ninf__": float("-inf")}
+
+
+def parse_log_file(path) -> list:
+    """The result dicts of a log's ``[Model Completed evaluation mppi] {...}``
+    lines (the reference's log-as-database flow, process_logs.py:145-157),
+    from this package's driver, the JAX package's or the reference's.
+
+    ``nan``, ``inf`` and ``-inf`` (a diverged run), which ``literal_eval``
+    refuses, are swapped for quoted sentinels and mapped back to floats, so
+    such a record is kept. The payload is only ever ``literal_eval``-ed,
+    never ``eval``-ed: a log file is untrusted input."""
+    records = []
+    with open(path) as f:
+        for line in f:
+            if _LOG_MARKER not in line:
+                continue
+            payload = line.split(_LOG_MARKER, 1)[1].strip()
+            try:
+                rec = ast.literal_eval(payload)
+            except (ValueError, SyntaxError):
+                sub = re.sub(r"\b(nan|inf)\b", r"'__\1__'", payload).replace("-'__inf__'", "'__ninf__'")
+                try:
+                    rec = ast.literal_eval(sub)
+                except (ValueError, SyntaxError):
+                    continue
+                if isinstance(rec, dict):
+                    rec = {k: _SENTINELS.get(v, v) if isinstance(v, str) else v for k, v in rec.items()}
+            if isinstance(rec, dict):
+                records.append(rec)
+    return records
 
 
 def mean_confidence_interval(data, confidence: float = 0.95):
@@ -108,3 +144,27 @@ def normalized_scores(
             mean, spread = float(np.mean(scores)), float(np.std(scores))
         out[(delay, env, model)] = (mean, spread, len(scores))
     return out
+
+
+def latex_table(records: Iterable[dict], models: Optional[list] = None, envs: Optional[list] = None,
+                delays: Optional[list] = None, agg: str = "std") -> str:
+    """The paper's LaTeX table (process_logs.py:196-233): a row per model,
+    column groups delays x envs, each cell mean +/- spread of the normalized
+    score (``agg`` as in ``normalized_scores``), "--" where a cell has none."""
+    scores = normalized_scores(records, agg=agg)
+    delays = delays or sorted({k[0] for k in scores})
+    envs = envs or sorted({k[1] for k in scores})
+    models = models or sorted({k[2] for k in scores})
+
+    header = "Model & " + " & ".join(f"{env.replace('oderl-', '')} (d={d})" for d in delays for env in envs)
+    lines = ["\\begin{tabular}{l" + "c" * (len(delays) * len(envs)) + "}", "\\toprule", header + " \\\\",
+             "\\midrule"]
+    for m in models:
+        cells = []
+        for d in delays:
+            for env in envs:
+                v = scores.get((d, env, m))
+                cells.append("--" if v is None else f"${v[0]:.1f} \\pm {v[1]:.1f}$")
+        lines.append(f"{m} & " + " & ".join(cells) + " \\\\")
+    lines += ["\\bottomrule", "\\end{tabular}"]
+    return "\n".join(lines)

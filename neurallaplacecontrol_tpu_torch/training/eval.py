@@ -26,6 +26,7 @@ from ..envs import make_env
 from ..models import make_carried_dynamics, make_model
 from ..planners import MPPIConfig, default_noise_sigma, make_mppi_params, mppi_command
 from ..utils.device import resolve_device
+from ..utils.timing import profile_trace
 from .rollout import (
     EpisodeSettings,
     SeedDraws,
@@ -158,15 +159,16 @@ def evaluate_policy(
     kernel build, the weight repack and one warm-up tick (``_warm_up_tick``)
     and ends when the device is done.
 
-    The JAX function's shard flags, ``devices``, video, profile trace and
-    change_goal raise ``NotImplementedError``, as does ``latent_ode_ref``.
+    ``profile_trace_dir`` traces the timed episode with ``torch.profiler``
+    (``utils.timing.profile_trace``); the trace's writing is timed with it,
+    as in the JAX package. The JAX function's shard flags, ``devices``,
+    video and change_goal raise ``NotImplementedError``, as does
+    ``latent_ode_ref``.
     For ``latent_ode``, ``model_apply`` is the model itself (carried
     history) or its ``apply`` (tiled history), as in the JAX package.
     """
     if shard_seeds or shard_rollouts or shard_grid is not None or devices is not None:
         raise NotImplementedError("sharded evaluation is not ported yet")
-    if profile_trace_dir is not None:
-        raise NotImplementedError("the evaluation's profile trace is not ported yet")
     if change_goal:
         raise NotImplementedError("change_goal is not ported yet")
     if config.save_video if save_video is None else save_video:
@@ -196,9 +198,10 @@ def evaluate_policy(
                      state_constraint, carry_init)
 
     t0 = time.perf_counter()
-    totals, _records = episode(draws)
-    if chol.device.type == "cuda":
-        torch.cuda.synchronize(chol.device)
+    with profile_trace(profile_trace_dir):
+        totals, _records = episode(draws)
+        if chol.device.type == "cuda":
+            torch.cuda.synchronize(chol.device)
     elapsed = time.perf_counter() - t0
 
     scale = 200.0 / settings.n_steps

@@ -384,3 +384,66 @@ def test_carried_planner_ticks_on_card(cuda_device):
             acts.append(action.double().cpu())
         actions[str(dev)] = torch.stack(acts)
     assert float((actions[str(cuda_device)] - actions["cpu"]).abs().max()) < 0.05
+
+
+@pytest.mark.cuda
+def test_ensemble_segment_on_card_matches_cpu_f64(cuda_device):
+    """20 updates of a 2-delay delta_t_rnn ensemble at f64 (full width, from
+    the tracked pendulum d0 and d1 checkpoints, each member on data of its
+    own) on the card and on the CPU: the losses at rtol 1e-9, and each member
+    equal to its own per-delay segment on the card. The members do not
+    interact on the card either."""
+    from neurallaplacecontrol_tpu_torch.models.common import tree_leaves
+    from neurallaplacecontrol_tpu_torch.training import ensemble, make_optimizer, make_train_segment_fn
+
+    cfg = Config()
+    rng = np.random.default_rng(4)
+    n = 320
+    s0 = rng.standard_normal((2, n, 3))
+    data = [s0, rng.uniform(-2.0, 2.0, (2, n, 4, 1)), s0 + 0.1 * rng.standard_normal((2, n, 3)),
+            rng.exponential(0.05, (2, n, 1))]
+    idx = torch.tensor(rng.permutation(n).reshape(20, 16))
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        model = make_model("delta_t_rnn", "oderl-pendulum", 3, 1, 2.0, cfg, dtype=torch.float64, device=dev)
+        members = [load_pytree(REPO / "artifacts" / "checkpoints" / model_checkpoint_name(
+            "delta_t_rnn", "oderl-pendulum", d, "exp", 0, True), device=dev, dtype=torch.float64) for d in (0, 1)]
+        opt = make_optimizer(cfg)
+        tensors = [torch.tensor(x, device=dev) for x in data]
+        p, _, losses = ensemble.make_ensemble_segment_fn(model.apply, opt)(
+            ensemble.stack_trees(members), ensemble.stack_states([opt.init(m) for m in members]), *tensors,
+            idx.to(dev))
+        out[dev.type] = losses.cpu()
+        if dev.type == "cuda":
+            segment = make_train_segment_fn(model, opt)
+            for i, m in enumerate(members):
+                pi, _, li = segment(m, opt.init(m), *(t[i] for t in tensors), idx.to(dev))
+                np.testing.assert_allclose(losses[i].cpu().numpy(), li.cpu().numpy(), rtol=1e-10)
+                for a, b in zip(tree_leaves(ensemble.slice_tree(p, i)), tree_leaves(pi)):
+                    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-9, atol=1e-13)
+    np.testing.assert_allclose(out["cuda"].numpy(), out["cpu"].numpy(), rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_driver_mini_grid_on_card(cuda_device, tmp_path):
+    """run_exp_multi_torch.main with --device cuda on a miniature grid
+    (pendulum d1, 2 seeds, dt 0.5, K=64, T=5): nl trained for 2 s and gated
+    through the fused forward kernel, beside the oracle and random; no
+    record errored, every return finite, the kernel launched."""
+    import sys
+
+    sys.path.insert(0, str(REPO))
+    import run_exp_multi_torch
+
+    tnl.nl_forward_fused.launches = 0
+    out = run_exp_multi_torch.main([
+        "--envs", "oderl-pendulum", "--delays", "1", "--models", "nl,oracle,random", "--device", "cuda",
+        "--results", str(tmp_path / "r.jsonl"), "--log_folder", str(tmp_path), "--seed_runs", "2",
+        "--dt", "0.5", "--mppi_roll_outs", "64", "--mppi_time_steps", "5", "--retrain", "true",
+        "--force_retrain", "true", "--train_seconds", "2", "--train_with_expert_trajectories", "false",
+        "--train_samples_per_dim", "3", "--iters_per_log", "50", "--fused_nl_planner", "true",
+        "--ensemble_gate_seeds", "2", "--train_gate_retries", "0", "--saved_models_path", str(tmp_path) + "/"])
+    recs = out["records"]
+    assert [r["model_name"] for r in recs] == ["nl", "oracle", "random"]
+    assert all(not r["errored"] and np.isfinite(r["total_rewards"]).all() for r in recs)
+    assert len(out["gates"]) == 1 and tnl.nl_forward_fused.launches == 2 * (20 + 1) * 5

@@ -1,0 +1,238 @@
+"""The port's experiment driver (run_exp_multi_torch.main) on miniature grids
+on the CPU (dt 0.5, K=8, T=3, narrow models, a second or two of training):
+train -> gate -> evaluate -> JSONL -> the normalized table; the gates'
+reseeding, the quarantine, the refusals, and the record's keys against the
+JAX package's evaluate_policy."""
+
+import json
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from neurallaplacecontrol_tpu.config import Config as JConfig
+from neurallaplacecontrol_tpu.training.eval import evaluate_policy as jax_evaluate
+from neurallaplacecontrol_tpu_torch.results import latex_table, parse_log_file
+from neurallaplacecontrol_tpu_torch.results import summarize
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import run_exp_multi_torch as driver  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def argv(tmp_path, *extra, seeds=2):
+    return [
+        "--envs", "oderl-pendulum", "--results", str(tmp_path / "results.jsonl"), "--device", "cpu",
+        "--seed_runs", str(seeds), "--dt", "0.5", "--mppi_roll_outs", "8", "--mppi_time_steps", "3",
+        "--train_with_expert_trajectories", "false", "--train_samples_per_dim", "3", "--iters_per_log", "50",
+        "--nl_hidden_units", "16", "--rnn_hidden_units", "32", "--saved_models_path", str(tmp_path) + "/",
+        "--log_folder", str(tmp_path), *extra,
+    ]
+
+
+def read(tmp_path):
+    return [json.loads(line) for line in (tmp_path / "results.jsonl").read_text().splitlines()]
+
+
+TRAIN = ("--retrain", "true", "--force_retrain", "true", "--train_seconds", "1")
+
+
+def test_driver_mini_grid(tmp_path, capsys):
+    """The port's counterpart of tests/test_driver.py::test_driver_mini_grid:
+    nl trained and evaluated beside random; every record finite, with the
+    keys of the JAX package's evaluate_policy and ``errored``; the log's
+    result lines parse back; summarize over the JSONL prints the table of
+    the records main returns."""
+    out = driver.main(argv(tmp_path, "--delays", "0", "--models", "nl,random", *TRAIN, "--train_gate", "none"))
+    recs = read(tmp_path)
+    assert recs == out["records"] and out["gates"] == []
+    assert {r["model_name"] for r in recs} == {"nl", "random"}
+    exp_keys = set(jax_evaluate("random", "oderl-pendulum", 0, [0], JConfig(dt=0.5), roll_outs=8, time_steps=3))
+    for r in recs:
+        assert set(r) == exp_keys | {"errored"} and not r["errored"]
+        assert len(r["total_rewards"]) == 2 and np.isfinite(r["total_reward"])
+    assert any(f.startswith("nl_") and f.endswith(".npz") for f in os.listdir(tmp_path))
+    logs = list(tmp_path.glob("run_exp_multi_torch-*_log.txt"))
+    parsed = [r for log in logs for r in parse_log_file(log)]
+    assert [(r["model_name"], r["total_reward"]) for r in parsed] == [
+        (r["model_name"], r["total_reward"]) for r in recs]
+    capsys.readouterr()
+    summarize.main([str(tmp_path / "results.jsonl")])
+    assert capsys.readouterr().out.rstrip().endswith(latex_table(recs))
+
+
+def test_driver_train_gate_reseeds_planted_bad_draw(tmp_path, monkeypatch):
+    """The counterpart of tests/test_driver.py::
+    test_driver_train_gate_reseeds_planted_bad_individual_draw: the first
+    gate check's return is planted at -1e9 and the second's at +1e9, so
+    exactly one retrain runs, with model_seed + 1, from the init, and the
+    final evaluation is the honest one. Gate checks run on 2 seeds, the
+    final evaluation on 3."""
+    reseeded, gate_evals = [], []
+    real_train, real_eval = driver.train_model, driver.evaluate_policy
+
+    def counting_train(model_name, env_name, config, **kw):
+        if kw.get("force_retrain") and not kw.get("start_from_checkpoint", True):
+            reseeded.append((model_name, kw.get("delay"), kw.get("model_seed")))
+        return real_train(model_name, env_name, config, **kw)
+
+    def planted_eval(model_name, env_name, delay, **kw):
+        r = real_eval(model_name, env_name, delay, **kw)
+        if model_name == "rnn" and "params" in kw and len(kw["seeds"]) == 2:
+            gate_evals.append(kw["seeds"])
+            r = dict(r, total_reward=-1e9 if len(gate_evals) == 1 else 1e9)
+        return r
+
+    monkeypatch.setattr(driver, "train_model", counting_train)
+    monkeypatch.setattr(driver, "evaluate_policy", planted_eval)
+    out = driver.main(argv(tmp_path, "--delays", "0", "--models", "rnn,random", *TRAIN, "--train_gate", "rnn",
+                           "--train_gate_retries", "2", "--ensemble_gate_seeds", "2", "--ensemble_gate_margin", "0",
+                           "--model_seed", "7", seeds=3))
+    assert reseeded == [("rnn", 0, 8)] and len(gate_evals) == 2
+    assert [(g["attempt"], g["model_seed"], g["ok"]) for g in out["gates"]] == [(0, 7, False), (1, 8, True)]
+    gate = out["gates"][0]
+    assert gate["threshold"] == gate["random_return"] and gate["model_return"] == -1e9
+    by_model = {r["model_name"]: r for r in read(tmp_path) if not r["errored"]}
+    assert set(by_model) == {"rnn", "random"} and by_model["rnn"]["total_reward"] > -1e8
+
+
+def test_driver_train_gate_none_skips_control_eval(tmp_path, monkeypatch):
+    """--train_gate none spends no control evaluation: the only
+    evaluate_policy call is the cell's own."""
+    calls = []
+    real_eval = driver.evaluate_policy
+
+    def spying_eval(model_name, env_name, delay, **kw):
+        calls.append(model_name)
+        return real_eval(model_name, env_name, delay, **kw)
+
+    monkeypatch.setattr(driver, "evaluate_policy", spying_eval)
+    driver.main(argv(tmp_path, "--delays", "0", "--models", "rnn", *TRAIN, "--train_gate", "none"))
+    assert calls == ["rnn"]
+
+
+def test_driver_quarantines_a_failing_cell(tmp_path):
+    """A cell that raises (rnn at delay 2 has no checkpoint under this
+    saved_models_path and nothing trains it) records {"errored": true} and
+    the grid goes on to the next cell."""
+    out = driver.main(argv(tmp_path, "--delays", "2", "--models", "rnn,oracle"))
+    recs = read(tmp_path)
+    assert recs == out["records"]
+    assert recs[0] == {"model_name": "rnn", "env_name": "oderl-pendulum", "delay": 2, "errored": True}
+    assert recs[1]["model_name"] == "oracle" and not recs[1]["errored"]
+    log = next(tmp_path.glob("run_exp_multi_torch-*_log.txt")).read_text()
+    assert "eval FAILED oderl-pendulum rnn d=2" in log and "No checkpoint" in log
+
+
+@pytest.mark.parametrize("extra,message", [
+    (("--shard", "seeds"), "queue 1 item 8"),
+    (("--shard", "grid:2x4"), "queue 1 item 8"),
+    (("--models", "nl,latent_ode_ref"), "latent_ode_ref"),
+    (("--models", "bogus"), "bogus"),
+    (("--multihost", "127.0.0.1:1,2", "--ensemble_delays", "true", "--delays", "0,1"), "incompatible"),
+    (("--multihost", "127.0.0.1:1"), "coordinator_host:port,N"),
+])
+def test_driver_refuses_before_any_work(extra, message, tmp_path, monkeypatch, capsys):
+    """Refusals are parser errors before any work: nothing evaluated, no
+    log, no results file. A --shard other than none never falls back to an
+    unsharded run."""
+    monkeypatch.setattr(driver, "evaluate_policy", lambda *a, **k: pytest.fail("evaluated"))
+    args = argv(tmp_path / "run", "--delays", "0", "--models", "oracle")
+    with pytest.raises(SystemExit) as exc:
+        driver.main(args + list(extra))
+    assert exc.value.code == 2 and message in capsys.readouterr().err
+    assert not (tmp_path / "run").exists()
+
+
+def test_driver_needs_cuda_or_cpu(tmp_path, monkeypatch):
+    """The default --device cuda raises where CUDA is absent; nothing drops to
+    the CPU on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = [a for a in argv(tmp_path / "run", "--delays", "0", "--models", "oracle") if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        driver.main(args)
+    assert not (tmp_path / "run").exists()
+
+
+def test_driver_ensemble_with_gate_and_profile_trace(tmp_path, monkeypatch):
+    """The counterparts of tests/test_driver.py's ensemble tests: rnn trains
+    as a 2-delay ensemble; its first gate check is planted to fail, so that
+    delay alone is retrained per delay from the init; both delays end up
+    evaluated. --profile_trace_dir writes a Chrome trace per cell."""
+    ensembled, retrains = [], []
+    real_ens, real_train, real_eval = driver.train_model_ensemble, driver.train_model, driver.evaluate_policy
+
+    def spy_ensemble(model_name, env_name, config, **kw):
+        ensembled.append((model_name, tuple(kw["delays"])))
+        return real_ens(model_name, env_name, config, **kw)
+
+    def spy_train(model_name, env_name, config, **kw):
+        retrains.append((model_name, kw.get("delay"), kw.get("start_from_checkpoint")))
+        return real_train(model_name, env_name, config, **kw)
+
+    def planted_eval(model_name, env_name, delay, **kw):
+        r = real_eval(model_name, env_name, delay, **kw)
+        if model_name == "rnn" and "params" in kw and not retrains:
+            r = dict(r, total_reward=-1e9)
+        return r
+
+    monkeypatch.setattr(driver, "train_model_ensemble", spy_ensemble)
+    monkeypatch.setattr(driver, "train_model", spy_train)
+    monkeypatch.setattr(driver, "evaluate_policy", planted_eval)
+    traces = tmp_path / "traces"
+    out = driver.main(argv(tmp_path, "--delays", "0,1", "--models", "rnn,random", *TRAIN, "--ensemble_delays", "true",
+                           "--ensemble_gate", "rnn", "--ensemble_gate_seeds", "2", "--ensemble_gate_margin", "0",
+                           "--profile_trace_dir", str(traces)))
+    assert ensembled == [("rnn", (0, 1))]
+    assert retrains[0] == ("rnn", 0, False) and out["gates"][0]["gate"] == "ensemble"
+    assert not out["gates"][0]["ok"] and out["gates"][1]["delay"] == 1
+    cells = {(r["model_name"], r["delay"]) for r in read(tmp_path) if not r["errored"]}
+    assert cells == {("rnn", 0), ("rnn", 1), ("random", 0), ("random", 1)}
+    for cell in ("oderl-pendulum_rnn_d0", "oderl-pendulum_random_d1"):
+        found = list((traces / cell).glob("*.pt.trace.json"))
+        assert len(found) == 1 and "traceEvents" in json.loads(found[0].read_text())
+
+
+def test_driver_ensemble_excludes_flagship_by_default(tmp_path, monkeypatch):
+    """--ensemble_exclude defaults to nl: under --ensemble_delays the
+    flagship trains per delay and never reaches the ensemble trainer."""
+    individual = []
+    real_train = driver.train_model
+
+    def spy_train(model_name, env_name, config, **kw):
+        individual.append((model_name, kw.get("delay")))
+        return real_train(model_name, env_name, config, **kw)
+
+    def no_ensemble(*a, **kw):
+        raise AssertionError("the flagship must not reach the ensemble trainer")
+
+    monkeypatch.setattr(driver, "train_model", spy_train)
+    monkeypatch.setattr(driver, "train_model_ensemble", no_ensemble)
+    driver.main(argv(tmp_path, "--delays", "0,1", "--models", "nl", *TRAIN, "--train_gate", "none",
+                     "--ensemble_delays", "true"))
+    assert {("nl", 0), ("nl", 1)} <= set(individual)
+    assert all(not r["errored"] for r in read(tmp_path))
+
+
+def test_chip_smoke_nl_reference_is_pinned_to_the_loaded_checkpoint(tmp_path, monkeypatch):
+    """chip_smoke.py holds the grid's NL cells to the JAX package's run
+    recorded in artifacts/port/jax_eval_driver_d1.json: that run's
+    checkpoints are the tracked files the grid loads (path and sha256), and
+    a reference made on other weights is refused rather than compared."""
+    import chip_smoke
+
+    for env in chip_smoke.DRIVER_ENVS:
+        assert chip_smoke.jax_cell_returns(env, 1, "nl").shape == (20,)
+    ref = json.loads(chip_smoke.JAX_DRIVER_REFERENCE.read_text())
+    ref["cells"]["oderl-pendulum/nl"]["checkpoint"]["sha256"] = "0" * 64
+    moved = tmp_path / "ref.json"
+    moved.write_text(json.dumps(ref))
+    monkeypatch.setattr(chip_smoke, "JAX_DRIVER_REFERENCE", moved)
+    with pytest.raises(RuntimeError, match="the grid loads"):
+        chip_smoke.jax_cell_returns("oderl-pendulum", 1, "nl")
+    assert chip_smoke.jax_cell_returns("oderl-acrobot", 1, "nl").shape == (20,)

@@ -7,6 +7,7 @@ with K=16 rollouts over a T=5 horizon and the JAX draws replayed
 must equal JAX's: returns at rtol 1e-10, the rest exactly.
 """
 
+import json
 from pathlib import Path
 
 import jax
@@ -106,13 +107,26 @@ def test_evaluate_policy_seeds_are_reproducible():
 @pytest.mark.parametrize(
     "kwargs",
     [{"shard_seeds": True}, {"shard_rollouts": True}, {"shard_grid": (1, 1)}, {"devices": []},
-     {"save_video": True}, {"change_goal": True}, {"profile_trace_dir": "trace"}],
-    ids=["shard_seeds", "shard_rollouts", "shard_grid", "devices", "video", "change_goal", "profile_trace"],
+     {"save_video": True}, {"change_goal": True}],
+    ids=["shard_seeds", "shard_rollouts", "shard_grid", "devices", "video", "change_goal"],
 )
 def test_evaluate_policy_unported_flags_raise(kwargs):
     with pytest.raises(NotImplementedError):
         teval.evaluate_policy("oracle", ENV, DELAY, [0], config=TConfig(dt=DT), roll_outs=K,
                               time_steps=T, device="cpu", **kwargs)
+
+
+def test_evaluate_policy_writes_profile_trace(tmp_path):
+    """``profile_trace_dir`` writes one Chrome trace of the timed episode
+    (``utils.timing.profile_trace``) and leaves the returns as they are."""
+    kw = dict(config=TConfig(dt=DT), roll_outs=K, time_steps=T, dtype=torch.float64, device="cpu")
+    plain = teval.evaluate_policy("oracle", ENV, DELAY, SEEDS[:2], **kw)
+    traced = teval.evaluate_policy("oracle", ENV, DELAY, SEEDS[:2], profile_trace_dir=str(tmp_path / "t"), **kw)
+    assert traced["total_rewards"] == plain["total_rewards"]
+    files = list((tmp_path / "t").glob("*.pt.trace.json"))
+    assert len(files) == 1
+    names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
+    assert any(str(n).startswith("aten::") for n in names)
 
 
 @pytest.mark.parametrize("model_name,cfg", [("latent_ode_ref", TConfig()),

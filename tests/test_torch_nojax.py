@@ -1,5 +1,5 @@
-"""The port stands alone: nothing reachable from neurallaplacecontrol_tpu_torch
-or chip_smoke.py imports JAX or the JAX package, entry points never drop to
+"""The port stands alone: nothing reachable from neurallaplacecontrol_tpu_torch,
+chip_smoke.py or run_exp_multi_torch.py imports JAX or the JAX package, entry points never drop to
 the CPU on their own, and the port's sources keep the repo's hygiene rules."""
 
 import ast
@@ -21,13 +21,24 @@ from neurallaplacecontrol_tpu_torch.data import (
     load_replay_buffer,
     save_replay_buffer,
 )
-from neurallaplacecontrol_tpu_torch.training import SeedDraws, evaluate_policy, train_model
+from neurallaplacecontrol_tpu_torch.parallel import multihost
+from neurallaplacecontrol_tpu_torch.training import (
+    SeedDraws,
+    evaluate_policy,
+    run_mppi_sweep,
+    train_model,
+    train_model_ensemble,
+)
 from neurallaplacecontrol_tpu_torch.utils import checkpoint
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "neurallaplacecontrol_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+sys.path.insert(0, str(REPO))
+
+import run_exp_multi_torch  # noqa: E402
+PORT_FILES = sorted((REPO / "neurallaplacecontrol_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "run_exp_multi_torch.py"]
 FORBIDDEN = ("jax", "neurallaplacecontrol_tpu")
 
 
@@ -136,6 +147,34 @@ def test_port_and_chip_smoke_import_and_tick_without_jax():
             lparams, opt.init(lparams), eps, *windows,
             torch.as_tensor(bref["train/latent_ode/batch_idx"][:2], dtype=torch.long))
         assert int(lstate.count) == 2 and bool(torch.isfinite(llosses).all())
+        # the orchestration slice: the driver's grid on the CPU, the results
+        # tools, the ensemble, the sweep and the process helpers; the GPU
+        # machine has no matplotlib, and none of these imports it
+        import run_exp_multi_torch
+        from neurallaplacecontrol_tpu_torch.parallel import multihost
+        from neurallaplacecontrol_tpu_torch.results import summarize
+        from neurallaplacecontrol_tpu_torch.training import SweepSpec, run_mppi_sweep, train_model_ensemble
+        with tempfile.TemporaryDirectory() as tmp:
+            out = run_exp_multi_torch.main([
+                "--envs", "oderl-pendulum", "--delays", "0", "--models", "oracle,random", "--device", "cpu",
+                "--results", tmp + "/r.jsonl", "--seed_runs", "2", "--dt", "2.5", "--mppi_roll_outs", "8",
+                "--mppi_time_steps", "2", "--log_folder", tmp])
+            assert len(out["records"]) == 2 and not any(r["errored"] for r in out["records"])
+            summarize.main([tmp + "/r.jsonl"])
+            best = run_mppi_sweep("oracle", "oderl-pendulum", 0, port.Config(dt=2.5),
+                                  SweepSpec(roll_outs=(8,), time_steps=(2,), n_trials=2, base_seeds=1,
+                                            max_seeds=1), device="cpu")
+            assert len(best["trials"]) == 2
+            ens = train_model_ensemble("rnn", "oderl-pendulum", tcfg.replace(rnn_hidden_units=8, saved_models_path=tmp + "/"),
+                                       delays=[0, 1],
+                                       force_retrain=True, device="cpu")
+            assert set(ens) == {0, 1}
+        assert multihost.process_slice([1, 2, 3], 1, 2) == [2]
+        # phase driver's references: the JAX package's NL run at HEAD, its records
+        for env in chip_smoke.DRIVER_ENVS:
+            for name in ("nl", "oracle"):
+                assert chip_smoke.jax_cell_returns(env, 1, name).shape == (20,)
+        assert "matplotlib" not in sys.modules
         loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                         or m == "neurallaplacecontrol_tpu"
                         or m.startswith("neurallaplacecontrol_tpu."))
@@ -183,6 +222,17 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             port.make_controller(family, "oderl-pendulum", 1, model_apply=lambda *a: None, params={})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port.make_controller("oracle", "oderl-pendulum", 1)
+    cfg = port.Config(saved_models_path=str(tmp_path) + "/")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_model_ensemble("rnn", "oderl-pendulum", cfg, delays=[0, 1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_mppi_sweep("oracle", "oderl-pendulum", 0, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.initialize("127.0.0.1:1", 2, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_exp_multi_torch.main(["--envs", "oderl-pendulum", "--delays", "0", "--models", "oracle",
+                                  "--results", str(tmp_path / "r.jsonl"), "--log_folder", str(tmp_path / "logs")])
+    assert not (tmp_path / "r.jsonl").exists() and not (tmp_path / "logs").exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
