@@ -43,6 +43,13 @@ package's runs of those cells), per-delay NL training with ``--train_gate``,
 a delta_t_rnn delay ensemble with ``--ensemble_gate`` (and its f64 segment
 against its members' own), the MPPI sweep through the kernel
 (``training.run_mppi_sweep``) and a cell traced with ``--profile_trace_dir``.
+Phase ``shard`` runs the multi-device layer on the one card: the 20-seed
+evaluation under each shard mode in a one-rank NCCL group (equal to phase
+``eval``'s returns), two ranks sharing the card over gloo
+(``scripts/port_shard_check.py``: K-sharded ticks at K=1,000 and 262,144
+against the one-rank plan, the seed-sharded evaluation, grid shapes), the
+forward kernel at the ranks' row counts, the dp x tp training step, and the
+driver under torchrun with ``--shard``.
 
 Every phase prints ``phase <name> start`` and ``phase <name> done <seconds>``.
 Any failure raises, and the script exits non-zero. The last three lines are
@@ -96,7 +103,7 @@ from neurallaplacecontrol_tpu_torch.training import (
 from neurallaplacecontrol_tpu_torch.training import ensemble
 from neurallaplacecontrol_tpu_torch.training.eval import build_planner
 from neurallaplacecontrol_tpu_torch.training.sweep import SweepSpec, run_mppi_sweep
-from neurallaplacecontrol_tpu_torch.models.common import tree_leaves
+from neurallaplacecontrol_tpu_torch.models.common import tree_leaves, tree_unflatten
 from neurallaplacecontrol_tpu_torch.training.train import make_optimizer, make_train_segment_fn, median
 from neurallaplacecontrol_tpu_torch.training.train_latent_ode import build_history_windows, make_latent_ode_segment_fn
 from neurallaplacecontrol_tpu_torch.utils.checkpoint import (
@@ -234,6 +241,22 @@ ENSEMBLE_ROWS = 4000  # the ensemble's buffers: phase collect's d1, the driver's
 ENSEMBLE_SEGMENT_LIMIT = 1e-10  # f64, each update's loss: ensemble member vs its own segment
 SWEEP = dict(n_trials=3, base_seeds=2, max_seeds=6, roll_outs=(256, 1000, 4096), time_steps=(20, 40))
 TRACE_SEEDS = 2
+# Phase ``shard``: the multi-device layer on the one card (a world of one
+# over NCCL, two ranks sharing the card over gloo, torchrun with one rank).
+# The K-sharded plan sums each half of K apart, so in f32 it parts from the
+# one-rank plan by rounding; SHARD_TICK_LIMIT bounds |dU| / (1 + |U|) and
+# |d action| over 10 replayed ticks, and a plan without the reductions over
+# the ranks must read above it
+# (sound: 2.1e-7 to 2.4e-7 at K=1,000 and 262,144; planted: 0.29 to 1.0;
+# NVIDIA H100 80GB HBM3, 700 W)
+SHARD_TICK_LIMIT = 1e-5
+SHARD_FORWARD_ROWS = (10_000, 131_072, 262_144)  # a rank's rows at K=20,000 / 2, 262,144 / 2, 262,144
+SHARD_TIMED_ROWS = (131_072, 262_144)
+SHARD_TRAIN_STEPS = 2
+TRAIN_STEP_RTOL, TRAIN_STEP_ATOL = 2e-4, 1e-6  # tests/test_sharding.py:140-144, the JAX test's f32 tolerance
+SHARD_DRIVER_SEEDS = 4
+SHARD_RANKS_TIMEOUT_S = 600
+SHARD_DRIVER_TIMEOUT_S = 300
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (NVIDIA data sheet)
 SPLIT_PASSES = 3  # split TF32: hi*hi + hi*lo + lo*hi per product
@@ -640,7 +663,7 @@ def run_eval(device, smi: str) -> dict:
                         "jax_commit": ref["commit"]}
 
     # three seed-batched ticks of the same episode loop under torch.profiler
-    env_t, mppi_cfg, mppi_params, dynamics, _ = build_planner(
+    env_t, mppi_cfg, mppi_params, dynamics, _, _ = build_planner(
         "nl", MAIN_ENV, DELAY, cfg, model_apply=model.apply, params=params, roll_outs=K, time_steps=T,
         device=device)
     ticks = make_episode_fn(env_t, dynamics, mppi_cfg, mppi_params,
@@ -649,6 +672,7 @@ def run_eval(device, smi: str) -> dict:
     out["trace"] = trace_ticks(lambda: ticks(SeedDraws(EVAL_SEEDS, device=device))[0].cpu(),
                                TRACE_EVAL_TICKS, tick_ms)
     print("eval " + json.dumps(out), flush=True)
+    out["nl_returns"] = results["nl"]["total_rewards"]  # phase shard holds its sharded runs to these
 
     returns = [x for r in results.values() for x in r["total_rewards"]]
     if not all(math.isfinite(x) for x in returns):
@@ -1081,7 +1105,7 @@ def run_baselines(device, smi: str, tmp: str, baselines: dict) -> dict:
         results[name] = evaluate_policy(name, BASELINE_ENV, DELAY, EVAL_SEEDS, port.Config(),
                                         model_apply=model.apply, params=params, roll_outs=K, time_steps=T,
                                         device=device)
-        env_t, mppi_cfg, mppi_params, dynamics, _ = build_planner(
+        env_t, mppi_cfg, mppi_params, dynamics, _, _ = build_planner(
             name, BASELINE_ENV, DELAY, port.Config(), model_apply=model.apply, params=params, roll_outs=K,
             time_steps=T, device=device)
         tick = make_episode_fn(env_t, dynamics, mppi_cfg, mppi_params, EpisodeSettings(delay=DELAY, n_steps=1))
@@ -1109,7 +1133,7 @@ def run_baselines(device, smi: str, tmp: str, baselines: dict) -> dict:
     # the latent ODE: a cut episode with carried history, 20 seeds in lockstep
     t0 = time.perf_counter()
     model, params = load_family("latent_ode", device)
-    env_t, mppi_cfg, mppi_params, dynamics, carry_init = build_planner(
+    env_t, mppi_cfg, mppi_params, dynamics, carry_init, _ = build_planner(
         "latent_ode", BASELINE_ENV, DELAY, port.Config(), model_apply=model, params=params, roll_outs=K,
         time_steps=T, device=device)
     episodes = make_batched_episode_fn(env_t, dynamics, mppi_cfg, mppi_params,
@@ -1426,7 +1450,221 @@ def run_driver(device, smi: str, tmp: str) -> dict:
     return out
 
 
-def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict) -> dict:
+def plain_train_steps(model, params, opt, batch, steps: int):
+    """The one-device training step (loss mean((pred - (sn - s0))**2), the
+    optimizer on the whole tree) ``steps`` times: (losses, params)."""
+    s0, a0, sn, ts = batch
+    state, losses = opt.init(params), []
+    for _ in range(steps):
+        leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        loss = torch.mean((model.apply(p, s0, a0, ts) - (sn - s0)) ** 2)
+        updates, state = opt.update(tree_unflatten(params, list(torch.autograd.grad(loss, leaves))), state, p)
+        params = tree_unflatten(params, [x.detach() + u for x, u in zip(leaves, tree_leaves(updates))])
+        losses.append(float(loss.detach()))
+    return losses, params
+
+
+def shard_world_of_one(device, eval_returns) -> dict:
+    """Part 1 and part 4 of phase ``shard`` in this process, a real one-rank
+    NCCL group: the 20-seed evaluation under each shard mode against phase
+    ``eval``'s unsharded returns, and the dp x tp training step against the
+    one-device step."""
+    import socket
+
+    import torch.distributed as dist
+
+    from neurallaplacecontrol_tpu_torch.parallel import make_mesh, make_sharded_train_step, multihost, shard_params
+    from neurallaplacecontrol_tpu_torch.parallel import unshard_params
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port_no = sock.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port_no}", 1, 0, device="cuda")
+    if dist.get_backend() != "nccl":
+        raise RuntimeError(f"the one-rank group runs {dist.get_backend()}, not nccl")
+    try:
+        env, params, model = load_nl(MAIN_ENV, device)
+        cfg = port.Config(fused_nl_planner=True)
+        fwd = pallas_nl.nl_forward_fused
+        modes, launches = {}, 0
+        for name, kw in (("seeds", {"shard_seeds": True}), ("rollouts", {"shard_rollouts": True}),
+                         ("grid:1x1", {"shard_grid": (1, 1)})):
+            fwd.launches = fwd.rows = 0
+            r = evaluate_policy("nl", MAIN_ENV, DELAY, EVAL_SEEDS, cfg, model_apply=model.apply, params=params,
+                                roll_outs=K, time_steps=T, device=device, **kw)
+            got = np.asarray(r["total_rewards"])
+            modes[name] = {"max_rel_gap": float(np.max(np.abs(got - eval_returns) / np.abs(eval_returns))),
+                           "equal": bool(np.array_equal(got, eval_returns)), "launches": fwd.launches,
+                           "rows_per_launch": fwd.rows / max(1, fwd.launches),
+                           "episode_batch_s": r["episode_elapsed_time"], "group_size": r["shard_group_size"]}
+            launches += fwd.launches
+        # part 4: the dp x tp step on the one-rank mesh, two updates
+        rng = np.random.default_rng(5)
+        B = 256
+        s0 = rng.standard_normal((B, 5))
+        batch = tuple(torch.tensor(x, dtype=torch.float32, device=device) for x in (
+            s0, rng.uniform(-3.0, 3.0, (B, 4, 1)), s0 + 0.01 * rng.standard_normal((B, 5)), np.full((B, 1), DT)))
+        opt = make_optimizer(port.Config(learning_rate=1e-4, clip_grad_norm=0.1, weight_decay=0.0,
+                                         use_lr_scheduler=False))
+        ref_losses, ref_params = plain_train_steps(model, params, opt, batch, SHARD_TRAIN_STEPS)
+        mesh = make_mesh(1, tp=2, device=device)
+        step = make_sharded_train_step(model.apply, opt, mesh)
+        p, state, losses = shard_params(params, mesh), None, []
+        state = opt.init(p)
+        for _ in range(SHARD_TRAIN_STEPS):
+            p, state, loss = step(p, state, *batch)
+            losses.append(float(loss))
+        got, want = tree_leaves(unshard_params(p, mesh)), tree_leaves(ref_params)
+        close = all(torch.allclose(a, b, rtol=TRAIN_STEP_RTOL, atol=TRAIN_STEP_ATOL) for a, b in zip(got, want))
+        train = {"mesh": mesh.shape, "losses": losses, "one_device_losses": ref_losses,
+                 "max_param_gap": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+                 "within_rtol_atol": close, "rtol": TRAIN_STEP_RTOL, "atol": TRAIN_STEP_ATOL}
+    finally:
+        dist.destroy_process_group()
+    return {"modes": modes, "launches": launches, "train": train}
+
+
+def shard_two_ranks(tmp: str, eval_returns) -> list:
+    """Part 2 of phase ``shard``: two processes of
+    ``scripts/port_shard_check.py ranks`` sharing the card over gloo."""
+    import socket
+
+    out_dir = Path(tmp) / "shard_ranks"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    returns = out_dir / "eval_returns.json"
+    returns.write_text(json.dumps([float(x) for x in eval_returns]))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port_no = sock.getsockname()[1]
+    script = str(ROOT / "scripts" / "port_shard_check.py")
+    procs = [subprocess.Popen([sys.executable, script, "ranks", str(r), str(port_no), str(out_dir), str(returns)],
+                              cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=SHARD_RANKS_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"shard rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def shard_driver(tmp: str) -> dict:
+    """Part 5 of phase ``shard``: the driver under torchrun with one rank, on
+    pendulum d1 x {nl, random}, 4 seeds, the tracked checkpoints."""
+    out = {}
+    for shard in ("rollouts", "seeds"):
+        part = Path(tmp) / "shard_driver" / shard
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+               str(ROOT / "run_exp_multi_torch.py"), "--shard", shard, "--envs", COLLECT_ENV, "--delays", str(DELAY),
+               "--models", "nl,random", "--seed_runs", str(SHARD_DRIVER_SEEDS), "--fused_nl_planner", "true",
+               "--saved_models_path", str(ROOT / "artifacts" / "checkpoints") + "/",
+               "--results", str(part / "results.jsonl"), "--log_folder", str(part / "logs")]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True, timeout=SHARD_DRIVER_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise RuntimeError(f"torchrun --shard {shard} exited {run.returncode}:\n{run.stderr[-4000:]}")
+        recs = [json.loads(x) for x in (part / "results.jsonl").read_text().splitlines()]
+        out[shard] = {"seconds": seconds, "records": [
+            {k: r.get(k) for k in ("model_name", "total_reward", "errored", "shard", "shard_group_size",
+                                   "shard_fallback")} for r in recs]}
+    return out
+
+
+def run_shard(device, smi: str, eval_returns, tmp: str) -> dict:
+    """Phase ``shard``: the multi-device layer on the one card. 1. A world of
+    one over NCCL: the 20-seed cartpole-d1 evaluation under shard_seeds,
+    shard_rollouts and shard_grid=(1, 1), each seed's return equal to phase
+    ``eval``'s. 2. Two ranks sharing the card over gloo
+    (``scripts/port_shard_check.py``): 10 replayed ticks of the K-sharded
+    planner at K=1,000 and K=262,144 against the one-rank plan on the same
+    noise (``SHARD_TICK_LIMIT``, and a planted fault that must exceed it),
+    the seed-sharded 20-seed evaluation, and grid 2x1 and 1x2 on 4 seeds.
+    3. The forward kernel against its plain version at the row counts the
+    sharded planner gives it. 4. The dp x tp step at a world of one against
+    the one-device step. 5. The driver under torchrun with ``--shard
+    rollouts`` and ``--shard seeds``."""
+    eval_returns = np.asarray(eval_returns, dtype=np.float64)
+    seconds, failures, out = {}, [], {"card": smi}
+
+    t0 = time.perf_counter()
+    one = shard_world_of_one(device, eval_returns)
+    seconds["world_of_one"] = time.perf_counter() - t0
+    out["world_of_one"] = one
+    print("shard world_of_one " + json.dumps(one | {"card": smi}), flush=True)
+    for name, m in one["modes"].items():
+        if not m["equal"]:
+            failures.append(f"world of one, {name}: per-seed returns {m['max_rel_gap']:.3e} from phase eval's")
+        if m["launches"] != (EVAL_STEPS + 1) * T or m["rows_per_launch"] != SEED_ROWS:
+            failures.append(f"world of one, {name}: nl_forward launched {m['launches']} times at "
+                            f"{m['rows_per_launch']} rows")
+    if not one["train"]["within_rtol_atol"]:
+        failures.append(f"dp x tp step: parameters {one['train']['max_param_gap']:.3e} from the one-device step")
+
+    t0 = time.perf_counter()
+    ranks = shard_two_ranks(tmp, eval_returns)
+    seconds["two_ranks"] = time.perf_counter() - t0
+    out["two_ranks"] = ranks
+    launches = one["launches"] + sum(r["seeds"]["launches"] + sum(g["launches"] for g in r["grid"].values())
+                                     for r in ranks)
+    for r in ranks:
+        for tick in r["ticks"]:
+            if not (tick["U"] <= SHARD_TICK_LIMIT and tick["action"] <= SHARD_TICK_LIMIT):
+                failures.append(f"rank {r['rank']} K={tick['K']}: sharded ticks {tick['U']:.3e} (U), "
+                                f"{tick['action']:.3e} (action) from the one-rank plan, limit {SHARD_TICK_LIMIT}")
+            if not tick["planted_U"] > SHARD_TICK_LIMIT:
+                failures.append(f"rank {r['rank']} K={tick['K']}: the planted fault reads {tick['planted_U']:.3e}, "
+                                f"inside the limit {SHARD_TICK_LIMIT}")
+        got = np.asarray(r["seeds"]["returns"])
+        gap = abs(float(got.mean() - eval_returns.mean()))
+        limit = 3.0 * math.sqrt(got.var(ddof=1) / got.size + eval_returns.var(ddof=1) / eval_returns.size)
+        r["seeds"]["mean_gap"], r["seeds"]["mean_limit"] = gap, limit
+        if not gap <= limit:  # equal per seed is expected; a gap is reported, a shifted mean fails
+            failures.append(f"rank {r['rank']}: seed-sharded mean return {gap:.3f} from phase eval's, over {limit:.3f}")
+        grid_returns = [x for g in r["grid"].values() for x in g["returns"]]
+        if not all(math.isfinite(x) for x in grid_returns):
+            failures.append(f"rank {r['rank']}: non-finite grid return")
+    print("shard two_ranks " + json.dumps({"card": smi, "ranks": ranks}), flush=True)
+    if ranks[0]["seeds"]["returns"] != ranks[1]["seeds"]["returns"]:
+        failures.append("the two ranks hold different seed-sharded records")
+
+    t0 = time.perf_counter()
+    checks = []
+    for rows in SHARD_FORWARD_ROWS:
+        rec = check_forward_rows(device, MAIN_ENV, rows, timed=rows in SHARD_TIMED_ROWS)
+        checks.append(rec)
+        print("kernel nl_forward shard rows: " + json.dumps(rec | {"card": smi}), flush=True)
+    seconds["kernel_checks"] = time.perf_counter() - t0
+    out["kernel_checks"] = checks
+
+    t0 = time.perf_counter()
+    drv = shard_driver(tmp)
+    seconds["driver"] = time.perf_counter() - t0
+    out["driver"] = drv
+    print("shard driver " + json.dumps(drv | {"card": smi}), flush=True)
+    for shard, d in drv.items():
+        recs = d["records"]
+        if len(recs) != 2 or any(r["errored"] or r["shard"] != shard or r["shard_group_size"] != 1 for r in recs):
+            failures.append(f"driver --shard {shard}: records {recs}")
+        random = [r for r in recs if r["model_name"] == "random"]
+        if shard == "rollouts" and not (random and random[0]["shard_fallback"]):
+            failures.append(f"driver --shard rollouts: the random cell carries no fallback stamp: {random}")
+
+    out["seconds"], out["launches"] = seconds, launches
+    print("shard " + json.dumps({"seconds": seconds, "launches": launches, "card": smi,
+                                 "ticks": [[{k: t[k] for k in ("K", "U", "action", "planted_U")} for t in r["ticks"]]
+                                           for r in ranks]}), flush=True)
+    if failures:
+        raise RuntimeError("phase shard: " + "; ".join(failures))
+    return out
+
+
+def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict, shard_rows: list) -> dict:
     """One entry per kernel. The forward's times and bounds are at the
     evaluation's 20,000 rows, its launches the evaluation's; ``serving_tick``
     keeps its figures at the controller's 1,000 rows, ``trained_weights`` its
@@ -1464,6 +1702,9 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
                                           "max_rel_err": training["kernel_on_trained_weights"],
                                           "max_cond_err": training["kernel_cond_on_trained_weights"]}
             out[-1]["driver"] = {"launches": launches["driver"]}
+            out[-1]["shard"] = {"launches": launches["shard"], "rows": [
+                {k: r[k] for k in ("B", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")
+                 if k in r} for r in shard_rows]}
     return {"kernels": out}
 
 
@@ -1518,10 +1759,13 @@ def main() -> int:
         with phase("driver"):
             driving = run_driver(device, smi, tmp)
 
+        with phase("shard"):
+            sharding = run_shard(device, smi, evaluation["nl_returns"], tmp)
+
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     launches = {"controller": result["launches"], "eval": evaluation["launches"],
-                "train": training["launches"], "driver": driving["launches"]}
-    print(json.dumps(kernels_line(records, seed_batch, launches, training)), flush=True)
+                "train": training["launches"], "driver": driving["launches"], "shard": sharding["launches"]}
+    print(json.dumps(kernels_line(records, seed_batch, launches, training, sharding["kernel_checks"])), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -95,8 +95,8 @@ class Config:
     # run the NL planner dynamics through the fused forward kernel
     # (ops.pallas_nl); fourier ILT only
     fused_nl_planner: bool = False
-    # hoist the NL window encoding out of the horizon loop (not ported:
-    # evaluation raises when it is set without fused_nl_planner)
+    # encode every NL planner window in one call before the horizon loop
+    # (the planner's window_encoder); the fused planner takes precedence
     nl_planner_precompute: bool = False
 
     # episode / env protocol

@@ -21,6 +21,10 @@ class DynamicsModel:
     apply: Callable  # (params, obs, action_buffer, ts) -> state_diff
     # (params, t) -> apply-compatible forward through the fused kernel (NL only)
     make_fused_planner_apply: Optional[Callable] = None
+    # (params) -> encode(windows [K, T, A, m(+1)]) -> action latents [K, T, 2] (NL only)
+    make_planner_window_encoder: Optional[Callable] = None
+    # (params, obs, latent, ts) -> state_diff: apply with the window pre-encoded (NL only)
+    apply_encoded: Optional[Callable] = None
 
 
 @dataclass(frozen=True)

@@ -90,6 +90,8 @@ def gru_init(generator, in_dim: int, hidden: int, num_layers: int = 1, dtype=tor
 
 
 def linear_apply(p, x):
+    if type(p) is not dict and hasattr(p, "parallel_apply"):  # a layer split over ranks (parallel.sharding.TensorParallelLinear)
+        return p.parallel_apply(x)
     if x.dim() == 2:  # one fused launch
         return torch.addmm(p["b"], x, p["w"])
     return x @ p["w"] + p["b"]

@@ -197,4 +197,22 @@ def make_nl_model(
         apply_fused.hopper = hopper
         return apply_fused
 
-    return DynamicsModel(name="nl", init=init, apply=apply, make_fused_planner_apply=make_fused_planner_apply)
+    def make_planner_window_encoder(params):
+        """The planner's ``window_encoder``: every candidate action window
+        [K, T, A, m(+age)] through the reverse GRU in one call -> [K, T, 2].
+        The NL window encoding sees only the actions (w_nl.py:117-127), so
+        it can leave the horizon loop; the latents follow the windows' dtype,
+        as ``apply``'s follow the observation's."""
+
+        def encode(windows):
+            return _encode_actions(params, windows, windows.dtype)
+
+        return encode
+
+    def apply_encoded(params, obs, p_action, ts):
+        """``apply`` with the action latent precomputed:
+        apply(params, o, w, ts) == apply_encoded(params, o, encode(w), ts)."""
+        return _decode(params, obs, p_action, ts)
+
+    return DynamicsModel(name="nl", init=init, apply=apply, make_fused_planner_apply=make_fused_planner_apply,
+                         make_planner_window_encoder=make_planner_window_encoder, apply_encoded=apply_encoded)

@@ -57,13 +57,16 @@ def make_node_model(state_dim: int, action_dim: int, norm: NormStats, hidden_uni
         # of the first layer is formed once
         first, *rest = params["ode_func"]
         n_x = x.shape[-1]
-        u_term = torch.addmm(first["b"], u, first["w"][n_x:])
+        # a column-parallel first layer takes its whole input through its
+        # ``enter`` (parallel.sharding.TensorParallelLinear)
+        enter = getattr(first, "enter", None) or (lambda v: v)
+        u_term = torch.addmm(first["b"], enter(u), first["w"][n_x:])
         # substep i has length clip(t - 0.05 i, 0, 0.05): the same as clipping
         # what is left of t after the i substeps before it
         offsets = torch.arange(_MAX_SUBSTEPS, dtype=x.dtype, device=x.device)[:, None] * _STEP_SIZE
         steps = torch.clamp(ts.to(x.dtype)[None] - offsets, 0.0, _STEP_SIZE)[..., None]
         for i in range(_MAX_SUBSTEPS):
-            hidden = torch.tanh(torch.addmm(u_term, x, first["w"][:n_x]))
+            hidden = torch.tanh(torch.addmm(u_term, enter(x), first["w"][:n_x]))
             x = torch.addcmul(x, steps[i], mlp_apply_tanh(rest, hidden))
         return x[..., :state_dim]
 

@@ -8,4 +8,6 @@ from .mppi_delay import (  # noqa: F401
     mppi_command,
     mppi_command_core,
     mppi_reset,
+    mppi_rollout_states,
+    run_mppi,
 )

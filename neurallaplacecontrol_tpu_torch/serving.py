@@ -48,7 +48,7 @@ class Controller:
     """A planner tick bound to one (model, env, delay) triple."""
 
     def __init__(self, mppi_cfg, mppi_params, dynamics, cost_fn, n_obs, action_delay,
-                 action_buffer_size, dtype, device, dynamics_carry_init=None):
+                 action_buffer_size, dtype, device, dynamics_carry_init=None, window_encoder=None):
         self.mppi_cfg = mppi_cfg
         self.mppi_params = mppi_params
         self.dynamics = dynamics
@@ -59,6 +59,7 @@ class Controller:
         self.dtype = dtype
         self.device = device
         self.dynamics_carry_init = dynamics_carry_init
+        self.window_encoder = window_encoder
         self.generator = torch.Generator(device=device)
 
     def reset(self, seed: int = 0) -> ControllerState:
@@ -80,7 +81,7 @@ class Controller:
             state.U, obs, state.action_buffer,
             generator=self.generator, noise=noise,
             time_buffer=state.ages if self.mppi_cfg.encode_obs_time else None,
-            dynamics_carry_init=self.dynamics_carry_init,
+            dynamics_carry_init=self.dynamics_carry_init, window_encoder=self.window_encoder,
         )
         buffer = torch.roll(state.action_buffer, -1, dims=0)
         buffer[-1] = action
@@ -115,7 +116,7 @@ def make_controller(
     """
     if model_name == "random":
         raise ValueError("the random policy plans nothing: there is no controller to serve")
-    env, mppi_cfg, mppi_params, dynamics, carry_init = build_planner(
+    env, mppi_cfg, mppi_params, dynamics, carry_init, encoder = build_planner(
         model_name, env_name, action_delay, config, model_apply, params, roll_outs, time_steps,
         dtype=dtype, device=device)
     return Controller(
@@ -129,4 +130,5 @@ def make_controller(
         dtype=dtype,
         device=resolve_device(device),
         dynamics_carry_init=carry_init,
+        window_encoder=encoder,
     )

@@ -80,6 +80,29 @@ def build_learned_dynamics(model_apply: Callable, params, dt: float) -> Callable
     return dynamics
 
 
+def build_learned_dynamics_encoded(model, params, dt: float):
+    """Planner dynamics with the model's action-window encoding taken out of
+    the horizon loop (the planner's ``window_encoder``): the NL window
+    encoding depends only on the candidate actions, which MPPI draws in full
+    before the rollout, so all K x T windows encode in one call and each
+    horizon step only decodes. Returns ``(window_encoder, dynamics)``, with
+    the semantics of ``build_learned_dynamics`` (next = state + model(state,
+    window, dt))."""
+    encode = model.make_planner_window_encoder(params)
+    ts_cache = {}
+
+    def dynamics(state, p_action_t):
+        key = (state.shape[0], state.dtype, state.device)
+        ts_pred = ts_cache.get(key)
+        if ts_pred is None:
+            ts_pred = ts_cache[key] = torch.full(
+                (state.shape[0], 1), dt, dtype=state.dtype, device=state.device
+            )
+        return state + model.apply_encoded(params, state, p_action_t, ts_pred)
+
+    return encode, dynamics
+
+
 def build_oracle_dynamics(env: Env, dt: float, delay: int) -> Callable:
     """Closed-form oracle dynamics closure (mppi_with_model.py:129-143). The
     JAX function's unused rollout-count argument is left out."""
@@ -139,6 +162,14 @@ class SeedDraws:
     def __len__(self) -> int:
         return len(self.generators)
 
+    def select(self, index) -> "SeedDraws":
+        """The draws of the seeds at positions ``index``: the same
+        generators, so a subset of seeds draws what it would in the whole."""
+        sub = SeedDraws.__new__(SeedDraws)
+        sub.device, sub.dtype = self.device, self.dtype
+        sub.generators = [self.generators[i] for i in index]
+        return sub
+
     def _stack(self, draw) -> torch.Tensor:
         return torch.stack([draw(g) for g in self.generators])
 
@@ -197,15 +228,19 @@ def make_episode_fn(
     mppi_with_model.py:272,288); callers rescale by 200/n_steps.
     ``dynamics_carry_init`` makes ``dynamics_fn`` carried dynamics (the
     planner's ``mppi_command_core``): the latent ODE's history.
+
+    ``command_fn`` swaps the planner, for example the K-sharded one of
+    ``parallel.sharding.make_k_sharded_mppi_command``: ``command_fn(U, obs,
+    action_buffer, noise=..., time_buffer=None, cost_args=()) -> (action,
+    U_new, aux)``, handed the episode's global [S, K, T, nu] draw, with the
+    running cost built in. ``window_encoder`` goes to the planner.
+    ``vary_axis`` is accepted and does nothing: the JAX module promotes the
+    episode carry to device-varying inside ``shard_map``, and a rank's
+    tensors are its own.
     """
+    del vary_axis
     if settings.change_goal:
         _not_ported("change_goal")
-    if command_fn is not None:
-        _not_ported("command_fn (the sharded planner)")
-    if window_encoder is not None:
-        _not_ported("window_encoder")
-    if vary_axis is not None:
-        _not_ported("vary_axis (episodes inside a sharded mesh)")
     spec = env.spec
     running_cost = build_running_cost(env, state_constraint=settings.state_constraint)
     A, nu = settings.action_buffer_size, spec.m
@@ -225,12 +260,17 @@ def make_episode_fn(
             obs = env.observe(raw)
             if settings.random_policy:
                 action = draws.random_action(it, nu, -spec.action_high, spec.action_high)
+            elif command_fn is not None:
+                action, U, _ = command_fn(
+                    U, obs, buffer, noise=draws.planner_noise(it, mppi_cfg, mppi_params),
+                    time_buffer=ages if settings.encode_obs_time else None,
+                )
             else:
                 action, U, _ = mppi_command(
                     mppi_cfg, mppi_params, dynamics_fn, running_cost, U, obs, buffer,
                     noise=draws.planner_noise(it, mppi_cfg, mppi_params),
                     time_buffer=ages if settings.encode_obs_time else None,
-                    dynamics_carry_init=dynamics_carry_init,
+                    dynamics_carry_init=dynamics_carry_init, window_encoder=window_encoder,
                 )
             if settings.explore_noise is not None and not settings.random_policy:
                 # expert-collection exploration on top of the planner action

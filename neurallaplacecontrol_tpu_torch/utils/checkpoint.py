@@ -12,6 +12,13 @@ and ``load_pytree`` reads the files the JAX package writes.
 ``resolve_checkpoint`` finds the trained weights tracked under
 ``artifacts/checkpoints/``, the directory every checkout carries;
 ``checkpoint_read_path`` is training's rule for where a load may come from.
+
+``save_sharded`` and ``load_sharded`` keep a parameter tree split over the
+ranks of a mesh (``parallel.sharding``) with ``torch.distributed.checkpoint``:
+each split layer's blocks are the shards of a ``DTensor`` over the "tp"
+group, and the rest is saved once. They stand for the JAX module's orbax
+directories, which the port does not read: the two formats are not one.
+Sharded weights travel between the packages as the ``.npz`` trees above.
 """
 
 from __future__ import annotations
@@ -175,3 +182,64 @@ def model_checkpoint_name(
     if samples_used is not None:
         name += f"_samples_used-{samples_used}"
     return name + ".npz"
+
+
+def _leaf_paths(tree, prefix=""):
+    """(``/``-joined path, leaf) in ``models.common.tree_leaves`` order; a
+    tuple is a leaf here (a spec), a list a container."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaf_paths(tree[k], f"{prefix}/{k}" if prefix else str(k))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _leaf_paths(v, f"{prefix}/{i}" if prefix else str(i))]
+    return [(prefix, tree)]
+
+
+def _sharded_state_dict(params, mesh, specs):
+    """``params`` (this rank's tree) as a flat state dict whose split leaves
+    are ``DTensor``s over the mesh's "tp" group."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    from ..parallel.sharding import _leaf_shard_dims
+
+    items = _leaf_paths(params)
+    if specs is None:
+        dims = _leaf_shard_dims(params)
+    else:
+        dims = [s.index("tp") if "tp" in s else None for _, s in _leaf_paths(specs)]
+    if mesh is None or mesh.shape.get("tp", 1) == 1 or all(d is None for d in dims):
+        return dict(items)
+    tp_mesh = DeviceMesh.from_group(mesh.group("tp"), mesh.device.type)
+    return {k: x if d is None else DTensor.from_local(x.contiguous(), tp_mesh, [Shard(d)], run_check=False)
+            for (k, x), d in zip(items, dims)}
+
+
+def save_sharded(path, params, mesh=None, specs=None) -> str:
+    """Save this rank's ``params`` into the ``torch.distributed.checkpoint``
+    directory ``path``; every rank of ``mesh`` calls it. The placements come
+    from ``specs`` (``parallel.sharding.derive_param_pspecs``'s tuples, one
+    per leaf) or, by default, from the tree's split layers
+    (``parallel.sharding.shard_params``). Returns the absolute path."""
+    import torch.distributed.checkpoint as dcp
+
+    path = Path(path).absolute()
+    dcp.save(_sharded_state_dict(params, mesh, specs), checkpoint_id=str(path))
+    return str(path)
+
+
+def load_sharded(path, like, mesh=None, specs=None):
+    """Restore a ``save_sharded`` directory onto ``like``'s placements: this
+    rank's tree, with its blocks of the split leaves (``like`` holds this
+    rank's shapes, as ``shard_params`` gives them; ``mesh`` and ``specs`` as
+    for ``save_sharded``). ``like``'s tensors are not written."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+
+    from ..models.common import tree_leaves, tree_unflatten
+    from ..parallel.sharding import _rewrap
+
+    fresh = _rewrap(like, tree_unflatten(like, [torch.empty_like(x) for x in tree_leaves(like)]))
+    state = _sharded_state_dict(fresh, mesh, specs)
+    dcp.load(state, checkpoint_id=str(Path(path).absolute()))
+    leaves = [v.to_local() if isinstance(v, DTensor) else v for v in state.values()]
+    return _rewrap(like, tree_unflatten(like, leaves))

@@ -2,8 +2,8 @@
 {models} x {seeds}, on one NVIDIA GPU.
 
 The counterpart of run_exp_multi.py, with the same flags and defaults but
-two: ``--device`` (default ``cuda``) replaces ``--platform``, and ``--shard``
-takes only ``none``. Each (env, delay, model) cell trains, or loads its
+one: ``--device`` (default ``cuda``) replaces ``--platform``. Each (env,
+delay, model) cell trains, or loads its
 checkpoint, and evaluates all its seeds as one seed-batched episode on the
 device (``training.evaluate_policy``); the grid is a sequential loop over
 cells. Under ``--fused_nl_planner true`` the NL cells, their gate checks and
@@ -19,6 +19,19 @@ next model seed. A cell that raises logs its traceback and records
 run_exp_multi.py:46-56, :82-92). With ``--multihost`` the processes split the
 cells round-robin, each writes ``<results>.pN``, and after a barrier process
 0 merges the shards into ``--results``.
+
+``--shard seeds|rollouts|grid:NSxNK`` evaluates every cell over the ranks of
+a ``torch.distributed`` group, one process per device
+(``evaluate_policy``'s shard flags). The group comes from torchrun:
+
+    python -m torch.distributed.run --nproc_per_node L run_exp_multi_torch.py --shard rollouts
+
+A host is the L ranks of one node. The cells split by host (round-robin, as
+``--multihost`` splits them by process), each host's ranks shard its own
+cells, and one rank per host writes the host's records; the records carry
+``shard`` and ``shard_group_size``. With ``--multihost`` every process is a
+host of one rank. A single process is a world of one, where every shard
+mode is the unsharded evaluation.
 
 Usage:
     python run_exp_multi_torch.py [--envs ...] [--delays 0,1,2,3]
@@ -38,8 +51,14 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).parent))
 
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
 from neurallaplacecontrol_tpu_torch.config import parse_args  # noqa: E402
-from neurallaplacecontrol_tpu_torch.parallel import multihost  # noqa: E402
+from neurallaplacecontrol_tpu_torch.envs import make_env  # noqa: E402
+from neurallaplacecontrol_tpu_torch.models import make_model  # noqa: E402
+from neurallaplacecontrol_tpu_torch.models.common import tree_leaves  # noqa: E402
+from neurallaplacecontrol_tpu_torch.parallel import Mesh, multihost  # noqa: E402
 from neurallaplacecontrol_tpu_torch.training import (  # noqa: E402
     evaluate_policy,
     train_model,
@@ -96,6 +115,19 @@ def _gate_record(kind, env_name, model_name, delay, attempt, model_seed, ok, r_m
             "threshold": r_r["total_reward"] + margin * std}
 
 
+def _barrier_timeout(cells, config, ns, hosts: int) -> float:
+    """A barrier must outlast the slowest host: round-robin can alias with the
+    model list so that one host owns every trainable cell, so the timeout
+    scales with the worst per-host training load (the budget plus a
+    collection and evaluation allowance per cell); an evaluation-only run
+    keeps the 1 h floor."""
+    if not (config.retrain or config.force_retrain):
+        return 3600.0
+    worst_trainable = max(
+        sum(1 for c in multihost.process_slice(cells, p, hosts) if c[2] not in NOT_TRAINED) for p in range(hosts))
+    return max(3600.0, worst_trainable * (ns.train_seconds + 900.0) + 1800.0)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--envs", type=str, default=",".join(ENVIRONMENTS))
@@ -141,7 +173,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "CPU on its own)")
     parser.add_argument(
         "--shard", type=str, default="none",
-        help="multi-device evaluation sharding: only 'none' is ported (ROADMAP queue 1 item 8)",
+        help="multi-device evaluation sharding over the ranks of each host: 'seeds' splits the seed "
+        "episodes, 'rollouts' each planner's K batch, 'grid:NSxNK' both on a 2-D mesh "
+        "(evaluate_policy's shard flags). Launch one process per device with python -m "
+        "torch.distributed.run; the random policy has no rollout batch, so its 'rollouts'/'grid' cells "
+        "run unsharded (logged, and named in the record's shard_fallback). 'none' runs one process "
+        "per host.",
     )
     parser.add_argument(
         "--multihost", type=str, default=None,
@@ -167,12 +204,30 @@ def main(argv=None) -> dict:
     config = parse_args(rest)
 
     # every refusal comes before any work, the process group included
-    if ns.shard != "none":
-        # sharded evaluation waits for parallel/sharding.py (ROADMAP queue 1
-        # item 8); when it lands, --multihost x --shard restricts each
-        # process's mesh to its own devices (the reference driver's
-        # shard_kwargs caveat, ROADMAP queue 3)
-        parser.error(f"--shard {ns.shard!r} is not ported (ROADMAP queue 1 item 8); only 'none' runs")
+    shard_kwargs = {}
+    if ns.shard == "seeds":
+        shard_kwargs = {"shard_seeds": True}
+    elif ns.shard == "rollouts":
+        shard_kwargs = {"shard_rollouts": True}
+    elif ns.shard.startswith("grid:"):
+        try:
+            n_s, sep, n_k = ns.shard[len("grid:"):].lower().partition("x")
+            shard_grid = (int(n_s), int(n_k))
+            if not sep or min(shard_grid) < 1:
+                raise ValueError(shard_grid)
+        except ValueError:
+            parser.error(f"--shard grid axes must be positive ints 'grid:NSxNK', got {ns.shard!r}")
+        shard_kwargs = {"shard_grid": shard_grid}
+    elif ns.shard != "none":
+        parser.error(f"--shard must be none|seeds|rollouts|grid:NSxNK, got {ns.shard!r}")
+    ranks_per_host = int(os.environ.get("LOCAL_WORLD_SIZE", "1")) if multihost.under_torchrun() else 1
+    if multihost.under_torchrun() and ns.multihost:
+        parser.error("--multihost names a group, and so does torchrun's environment: pass one")
+    if ranks_per_host > 1 and not shard_kwargs:
+        parser.error(f"a host of {ranks_per_host} ranks evaluates with --shard; with 'none' every rank "
+                     "would run the same cells")
+    if ranks_per_host > 1 and ns.ensemble_delays.lower() == "true" and len(ns.delays.split(",")) > 1:
+        parser.error("--ensemble_delays runs one process per host: launch it without torchrun's ranks")
     envs = ns.envs.split(",")
     delays = [int(d) for d in ns.delays.split(",")]
     models = ns.models.split(",")
@@ -181,6 +236,8 @@ def main(argv=None) -> dict:
         parser.error(f"--models: {unknown} not among {list(EVAL_MODELS)}")
     device = str(resolve_device(ns.device))
 
+    if multihost.under_torchrun():
+        multihost.initialize(device=device)
     pid, pcount = 0, 1
     if ns.multihost:
         addr, _, n = ns.multihost.partition(",")
@@ -191,15 +248,21 @@ def main(argv=None) -> dict:
             parser.error("--multihost is incompatible with --ensemble_delays "
                          "(ensemble training couples delays across cells)")
         multihost.initialize(addr, int(n), ns.process_id, device=device)
-        pid, pcount = multihost.process_index(), multihost.process_count()
+    # the cells split by host, and each host's ranks shard its cells: a
+    # host's first rank writes its records and does its training
+    pid, pcount = multihost.host_index(), multihost.host_count()
+    host_ranks = multihost.host_ranks()
+    writer = multihost.process_index() == host_ranks[0]
+    if shard_kwargs and multihost.process_count() > 1:
+        shard_kwargs["devices"] = host_ranks
 
     logger = setup_logger(__file__, log_folder=config.log_folder)
     results_path = ns.results if pcount == 1 else f"{ns.results}.p{pid}"
-    if pcount > 1:
+    if pcount > 1 and writer:
         # the shard is per-run scratch: JsonlWriter appends, so a shard left
         # by an earlier (or aborted) run would be merged again as duplicates
         Path(results_path).unlink(missing_ok=True)
-    results = JsonlWriter(results_path)
+    results = JsonlWriter(results_path) if writer else None
     seeds = list(range(config.seed_start, config.seed_start + config.seed_runs))
     run_records = []  # this run's records (the JSONL file is append-mode)
     gate_log = []  # every gate check of this run
@@ -236,7 +299,7 @@ def main(argv=None) -> dict:
     excluded = set(ns.ensemble_exclude.lower().split(",")) if use_ensemble else set()
     ens_models = [m for m in models if m not in excluded] if use_ensemble else []
     seq_models = [m for m in models if m not in ens_models]
-    if (config.retrain or config.force_retrain) and use_ensemble:
+    if (config.retrain or config.force_retrain) and use_ensemble and writer:
         gated_families = set(ns.ensemble_gate.lower().split(","))
         if not gated_families.intersection(ens_models):
             logger.warning("--ensemble_gate %s gates none of the ensemble-trained families %s (the gated "
@@ -278,7 +341,7 @@ def main(argv=None) -> dict:
                 except Exception:  # noqa: BLE001 -- the quarantine (reference :46-56)
                     logger.error("[train FAILED %s %s ensemble]\n%s", env_name, model_name, traceback.format_exc())
 
-    if config.retrain or config.force_retrain:
+    if (config.retrain or config.force_retrain) and writer:
         # per-delay training: every model when not ensembling, and the
         # --ensemble_exclude families (by default the NL flagship)
         train_gated = set(ns.train_gate.lower().split(",")) - {"none", ""}
@@ -318,50 +381,73 @@ def main(argv=None) -> dict:
                         logger.error("[train FAILED %s %s d=%d]\n%s", env_name, model_name, delay,
                                      traceback.format_exc())
 
+    host_group = Mesh(host_ranks, ("host",), device=device).group() if len(host_ranks) > 1 else None
+    if (config.retrain or config.force_retrain) and host_group is not None:
+        # the other ranks wait out their first rank's training here, not in a
+        # collective, whose timeout is the group's
+        multihost.barrier("nlc_grid_train_done", timeout_s=_barrier_timeout(cells, config, ns, pcount))
+
+    def cell_model(env_name, delay, model_name):
+        """(model, params) of a learned cell: the host's first rank trains or
+        loads them, and hands them to the host's other ranks."""
+        got, err = None, None
+        if writer:
+            try:
+                got = trained.get((env_name, delay, model_name)) or train_model(
+                    model_name, env_name, config, delay=delay, retrain=False, model_seed=config.model_seed,
+                    device=device)[:2]
+            except Exception as e:  # noqa: BLE001 -- raised on every rank of the host below
+                err = e
+        if host_group is None:
+            if err is not None:
+                raise err
+            return got
+        ok = torch.tensor([err is None], dtype=torch.int32, device=device)
+        dist.broadcast(ok, src=host_ranks[0], group=host_group)
+        if not bool(ok):
+            raise err if err is not None else RuntimeError(
+                f"rank {host_ranks[0]} of this host found no parameters for the cell")
+        if not writer:
+            spec = make_env(env_name).spec
+            model = make_model(model_name, env_name, spec.n_obs, spec.m, spec.action_high, config, device=device)
+            got = (model, model.init(torch.Generator(device=device).manual_seed(config.model_seed)))
+        for x in tree_leaves(got[1]):
+            dist.broadcast(x, src=host_ranks[0], group=host_group)
+        return got
+
     for env_name, delay, model_name in cells:
         if not owned(env_name, delay, model_name):
             continue
         try:
             extra = {}
             if model_name not in NOT_TRAINED:
-                if (env_name, delay, model_name) in trained:
-                    model, params = trained[(env_name, delay, model_name)]
-                else:
-                    model, params, _ = train_model(model_name, env_name, config, delay=delay, retrain=False,
-                                                   model_seed=config.model_seed, device=device)
+                model, params = cell_model(env_name, delay, model_name)
                 extra = dict(model_apply=_apply_of(model_name, model), params=params)
             if ns.profile_trace_dir:
                 extra["profile_trace_dir"] = f"{ns.profile_trace_dir}/{env_name}_{model_name}_d{delay}"
-            r = evaluate_policy(model_name, env_name, delay, seeds=seeds, config=config, device=device, **extra)
+            r = evaluate_policy(model_name, env_name, delay, seeds=seeds, config=config, device=device, **extra,
+                                **shard_kwargs)
+            if shard_kwargs:
+                r["shard"], r["shard_group_size"] = ns.shard, r.get("shard_group_size", len(host_ranks))
             r["errored"] = False
-            results.write(r)
+            if writer:
+                results.write(r)
             run_records.append(r)
             logger.info("[Model Completed evaluation mppi] %s", {
                 k: r[k] for k in ("model_name", "env_name", "delay", "total_reward", "total_reward_std")})
         except Exception:  # noqa: BLE001 -- the quarantine (reference :82-92)
             logger.error("[eval FAILED %s %s d=%d]\n%s", env_name, model_name, delay, traceback.format_exc())
             rec = {"model_name": model_name, "env_name": env_name, "delay": delay, "errored": True}
-            results.write(rec)
+            if writer:
+                results.write(rec)
             run_records.append(rec)
 
     if pcount > 1:
-        # the barrier must outlast the slowest process: round-robin can alias
-        # with the model list so that one process owns every trainable cell,
-        # so the timeout scales with the worst per-process training load
-        # (the budget plus a collection and evaluation allowance per cell);
-        # an evaluation-only run keeps the 1 h floor
-        worst_trainable = max(
-            sum(1 for c in multihost.process_slice(cells, p, pcount) if c[2] not in NOT_TRAINED)
-            for p in range(pcount)
-        )
-        if config.retrain or config.force_retrain:
-            barrier_timeout = max(3600.0, worst_trainable * (ns.train_seconds + 900.0) + 1800.0)
-        else:
-            barrier_timeout = 3600.0
-        multihost.barrier("nlc_grid_eval_done", timeout_s=barrier_timeout)
-        if pid != 0:
-            logger.info("Fin (process %d; shard %s).", pid, results_path)
-            return {"records": run_records, "gates": gate_log}
+        multihost.barrier("nlc_grid_eval_done", timeout_s=_barrier_timeout(cells, config, ns, pcount))
+    if not writer or (pcount > 1 and pid != 0):
+        logger.info("Fin (process %d; shard %s).", multihost.process_index(), results_path)
+        return {"records": run_records, "gates": gate_log}
+    if pcount > 1:
         # parse every shard before writing or unlinking anything: a torn line
         # (a writer killed) fails the merge before any shard is consumed
         shard_records = []

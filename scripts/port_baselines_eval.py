@@ -124,7 +124,7 @@ def evaluate() -> None:
                         model_apply=model, params=params, roll_outs=chip_smoke.K, time_steps=chip_smoke.T,
                         device=device)
     wall = time.perf_counter() - t0
-    env, mppi_cfg, mppi_params, dynamics, carry_init = build_planner(
+    env, mppi_cfg, mppi_params, dynamics, carry_init, _ = build_planner(
         "latent_ode", chip_smoke.BASELINE_ENV, chip_smoke.DELAY, port.Config(), model_apply=model, params=params,
         roll_outs=chip_smoke.K, time_steps=chip_smoke.T, device=device)
     tick = make_episode_fn(env, dynamics, mppi_cfg, mppi_params,

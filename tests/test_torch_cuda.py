@@ -33,6 +33,8 @@ TOL = 1e-3
 RAGGED = [1, 7, 8, 9, 999, 1000, 1001]  # below, at and past the 8-row tile and B
 # the seed-batched evaluation's S*K = 20 x 1000 rows, and one ragged past it
 SEED_BATCH = [20000, 20003]
+# a rank's rows under the K-sharded planner at K=262,144 over two ranks, and over one
+SHARD_ROWS = [131072, 262144]
 DT = 0.05
 B = 1000  # the planner's K
 
@@ -120,7 +122,7 @@ def test_forward_kernel_matches_plain(env, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", RAGGED + SEED_BATCH)
+@pytest.mark.parametrize("rows", RAGGED + SEED_BATCH + SHARD_ROWS)
 def test_forward_kernel_ragged_batches(rows, cuda_device):
     """Batches that fill no tile, exactly one, or one and a bit, up to the
     seed-batched evaluation's 20,000 rows: the rows past B are masked on load
@@ -211,7 +213,7 @@ def test_seed_batched_planner_equals_single_ticks(cuda_device):
     n, m, high = ENV_DIMS[env_name]
     params = trained(env_name, cuda_device)
     model = make_model("nl", env_name, n, m, high, device=cuda_device)
-    env, cfg, mppi_params, dynamics, _ = build_planner(
+    env, cfg, mppi_params, dynamics, _, _ = build_planner(
         "nl", env_name, 1, Config(fused_nl_planner=True), model_apply=model.apply, params=params,
         roll_outs=B, time_steps=40, device=cuda_device)
     cost = build_running_cost(env)
@@ -447,3 +449,46 @@ def test_driver_mini_grid_on_card(cuda_device, tmp_path):
     assert [r["model_name"] for r in recs] == ["nl", "oracle", "random"]
     assert all(not r["errored"] and np.isfinite(r["total_rewards"]).all() for r in recs)
     assert len(out["gates"]) == 1 and tnl.nl_forward_fused.launches == 2 * (20 + 1) * 5
+
+
+@pytest.mark.cuda
+def test_k_sharded_plan_in_a_one_rank_nccl_group(cuda_device):
+    """The K-sharded planner in a real one-rank NCCL group, through the fused
+    forward kernel at K=1,000: its reductions are NCCL calls that add
+    nothing, so the plan is the one-process plan to the bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from neurallaplacecontrol_tpu_torch.parallel import Mesh, make_k_sharded_mppi_command, multihost
+    from neurallaplacecontrol_tpu_torch.planners import mppi_command
+    from neurallaplacecontrol_tpu_torch.training.eval import build_planner
+    from neurallaplacecontrol_tpu_torch.training.rollout import build_running_cost
+
+    env_name = "oderl-cartpole"
+    n, m, high = ENV_DIMS[env_name]
+    model = make_model("nl", env_name, n, m, high, device=cuda_device)
+    env, cfg, mp, dyn, _, _ = build_planner("nl", env_name, 1, Config(fused_nl_planner=True), model_apply=model.apply,
+                                            params=trained(env_name, cuda_device), roll_outs=B, time_steps=40,
+                                            device=cuda_device)
+    cost = build_running_cost(env)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    U = torch.randn((40, m), generator=g, device=cuda_device)
+    obs = env.observe(env.reset(g, torch.float32, cuda_device))
+    buffer = torch.rand((4, m), generator=g, device=cuda_device) * 2 * high - high
+    noise = torch.randn((B, 40, m), generator=g, device=cuda_device) @ mp.noise_chol.T
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        command = make_k_sharded_mppi_command(cfg, mp, dyn, cost, Mesh([0], ("k",), device=cuda_device))
+        before = tnl.nl_forward_fused.launches
+        a_sh, U_sh, aux = command(U, obs, buffer, noise=noise)
+        assert tnl.nl_forward_fused.launches - before == 40
+        a, U_new, _ = mppi_command(cfg, mp, dyn, cost, U, obs, buffer, noise=noise)
+        torch.cuda.synchronize()
+        assert torch.equal(a_sh, a) and torch.equal(U_sh, U_new) and aux["omega"].shape == (B,)
+    finally:
+        dist.destroy_process_group()

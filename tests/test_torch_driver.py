@@ -130,8 +130,10 @@ def test_driver_quarantines_a_failing_cell(tmp_path):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (("--shard", "seeds"), "queue 1 item 8"),
-    (("--shard", "grid:2x4"), "queue 1 item 8"),
+    (("--shard", "grid:2"), "grid:NSxNK"),
+    (("--shard", "grid:0x2"), "grid:NSxNK"),
+    (("--shard", "grid:2xk"), "grid:NSxNK"),
+    (("--shard", "bogus"), "none|seeds|rollouts"),
     (("--models", "nl,latent_ode_ref"), "latent_ode_ref"),
     (("--models", "bogus"), "bogus"),
     (("--multihost", "127.0.0.1:1,2", "--ensemble_delays", "true", "--delays", "0,1"), "incompatible"),
@@ -139,9 +141,30 @@ def test_driver_quarantines_a_failing_cell(tmp_path):
 ])
 def test_driver_refuses_before_any_work(extra, message, tmp_path, monkeypatch, capsys):
     """Refusals are parser errors before any work: nothing evaluated, no
-    log, no results file. A --shard other than none never falls back to an
+    log, no results file. A malformed --shard never falls back to an
     unsharded run."""
     monkeypatch.setattr(driver, "evaluate_policy", lambda *a, **k: pytest.fail("evaluated"))
+    args = argv(tmp_path / "run", "--delays", "0", "--models", "oracle")
+    with pytest.raises(SystemExit) as exc:
+        driver.main(args + list(extra))
+    assert exc.value.code == 2 and message in capsys.readouterr().err
+    assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("extra,message", [
+    (("--multihost", "127.0.0.1:1,2", "--shard", "seeds"), "pass one"),
+    ((), "evaluates with --shard"),
+    (("--shard", "seeds", "--ensemble_delays", "true", "--delays", "0,1"), "--ensemble_delays"),
+], ids=["multihost_and_torchrun", "several_ranks_unsharded", "ensemble_on_several_ranks"])
+def test_driver_refuses_under_torchrun(extra, message, tmp_path, monkeypatch, capsys):
+    """Under torchrun's environment (a host of 2 ranks) the refusals come
+    before the process group is joined: two names for the group, ranks that
+    would all run the same unsharded cells, and ensemble training, which
+    runs one process per host."""
+    for key, value in dict(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0", LOCAL_WORLD_SIZE="2",
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT="1").items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(driver.multihost, "initialize", lambda *a, **k: pytest.fail("joined a group"))
     args = argv(tmp_path / "run", "--delays", "0", "--models", "oracle")
     with pytest.raises(SystemExit) as exc:
         driver.main(args + list(extra))

@@ -85,7 +85,7 @@ def test_evaluate_policy_rescales_to_200_steps():
     (_, _), (tapply, tweights) = nl_models()
     t = teval.evaluate_policy("oracle", ENV, DELAY, SEEDS, config=TConfig(dt=DT), roll_outs=K,
                               time_steps=T, dtype=torch.float64, device="cpu", draws=replay(SEEDS))
-    env, cfg, params, dyn, _ = teval.build_planner("oracle", ENV, DELAY, TConfig(dt=DT), roll_outs=K,
+    env, cfg, params, dyn, _, _ = teval.build_planner("oracle", ENV, DELAY, TConfig(dt=DT), roll_outs=K,
                                                 time_steps=T, dtype=torch.float64, device="cpu")
     raw, _ = trollout.make_episode_fn(env, dyn, cfg, params,
                                       trollout.EpisodeSettings(delay=DELAY, n_steps=N_STEPS))(replay(SEEDS))
@@ -104,12 +104,7 @@ def test_evaluate_policy_seeds_are_reproducible():
     assert a["total_rewards"][0] != a["total_rewards"][1]
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [{"shard_seeds": True}, {"shard_rollouts": True}, {"shard_grid": (1, 1)}, {"devices": []},
-     {"save_video": True}, {"change_goal": True}],
-    ids=["shard_seeds", "shard_rollouts", "shard_grid", "devices", "video", "change_goal"],
-)
+@pytest.mark.parametrize("kwargs", [{"save_video": True}, {"change_goal": True}], ids=["video", "change_goal"])
 def test_evaluate_policy_unported_flags_raise(kwargs):
     with pytest.raises(NotImplementedError):
         teval.evaluate_policy("oracle", ENV, DELAY, [0], config=TConfig(dt=DT), roll_outs=K,
@@ -129,8 +124,7 @@ def test_evaluate_policy_writes_profile_trace(tmp_path):
     assert any(str(n).startswith("aten::") for n in names)
 
 
-@pytest.mark.parametrize("model_name,cfg", [("latent_ode_ref", TConfig()),
-                                            ("nl", TConfig(nl_planner_precompute=True))])
+@pytest.mark.parametrize("model_name,cfg", [("latent_ode_ref", TConfig())])
 def test_evaluate_policy_unported_models_raise(model_name, cfg):
     (_, _), (tapply, tweights) = nl_models()
     with pytest.raises(NotImplementedError):

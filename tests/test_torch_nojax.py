@@ -38,7 +38,7 @@ sys.path.insert(0, str(REPO))
 
 import run_exp_multi_torch  # noqa: E402
 PORT_FILES = sorted((REPO / "neurallaplacecontrol_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "run_exp_multi_torch.py"]
+    REPO / "chip_smoke.py", REPO / "run_exp_multi_torch.py", REPO / "scripts" / "port_shard_check.py"]
 FORBIDDEN = ("jax", "neurallaplacecontrol_tpu")
 
 
@@ -170,6 +170,21 @@ def test_port_and_chip_smoke_import_and_tick_without_jax():
                                        force_retrain=True, device="cpu")
             assert set(ens) == {0, 1}
         assert multihost.process_slice([1, 2, 3], 1, 2) == [2]
+        # the multi-device slice: meshes, the K-sharded planner, the grid and
+        # the shard modes of a world of one, the dp x tp step, and the
+        # chip's rank script
+        import scripts.port_shard_check
+        from neurallaplacecontrol_tpu_torch.parallel import (
+            global_mesh, make_k_sharded_mppi_command, make_mesh, make_sharded_train_step, shard_params)
+        mesh = make_mesh(device="cpu")
+        assert global_mesh(device="cpu").devices.shape == (1,) and mesh.devices.shape == (1, 1)
+        for kw in ({"shard_seeds": True}, {"shard_rollouts": True}, {"shard_grid": (1, 1)}):
+            r = evaluate_policy("oracle", "oderl-pendulum", 1, [0, 1], port.Config(dt=2.5), roll_outs=8,
+                                time_steps=2, device="cpu", **kw)
+            assert r["shard_group_size"] == 1
+        step = make_sharded_train_step(pmodel.apply, opt, mesh)
+        p1, _, loss = step(shard_params(p0, mesh), opt.init(p0), *[x[:8] for x in data])
+        assert bool(torch.isfinite(loss))
         # phase driver's references: the JAX package's NL run at HEAD, its records
         for env in chip_smoke.DRIVER_ENVS:
             for name in ("nl", "oracle"):
@@ -229,6 +244,17 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         run_mppi_sweep("oracle", "oderl-pendulum", 0, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         multihost.initialize("127.0.0.1:1", 2, 0)
+    from neurallaplacecontrol_tpu_torch.parallel import global_mesh, make_mesh
+
+    for make in (make_mesh, global_mesh):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_policy("oracle", "oderl-cartpole", 1, [0], shard_rollouts=True)
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.initialize()
+    monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_exp_multi_torch.main(["--envs", "oderl-pendulum", "--delays", "0", "--models", "oracle",
                                   "--results", str(tmp_path / "r.jsonl"), "--log_folder", str(tmp_path / "logs")])

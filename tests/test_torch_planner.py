@@ -26,7 +26,10 @@ from neurallaplacecontrol_tpu_torch.planners import mppi_delay as tmppi
 from neurallaplacecontrol_tpu_torch.training.rollout import build_learned_dynamics as torch_dynamics
 from neurallaplacecontrol_tpu_torch.training.rollout import build_running_cost as torch_cost
 from neurallaplacecontrol_tpu_torch.utils.checkpoint import load_pytree, model_checkpoint_name
+from jax_planner_cases import jax_command_planner
 from jax_replay_draws import fixed_z0_draw
+
+import torch_shard_worker as W
 
 torch.set_num_threads(1)
 
@@ -122,27 +125,6 @@ def test_reset_and_noise_draw_from_generator():
     np.testing.assert_allclose(cov, [[1.0, 0.5], [0.5, 1.0]], atol=0.06)
 
 
-@pytest.mark.parametrize(
-    "kwargs,cfg_kw",
-    [
-        ({"terminal_state_cost": lambda s, a: s.sum()}, {}),
-        ({"axis": "k"}, {}),
-        ({"window_encoder": lambda w: w}, {}),
-        ({}, {"rollout_samples": 2}),
-        ({}, {"step_dependent_dynamics": True}),
-    ],
-    ids=["terminal_cost", "sharded", "window_encoder", "m_samples", "step_dependent"],
-)
-def test_unported_planner_features_raise(kwargs, cfg_kw):
-    cfg = tmppi.MPPIConfig(num_samples=4, horizon=2, nu=1, **cfg_kw)
-    sig = tmppi.make_mppi_params(tmppi.default_noise_sigma(1, 1.0))
-    with pytest.raises(NotImplementedError):
-        tmppi.mppi_command_core(
-            cfg, sig, lambda s, w: s, lambda s, a: s.sum(-1), torch.zeros(2, 1), torch.zeros(3),
-            torch.zeros(4, 1), torch.zeros(4, 2, 1), **kwargs,
-        )
-
-
 @pytest.mark.parametrize("seeds", [0, 2], ids=["one_plan", "two_seeds"])
 def test_mppi_command_core_carried_latent_ode_matches_jax_f64(seeds):
     """The carried planner with the latent ODE's history dynamics on the
@@ -186,3 +168,178 @@ def test_mppi_command_core_carried_latent_ode_matches_jax_f64(seeds):
     np.testing.assert_allclose(taux["cost_total"].numpy(), np.asarray(jaux["cost_total"]), rtol=1e-9)
     np.testing.assert_allclose(tU.numpy(), np.asarray(jU), rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", list(W.COMMAND_CASES))
+def test_mppi_command_flags_match_jax_f64(case):
+    """Every planner flag in one process, against JAX's ``mppi_command`` on
+    the same noise draw (tests/test_mppi.py:130-245 and the cases of
+    tests/test_sharding.py:180-279, unsharded): the null action, the
+    abs-noise cost, the age channel, M=3 with the variance cost,
+    step-dependent dynamics, three commanded actions, the terminal cost and
+    carried dynamics."""
+    jenv, jcfg, jsig, jdyn, jcost, jextra, key = jax_command_planner(case)
+    tenv, tcfg, tsig, tdyn, tcost, textra = W.command_planner(case)
+    U = np.random.default_rng(4).standard_normal((tcfg.horizon, 1)) * 0.5
+    obs = np.asarray(jenv.observe(jnp.asarray(W.COMMAND_STATE, jnp.float64)))
+    buf = np.asarray(W.COMMAND_BUFFER)
+    ja, jU, jaux = jmppi.mppi_command(jcfg, jsig, jdyn, jcost, jnp.asarray(U), jnp.asarray(obs), jnp.asarray(buf),
+                                      key, **jextra)
+    noise = torch.tensor(np.asarray(jmppi._sample_noise(key, jcfg, jsig)))
+    ta, tU, taux = tmppi.mppi_command(tcfg, tsig, tdyn, tcost, torch.tensor(U), torch.tensor(obs), torch.tensor(buf),
+                                      noise=noise, **textra)
+    assert ta.shape == ja.shape
+    np.testing.assert_allclose(taux["cost_total"].numpy(), np.asarray(jaux["cost_total"]), rtol=1e-10)
+    np.testing.assert_allclose(taux["omega"].numpy(), np.asarray(jaux["omega"]), rtol=1e-9, atol=1e-300)
+    np.testing.assert_allclose(tU.numpy(), np.asarray(jU), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("flags", [{"sample_null_action": True}, {"noise_abs_cost": True},
+                                   {"rollout_samples": 3, "rollout_var_cost": 0.5}, {"u_per_command": 3}],
+                         ids=["null_action", "abs_noise", "m_samples", "u_per_command"])
+def test_seed_batched_flags_match_jax_vmap(flags):
+    """The flags with the port's seed axis against JAX's vmap over the same
+    planner, on the tracked cartpole NL checkpoint: the null action is each
+    seed's last rollout, the M samples are each seed's own."""
+    (jcfg, jsig, jdyn, jcost), (tcfg, tsig, tdyn, tcost), spec = planners("oderl-cartpole", 1, flags)
+    rng = np.random.default_rng(11)
+    S = 3
+    U = rng.standard_normal((S, T, spec.m)) * 0.5
+    obs = rng.standard_normal((S, spec.n_obs))
+    buffer = rng.uniform(-spec.action_high, spec.action_high, (S, A, spec.m))
+    noise = rng.standard_normal((S, K, T, spec.m)) @ np.asarray(jsig.noise_chol).T
+    ja, jU, jaux = jax.vmap(lambda *a: jmppi.mppi_command_core(jcfg, jsig, jdyn, jcost, *a))(
+        *(jnp.asarray(x) for x in (U, obs, buffer, noise)))
+    ta, tU, taux = tmppi.mppi_command_core(tcfg, tsig, tdyn, tcost, *(torch.tensor(x) for x in (U, obs, buffer, noise)))
+    np.testing.assert_allclose(taux["cost_total"].numpy(), np.asarray(jaux["cost_total"]), rtol=1e-9)
+    np.testing.assert_allclose(tU.numpy(), np.asarray(jU), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-9, atol=1e-12)
+
+
+def scalar_planner(**flags):
+    """The analytic planners of tests/test_mppi.py:185-245: K=2, a noise
+    covariance of 1e-18 and the state itself as the cost."""
+    kw = dict(num_samples=2, nu=1, u_scale=1.0, u_min=-9.0, u_max=9.0, **flags)
+    return (jmppi.MPPIConfig(**kw), jmppi.make_mppi_params(jnp.asarray([[1e-18]], dtype=jnp.float64)),
+            tmppi.MPPIConfig(**kw), tmppi.make_mppi_params(torch.tensor([[1e-18]], dtype=torch.float64)))
+
+
+def run_scalar(jcfg, jsig, tcfg, tsig, jdyn, tdyn, **extra):
+    key = jax.random.PRNGKey(0)
+    zeros = dict(U=np.zeros((jcfg.horizon, 1)), obs=np.zeros(1), buf=np.zeros((4, 1)))
+    ja, _, jaux = jmppi.mppi_command(jcfg, jsig, jdyn, lambda s, a: s[:, 0],
+                                     *(jnp.asarray(x) for x in zeros.values()), key,
+                                     **{k: v[0] for k, v in extra.items()})
+    noise = torch.tensor(np.asarray(jmppi._sample_noise(key, jcfg, jsig)))
+    ta, _, taux = tmppi.mppi_command(tcfg, tsig, tdyn, lambda s, a: s[:, 0],
+                                     *(torch.tensor(x) for x in zeros.values()), noise=noise,
+                                     **{k: v[1] for k, v in extra.items()})
+    return (ja, jaux), (ta, taux)
+
+
+def test_rollout_var_cost_penalizes_spread():
+    """M=3 slices offset by their index m: the mean cost 6 plus the
+    discounted variance 3.5 (tests/test_mppi.py:146-175), as JAX computes it."""
+    jcfg, jsig, tcfg, tsig = scalar_planner(horizon=3, rollout_samples=3, rollout_var_cost=1.0,
+                                            rollout_var_discount=0.5)
+
+    def jdyn(state, window):
+        return state + (jnp.arange(state.shape[0]) // 2)[:, None].astype(state.dtype)
+
+    def tdyn(state, window):
+        return state + (torch.arange(state.shape[0]) // 2)[:, None].to(state.dtype)
+
+    (_, jaux), (_, taux) = run_scalar(jcfg, jsig, tcfg, tsig, jdyn, tdyn)
+    np.testing.assert_allclose(taux["cost_total"].numpy(), 9.5, atol=1e-9)
+    np.testing.assert_allclose(taux["cost_total"].numpy(), np.asarray(jaux["cost_total"]), rtol=1e-12)
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["plain", "carried"])
+def test_step_dependent_dynamics_and_u_per_command(carried):
+    """The horizon index reaches the dynamics, carried or not, and
+    u_per_command returns that many leading actions (tests/test_mppi.py:178-226)."""
+    jcfg, jsig, tcfg, tsig = scalar_planner(horizon=3 if carried else 4, step_dependent_dynamics=True,
+                                            u_per_command=1 if carried else 2)
+    if carried:
+        extra = {"dynamics_carry_init": (jnp.zeros_like, torch.zeros_like)}
+
+        def jdyn(carry, state, window, t):
+            return carry + 1.0, state + t.astype(state.dtype)
+
+        def tdyn(carry, state, window, t):
+            return carry + 1.0, state + t
+    else:
+        extra = {}
+
+        def jdyn(state, window, t):
+            return state + t.astype(state.dtype)
+
+        def tdyn(state, window, t):
+            return state + t
+    (ja, jaux), (ta, taux) = run_scalar(jcfg, jsig, tcfg, tsig, jdyn, tdyn, **extra)
+    np.testing.assert_allclose(taux["cost_total"].numpy(), 4.0 if carried else 10.0, atol=1e-9)
+    assert ta.shape == ((1,) if carried else (2, 1)) == ja.shape
+
+
+def test_rollout_samples_deterministic_equivalence():
+    """M>1 with deterministic dynamics plans as M=1 (tests/test_mppi.py:130-143)."""
+    import dataclasses
+
+    (_, _, _, _), (tcfg, tsig, tdyn, tcost), spec = planners("oderl-pendulum", 1, {})
+    g = torch.Generator().manual_seed(2)
+    U = tmppi.mppi_reset(g, tcfg, tsig)
+    obs, buf = torch.tensor([-1.0, 0.0, 1.0], dtype=torch.float64), torch.zeros((A, 1), dtype=torch.float64)
+    noise = tmppi._sample_noise(g, tcfg, tsig)
+    a1, _, aux1 = tmppi.mppi_command(tcfg, tsig, tdyn, tcost, U, obs, buf, noise=noise)
+    cfgM = dataclasses.replace(tcfg, rollout_samples=3, rollout_var_cost=10.0)
+    aM, _, auxM = tmppi.mppi_command(cfgM, tsig, tdyn, tcost, U, obs, buf, noise=noise)
+    np.testing.assert_allclose(aM.numpy(), a1.numpy(), atol=1e-12)
+    np.testing.assert_allclose(auxM["cost_total"].numpy(), aux1["cost_total"].numpy(), atol=1e-9)
+
+
+def test_rollout_states_match_jax():
+    """``mppi_rollout_states`` rolls the plan through the dynamics: the
+    analytic states of tests/test_mppi.py:229-245, as JAX rolls them."""
+    kw = dict(num_samples=4, horizon=3, nu=1, u_scale=2.0, u_min=-9.0, u_max=9.0)
+    U = np.asarray([[0.5], [1.0], [-0.5]])
+    j = jmppi.mppi_rollout_states(jmppi.MPPIConfig(**kw), lambda s, w: s + w[:, -1, :], jnp.zeros(1),
+                                  jnp.asarray(U), jnp.zeros((4, 1)), num_rollouts=2)
+    t = tmppi.mppi_rollout_states(tmppi.MPPIConfig(**kw), lambda s, w: s + w[:, -1, :],
+                                  torch.zeros(1, dtype=torch.float64), torch.tensor(U),
+                                  torch.zeros((4, 1), dtype=torch.float64), num_rollouts=2)
+    assert t.shape == (2, 3, 1)
+    np.testing.assert_allclose(t[0, :, 0].numpy(), [1.0, 3.0, 2.0], atol=1e-12)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-12)
+
+
+def test_run_mppi_online_retraining():
+    """``run_mppi`` steps the real env, rings (obs, action) and calls the
+    retrain callback on the reference's cadence, every retrain_after_iter
+    steps but not at step 0 (tests/test_mppi.py:275-334)."""
+    from neurallaplacecontrol_tpu_torch.models import make_model
+
+    env = torch_make_env("oderl-pendulum", dt=0.05)
+    spec = env.spec
+    model = make_model("rnn", "oderl-pendulum", spec.n_obs, spec.m, spec.action_high, TConfig(), device="cpu")
+    params0 = model.init(torch.Generator().manual_seed(0))
+    cfg = tmppi.MPPIConfig(num_samples=16, horizon=4, nu=spec.m, u_scale=spec.action_high,
+                           u_min=-spec.action_high, u_max=spec.action_high)
+    mp = tmppi.make_mppi_params(tmppi.default_noise_sigma(spec.m, 1.0))
+    calls, built = [], []
+
+    def retrain(dataset, params):
+        calls.append(np.array(dataset, copy=True))
+        return params
+
+    def make_dynamics(p):
+        built.append(p)
+        return torch_dynamics(model.apply, p, spec.dt)
+
+    total, dataset = tmppi.run_mppi(env, cfg, mp, make_dynamics, torch_cost(env), params0,
+                                    torch.Generator().manual_seed(3), retrain_dynamics=retrain,
+                                    retrain_after_iter=10, iters=25, delay=1)
+    assert np.isfinite(total) and dataset.shape == (10, spec.n_obs + spec.m)
+    assert len(calls) == 2 and len(built) == 3
+    for d in calls:
+        assert np.isfinite(d).all() and (np.abs(d[:, -spec.m:]) <= spec.action_high + 1e-6).all()
