@@ -15,9 +15,18 @@ same cell (200 steps, the 20 seeds in lockstep, so each horizon step is one
 forward launch of 20 x 1000 rows), scores NL against that run's own oracle
 and random returns, and holds NL's mean return against the JAX package's
 run of the same cell (``artifacts/port/jax_eval_cartpole_d1.json``, made by
-``scripts/port_jax_reference.py``). Then ``data.collector`` collects 20
+``scripts/port_jax_reference.py``), and runs NL once more with
+``change_goal`` (the planner's goal moves from x = -2 to +2 halfway) against
+the JAX package's run of that batch
+(``artifacts/port/jax_eval_cartpole_d1_change_goal.json``, made by
+``scripts/port_jax_goal_reference.py``). Then ``data.collector`` collects 20
 oracle episodes with exploration noise on pendulum d1 into a temporary
-directory and reads the buffer back. Phase ``ilt`` inverts tests/test_ilt.py's
+directory and reads the buffer back. Phase ``deploy`` exports the fused
+controller (``serving.export_controller``), holds the loaded step to the
+eager one over replayed ticks and counts its kernel launches, serves 200
+ticks through ``scripts/serve_demo_torch.py``'s loop with the native tick
+log, reads phase ``collect``'s buffer through its ``.rbuf``, starts two
+processes on one fresh compile cache and runs ``tune.autotune``. Phase ``ilt`` inverts tests/test_ilt.py's
 analytic pairs with each of the six ILT algorithms at f64 and f32 against
 the closed forms. Phase ``train`` runs the port's first training segment
 (250 updates) in f32 and in f64 on the JAX runs recorded in
@@ -134,6 +143,7 @@ EVAL_STEPS = 200  # int(10 / dt): 10-second episodes
 SEED_ROWS = len(EVAL_SEEDS) * K  # forward rows per launch in the evaluation
 TRACE_EVAL_TICKS = 3  # seed-batched episode ticks under torch.profiler
 JAX_REFERENCE = ROOT / "artifacts" / "port" / "jax_eval_cartpole_d1.json"
+JAX_GOAL_REFERENCE = ROOT / "artifacts" / "port" / "jax_eval_cartpole_d1_change_goal.json"
 COLLECT_ENV, COLLECT_EPISODES = "oderl-pendulum", 20
 JAX_TRAIN_REFERENCE = ROOT / "artifacts" / "port" / "jax_train_pendulum_d1.npz"
 TRAIN_ENV = "oderl-pendulum"  # the collected buffer's env; trained at delay DELAY
@@ -687,6 +697,42 @@ def run_eval(device, smi: str) -> dict:
     if not gap <= limit:
         raise RuntimeError(f"NL mean return {port_nl.mean():.3f} is {gap:.3f} from the JAX run's "
                            f"{jax_nl.mean():.3f}, over the limit {limit:.3f}")
+    out["change_goal"] = run_change_goal(device, smi, model, params, cfg)
+    return out
+
+
+def run_change_goal(device, smi: str, model, params, cfg) -> dict:
+    """Phase ``eval``'s ``change_goal`` batch: fused NL over seeds 0-19 with
+    the planner's goal moving from x = -2 to +2 halfway, held to the JAX
+    package's CPU run of the same cell (``JAX_GOAL_REFERENCE``, made by
+    ``scripts/port_jax_goal_reference.py`` on the checkpoint whose sha256 it
+    records) by the 3-sigma rule."""
+    ref = json.loads(JAX_GOAL_REFERENCE.read_text())
+    ckpt = Path(resolve_checkpoint(model_checkpoint_name("nl", MAIN_ENV, DELAY, "exp", 0, True)))
+    digest = hashlib.sha256(ckpt.read_bytes()).hexdigest()
+    if (ref["env"], ref["delay"], ref["seeds"], ref["change_goal"]) != (MAIN_ENV, DELAY, EVAL_SEEDS, True):
+        raise RuntimeError(f"{JAX_GOAL_REFERENCE} holds another cell")
+    if ckpt.relative_to(ROOT).as_posix() != ref["checkpoint"]["path"] or digest != ref["checkpoint"]["sha256"]:
+        raise RuntimeError(f"the JAX change_goal run used {ref['checkpoint']}, this run loads {ckpt} ({digest})")
+    pallas_nl.nl_forward_fused.launches = pallas_nl.nl_forward_fused.rows = 0
+    r = evaluate_policy("nl", MAIN_ENV, DELAY, EVAL_SEEDS, cfg, model_apply=model.apply, params=params,
+                        roll_outs=K, time_steps=T, change_goal=True, device=device)
+    launches = pallas_nl.nl_forward_fused.launches
+    got, exp = np.asarray(r["total_rewards"]), np.asarray(ref["nl"]["total_rewards"])
+    n = len(EVAL_SEEDS)
+    gap = abs(float(got.mean() - exp.mean()))
+    limit = 3.0 * math.sqrt(exp.var(ddof=1) / n + got.var(ddof=1) / n)
+    out = {**policy_stats(r), "jax_mean": float(exp.mean()), "jax_std": float(exp.std()), "gap": gap,
+           "limit": limit, "launches": launches, "rows_per_launch": pallas_nl.nl_forward_fused.rows / max(1, launches),
+           "checkpoint_sha256": digest, "jax_commit": ref["commit"], "card": smi}
+    print("eval change_goal " + json.dumps(out), flush=True)
+    if not all(math.isfinite(x) for x in r["total_rewards"]):
+        raise RuntimeError("non-finite change_goal return")
+    if launches != (EVAL_STEPS + 1) * T or out["rows_per_launch"] != SEED_ROWS:
+        raise RuntimeError(f"change_goal: nl_forward launched {launches} times at {out['rows_per_launch']} rows")
+    if not gap <= limit:
+        raise RuntimeError(f"change_goal NL mean return {got.mean():.3f} is {gap:.3f} from the JAX run's "
+                           f"{exp.mean():.3f}, over the limit {limit:.3f}")
     return out
 
 
@@ -1664,6 +1710,162 @@ def run_shard(device, smi: str, eval_returns, tmp: str) -> dict:
     return out
 
 
+DEPLOY_TICKS = 200  # serve_demo_torch's loop on the exported step, with the tick log
+DEPLOY_TICK_LIMIT = 1e-6  # |got - exp| / (1 + |exp|), exported vs eager tick on one noise
+DEPLOY_CHAINED = 100  # ticks issued back to back for the device-amortized tick
+TUNE_SEEDS = (0, 1)
+
+
+def cold_and_warm_start(cache_dir: str) -> list:
+    """Two processes on one fresh ``cache_dir`` (``serving.persistent_compile_cache``):
+    each builds the kernel library and the two runtime libraries there and
+    reports its compiler runs and seconds; the second should run none."""
+    code = (
+        "import json, time; t0 = time.perf_counter()\n"
+        "from neurallaplacecontrol_tpu_torch import runtime, serving\n"
+        "from neurallaplacecontrol_tpu_torch.ops import nl_cuda\n"
+        "from neurallaplacecontrol_tpu_torch.runtime import _native, ticklog\n"
+        f"serving.persistent_compile_cache({cache_dir!r})\n"
+        "nl_cuda.library(); runtime.get_lib(); ticklog.get_lib()\n"
+        "print(json.dumps({'nvcc': nl_cuda.compiles, 'gxx': _native.compiles, "
+        "'seconds': time.perf_counter() - t0}))\n"
+    )
+    out = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"compile-cache process failed:\n{proc.stderr[-3000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["process_s"] = time.perf_counter() - t0
+        out.append(rec)
+    return out
+
+
+def run_deploy(device, smi: str, tmp: str, eager_tick_ms: float) -> dict:
+    """Phase ``deploy``: the fused NL controller of phase ``controller``
+    exported (``serving.export_controller``) and loaded back
+    (``serving.load_controller_step``). 1. Ten replayed ticks on one noise,
+    loaded against ``Controller.step`` (``DEPLOY_TICK_LIMIT``), the kernel
+    launched T times a tick by the exported program. 2. 200 ticks of
+    ``scripts/serve_demo_torch.py``'s loop on the loaded step with the tick
+    log, read back. 3. Phase ``collect``'s buffer through its ``.rbuf``.
+    4. Two processes on one fresh compile cache. 5. ``tune.autotune`` on
+    2 seeds."""
+    from scripts import serve_demo_torch as demo
+
+    from neurallaplacecontrol_tpu_torch import serving, tune
+    from neurallaplacecontrol_tpu_torch.data import replay
+    from neurallaplacecontrol_tpu_torch.runtime.ticklog import TickLog
+
+    failures, out = [], {"card": smi, "env": MAIN_ENV, "delay": DELAY, "K": K, "T": T}
+    env, params, model = load_nl(MAIN_ENV, device)
+    spec = env.spec
+    cfg = port.Config(fused_nl_planner=True)
+    ctrl = port.make_controller("nl", MAIN_ENV, DELAY, cfg, model_apply=model.apply, params=params, roll_outs=K,
+                                time_steps=T, device=device)
+    pallas_nl.nl_forward_fused.launches = pallas_nl.nl_forward_fused.rows = 0
+    pallas_ilt.nl_head_fused.launches = 0
+    path = Path(tmp) / "controller.pt2"
+    t0 = time.perf_counter()
+    blob = serving.export_controller(ctrl, path=str(path))
+    out["export_s"], out["export_bytes"] = time.perf_counter() - t0, len(blob)
+    t0 = time.perf_counter()
+    step = serving.load_controller_step(path, seed=0)
+    out["load_s"] = time.perf_counter() - t0
+    launches = {"export": pallas_nl.nl_forward_fused.launches}
+
+    # 1. replayed ticks: the loaded step against the eager one on the same noise
+    g = torch.Generator(device=device).manual_seed(1)
+    chol = ctrl.mppi_params.noise_chol
+    eager = loaded = ctrl.reset(0)
+    raw = env.reset(torch.Generator().manual_seed(0)).to(device)
+    errs, per_tick = [], []
+    for _ in range(REPLAY_TICKS):
+        obs = env.observe(raw)
+        noise = torch.randn((K, T, spec.m), generator=g, device=device) @ chol.T
+        a_e, eager = ctrl.step(eager, obs, noise=noise)
+        before = pallas_nl.nl_forward_fused.launches
+        a_x, loaded = step(loaded, obs, noise=noise)
+        torch.cuda.synchronize()
+        per_tick.append(pallas_nl.nl_forward_fused.launches - before)
+        errs.append(max(rel_err(a_x, a_e), rel_err(loaded.U, eager.U),
+                        rel_err(loaded.action_buffer, eager.action_buffer)))
+        raw = env_step(env, raw, eager.action_buffer[-(DELAY + 1)], spec.dt)
+    out["replay"] = {"ticks": REPLAY_TICKS, "max_rel_err": max(errs), "limit": DEPLOY_TICK_LIMIT,
+                     "launches_per_tick": per_tick}
+    if not max(errs) <= DEPLOY_TICK_LIMIT:
+        failures.append(f"exported tick {max(errs):.3e} from the eager tick, limit {DEPLOY_TICK_LIMIT}")
+    if per_tick != [T] * REPLAY_TICKS:
+        failures.append(f"the exported program launched the forward {per_tick} times a tick, expected {T}")
+
+    # 2. serve_demo_torch's loop on the loaded step, with the tick log
+    log_path = str(Path(tmp) / "ticks.log")
+    log, epoch, base_s = demo.open_ticklog(log_path, 4096, 2 + spec.m + spec.n_obs)
+    before = pallas_nl.nl_forward_fused.launches
+    lat, state, raw, records = demo.control_loop(step, ctrl.reset(0), env, raw, DEPLOY_TICKS, DELAY, log, base_s)
+    launches["serve"] = pallas_nl.nl_forward_fused.launches - before
+    log.close()
+    lat_ms = np.asarray(lat[1:]) * 1e3  # the first tick includes one-time set-up
+    before = pallas_nl.nl_forward_fused.launches
+    amortized = demo.chained_ms(step, state, env.observe(raw), DEPLOY_CHAINED)
+    launches["chained"] = pallas_nl.nl_forward_fused.launches - before
+    reread = TickLog.open(log_path)
+    logged = reread.read(0, reread.count) if reread.count == DEPLOY_TICKS else None
+    reread.close()
+    out["serve"] = {
+        "ticks": DEPLOY_TICKS, "tick_ms_p50": float(np.percentile(lat_ms, 50)),
+        "tick_ms_p90": float(np.percentile(lat_ms, 90)), "tick_ms_p99": float(np.percentile(lat_ms, 99)),
+        "tick_ms_mean": float(lat_ms.mean()), "eager_tick_ms_mean": eager_tick_ms,
+        "exported_over_eager": float(lat_ms.mean()) / eager_tick_ms,
+        "tick_ms_device_amortized": amortized, "chained": DEPLOY_CHAINED,
+        "ticklog_count": None if logged is None else len(logged), "ticklog_epoch_unix_s": epoch,
+    }
+    if logged is None or not np.array_equal(logged, np.asarray(records, dtype=np.float32)):
+        failures.append(f"the tick log holds {reread.count} records, not the {DEPLOY_TICKS} appended")
+    if launches["serve"] != DEPLOY_TICKS * T:
+        failures.append(f"serve loop: {launches['serve']} launches, expected {DEPLOY_TICKS * T}")
+
+    # 3. phase collect's buffer through its .rbuf sibling
+    npz = Path(tmp) / replay_buffer_filename(COLLECT_ENV, DELAY)
+    native = replay._load_rbuf(npz)
+    with np.load(npz) as z:
+        equal = native is not None and all(np.array_equal(native[k], z[k]) for k in replay.FIELDS)
+    loaded_buf = load_replay_buffer(npz, device=device)
+    out["rbuf"] = {"file_bytes": replay._rbuf_path(npz).stat().st_size if native is not None else None,
+                   "native": native is not None, "equal_to_npz": equal,
+                   "rows": None if native is None else int(native["s0"].shape[0])}
+    if not equal or not all(torch.equal(x.cpu(), torch.from_numpy(native[k]))
+                            for x, k in zip(loaded_buf, replay.FIELDS)):
+        failures.append(f"the .rbuf round trip: {out['rbuf']}")
+
+    # 4. cold and warm start on one fresh compile cache
+    starts = cold_and_warm_start(str(Path(tmp) / "compile_cache"))
+    out["compile_cache"] = starts
+    if (starts[0]["nvcc"], starts[0]["gxx"]) != (1, 2) or (starts[1]["nvcc"], starts[1]["gxx"]) != (0, 0):
+        failures.append(f"compile cache: cold {starts[0]}, warm {starts[1]} (expected 1/2 then 0/0 compiler runs)")
+
+    # 5. autotune over the planner's three NL routes, 2 seeds
+    trials_path = Path(tmp) / "autotune.jsonl"
+    before = pallas_nl.nl_forward_fused.launches
+    best, trials = tune.autotune("nl", MAIN_ENV, DELAY, base=port.Config(mppi_roll_outs=K, mppi_time_steps=T),
+                                 model_apply=model.apply, params=params, seeds=TUNE_SEEDS, device=device,
+                                 results_path=str(trials_path))
+    launches["autotune"] = pallas_nl.nl_forward_fused.launches - before
+    out["autotune"] = {"trials": trials, "best": {k: getattr(best, k) for k in ("fused_nl_planner",
+                                                                              "nl_planner_precompute")},
+                       "logged": len(trials_path.read_text().splitlines())}
+    if out["autotune"]["logged"] != len(trials) or len(trials) != 3:
+        failures.append(f"autotune: {len(trials)} trials, {out['autotune']['logged']} logged")
+
+    out["launches"] = launches
+    out["launches_total"] = pallas_nl.nl_forward_fused.launches
+    print("deploy " + json.dumps(out), flush=True)
+    if failures:
+        raise RuntimeError("phase deploy: " + "; ".join(failures))
+    return out
+
+
 def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict, shard_rows: list) -> dict:
     """One entry per kernel. The forward's times and bounds are at the
     evaluation's 20,000 rows, its launches the evaluation's; ``serving_tick``
@@ -1702,6 +1904,8 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
                                           "max_rel_err": training["kernel_on_trained_weights"],
                                           "max_cond_err": training["kernel_cond_on_trained_weights"]}
             out[-1]["driver"] = {"launches": launches["driver"]}
+            out[-1]["change_goal"] = {"launches": launches["change_goal"]}
+            out[-1]["deploy"] = {"launches": launches["deploy"]}
             out[-1]["shard"] = {"launches": launches["shard"], "rows": [
                 {k: r[k] for k in ("B", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")
                  if k in r} for r in shard_rows]}
@@ -1747,6 +1951,9 @@ def main() -> int:
         with phase("collect"):
             run_collect(device, tmp)
 
+        with phase("deploy"):
+            deploying = run_deploy(device, smi, tmp, result["tick_ms_mean"])
+
         with phase("ilt"):
             run_ilt(device)
 
@@ -1764,6 +1971,7 @@ def main() -> int:
 
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     launches = {"controller": result["launches"], "eval": evaluation["launches"],
+                "change_goal": evaluation["change_goal"]["launches"], "deploy": deploying["launches_total"],
                 "train": training["launches"], "driver": driving["launches"], "shard": sharding["launches"]}
     print(json.dumps(kernels_line(records, seed_batch, launches, training, sharding["kernel_checks"])), flush=True)
     print(smi, flush=True)

@@ -9,7 +9,8 @@ which stays the reference the port is tested against. The port imports
 The port covers the NL flagship end to end: checkpoints, the NL model
 under all six ILT algorithms, the environments and their oracles, the
 delay-aware MPPI planner with the serving controller
-(``serving.make_controller``), seed-batched evaluation
+(``serving.make_controller``, exported with ``serving.export_controller``),
+seed-batched evaluation
 (``training.evaluate_policy``), expert and synthetic data (``data``) and
 training (``training.train_model``). The planner-path NL forward is a
 hand-written CUDA kernel (``ops.pallas_nl``; ``ops.pallas_ilt`` holds its
@@ -22,8 +23,26 @@ computes its plain PyTorch version instead.
 
 __version__ = "0.1.0"
 
-from .config import Config  # noqa: F401
-from .envs import make_env  # noqa: F401
-from .models import make_model  # noqa: F401
-from .serving import Controller, ControllerState, make_controller  # noqa: F401
-from .training import evaluate_policy, train_model  # noqa: F401
+# the entry points, imported at first use: loading an exported controller
+# (``serving.load_controller_step``) imports the operators and no model code
+_EXPORTS = {
+    "Config": ".config",
+    "make_env": ".envs",
+    "make_model": ".models",
+    "Controller": ".serving",
+    "ControllerState": ".serving",
+    "make_controller": ".serving",
+    "evaluate_policy": ".training",
+    "train_model": ".training",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(_EXPORTS[name], __name__), name)
+    globals()[name] = value
+    return value

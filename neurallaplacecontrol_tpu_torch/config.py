@@ -3,8 +3,7 @@
 Same fields, names and defaults as ``neurallaplacecontrol_tpu/config.py``, a
 frozen dataclass with real booleans built from CLI arguments by
 ``parse_args``. A field whose non-default value the port cannot honour
-raises where it is read (``save_video``, ``nl_planner_precompute`` without
-``fused_nl_planner``, ``nl_compute_dtype="bfloat16"``). Some fields are read
+raises where it is read (``nl_compute_dtype="bfloat16"``). Some fields are read
 by nothing, in the JAX package either: they are kept so that a command line
 or a config dict that names them means the same in both packages.
 """
@@ -109,7 +108,7 @@ class Config:
     saved_models_path: str = "./saved_models/"
     offline_datasets_path: str = "./offlinedata/"
     log_folder: str = "logs"  # the driver's log files
-    save_video: bool = False  # not ported: evaluation raises when it is set
+    save_video: bool = False  # evaluation writes the first seed's episode (envs.render)
     model_seed: int = 0
     multi_process_results: bool = True  # read by nothing
     retrain: bool = False

@@ -1,7 +1,7 @@
 """Data generation: synthetic batched integration, expert MPPI collection,
 replay-buffer files and oracle validation."""
 
-from .collector import collect_expert_data  # noqa: F401
+from .collector import collect_expert_data, load_expert_irregular_data_delay_time_multi  # noqa: F401
 from .replay import load_replay_buffer, replay_buffer_filename, save_replay_buffer  # noqa: F401
 from .synthetic import (  # noqa: F401
     SyntheticDraws,

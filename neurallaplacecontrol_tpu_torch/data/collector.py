@@ -128,3 +128,8 @@ def collect_expert_data(
     s0, a0, sn, ts = (torch.cat(parts) for parts in zip(*chunks))
     save_replay_buffer(path, s0, a0, sn, ts)
     return s0, a0, sn, ts
+
+
+def load_expert_irregular_data_delay_time_multi(env_name, delay, config: Config = Config(), device="cuda"):
+    """Name-parity wrapper (reference overlay.py:740-778): ``collect_expert_data``."""
+    return collect_expert_data(env_name, delay, config=config, device=device)

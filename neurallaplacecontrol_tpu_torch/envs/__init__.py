@@ -1,7 +1,8 @@
 """Continuous-time environments (pendulum / cartpole / acrobot) as pure functions on tensors."""
 
-from . import acrobot, cartpole, pendulum
-from .base import Env, EnvSpec, env_step, sample_dt, trig_to_angle  # noqa: F401
+from . import acrobot, cartpole, oracle, pendulum, render  # noqa: F401
+from .base import Env, EnvSpec, df_du, env_step, sample_dt, trig_to_angle  # noqa: F401
+from .oracle import ORACLES, oracle_for  # noqa: F401
 
 _FACTORIES = {
     "oderl-pendulum": pendulum.make,
@@ -11,6 +12,9 @@ _FACTORIES = {
     "cartpole": cartpole.make,
     "acrobot": acrobot.make,
 }
+
+ENV_NAMES = ("oderl-pendulum", "oderl-cartpole", "oderl-acrobot")
+
 
 def make_env(env_name: str, dt: float = 0.05, ts_grid: str = "fixed",
              noise: float = 0.0, friction: bool = False) -> Env:

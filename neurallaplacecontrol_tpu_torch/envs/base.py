@@ -97,6 +97,14 @@ def sample_dt(generator, ts_grid: str, dt: float, shape=(), dtype=torch.float32,
     raise ValueError(f"Unknown ts_grid: {ts_grid}")
 
 
+def df_du(env: Env, state: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+    """Action Jacobian of the dynamics rhs at (state, action), [n_state, m]
+    for one state. The reference hand-derives these per env
+    (ctcartpole.df_du:136-157, ctpendulum.df_du:86-89); forward-mode AD over
+    the shared rhs gives them for every env, as in the JAX package."""
+    return torch.func.jacfwd(lambda a: env.rhs(state, a))(action)
+
+
 def env_step(env: Env, raw_state: torch.Tensor, action: torch.Tensor, delta_t) -> torch.Tensor:
     """One environment transition: a single explicit Euler step of the raw
     dynamics under a constant action (base_env.py:136-163, solver 'euler')."""

@@ -104,6 +104,20 @@ def end_effector_reward(s, goal_x=0.0, state_constraint: bool = False,
     return state_reward + vel_rew_const * velocity_reward
 
 
+def end_effector_reward_reduced(s, goal_x=0.0, state_constraint: bool = False, exp_reward: bool = False):
+    """Reduced-state (x, l cos, l sin) variant without velocity terms
+    (ctcartpole.diff_obs_reward_reduced_state:239-288)."""
+    x, cos_len, sin_len = s[..., 0], s[..., 1], s[..., 2]
+    err_x = (x + sin_len) - goal_x
+    err_y = cos_len - _LENGTH
+    if state_constraint:
+        position_error = err_x**2 + torch.exp(err_x * 10.0 + 7.0)
+    else:
+        position_error = err_x**2
+    out = -(position_error + err_y**2)
+    return torch.exp(out) if exp_reward else out
+
+
 def make(dt=0.05, ts_grid="fixed", obs_noise=0.0, friction=False) -> Env:
     spec = EnvSpec(
         name="cartpole", n_obs=5, n_state=4, m=1, action_high=3.0,

@@ -8,8 +8,9 @@ and returns the state in the form (raw or trig) it was given. The reference
 positions with the old velocity, which is exactly that Euler step, so the
 oracle equals the env transition by construction.
 
-The JAX module's two-frame ``*_latent*`` variants serve latent-ODE work and
-are not ported yet.
+The ``*_dynamics_dt`` variants take a single action (delay 0). The JAX
+module's two-frame ``*_latent*`` variants serve latent-ODE work and are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -70,6 +71,20 @@ def acrobot_dynamics_dt_delay(
     if state.shape[-1] == 4:
         return new_raw
     return _acrobot.observe(new_raw)
+
+
+# Non-delayed single-action variants (oracle.py:378-552): delay 0 with the
+# action viewed as a one-entry buffer.
+def pendulum_dynamics_dt(state, action, ts, **kw):
+    return pendulum_dynamics_dt_delay(state, action[..., None, :], ts, 0, **kw)
+
+
+def cartpole_dynamics_dt(state, action, ts, **kw):
+    return cartpole_dynamics_dt_delay(state, action[..., None, :], ts, 0, **kw)
+
+
+def acrobot_dynamics_dt(state, action, ts, **kw):
+    return acrobot_dynamics_dt_delay(state, action[..., None, :], ts, 0, **kw)
 
 
 ORACLES = {

@@ -19,6 +19,8 @@ from typing import Sequence
 
 import torch
 
+from ..ops.pallas_nl import gru_gates  # noqa: F401  (the GRU step, shared with the kernels' plain forward)
+
 
 def tree_leaves(tree) -> list:
     """The tensors of a parameter tree, dict keys in sorted order."""
@@ -50,6 +52,11 @@ def tree_unflatten(like, leaves):
         return next(it)
 
     return build(like)
+
+
+def cast_params(params, dtype):
+    """Every leaf of a parameter tree in ``dtype``."""
+    return tree_map(lambda x: x.to(dtype), params)
 
 
 def count_params(params) -> int:
@@ -102,17 +109,6 @@ def mlp_apply_tanh(layers, x):
     for layer in layers[:-1]:
         x = torch.tanh(linear_apply(layer, x))
     return linear_apply(layers[-1], x)
-
-
-def gru_gates(gi, gh, h):
-    """GRU gate nonlinearity (r/z/n blocks; the candidate's hidden path is
-    gated by reset after the hidden matmul and its own bias): h' = (1 - z) n
-    + z h, as n + z (h - n). The r and z gates share one add and one sigmoid,
-    so a step is five elementwise launches."""
-    H = h.shape[-1]
-    rz = torch.sigmoid(gi[..., : 2 * H] + gh[..., : 2 * H])
-    n = torch.tanh(torch.addcmul(gi[..., 2 * H :], rz[..., :H], gh[..., 2 * H :]))
-    return torch.lerp(n, h, rz[..., H:])
 
 
 def _gru_cell(p, h, x):

@@ -41,7 +41,7 @@ _ACTION_LATENT = 2  # w_nl.py:89
 _KERNEL_GRU_GROUP, _KERNEL_GRU_MAX, _KERNEL_TRUNK_ALIGN = 8, 64, 16
 
 
-def _check_kernel_widths(gru_hidden: int, trunk_hidden: int) -> None:
+def check_kernel_widths(gru_hidden: int, trunk_hidden: int) -> None:
     """Raise ``ValueError`` for a width the fused forward kernel cannot take."""
     if (gru_hidden % _KERNEL_GRU_GROUP or gru_hidden > _KERNEL_GRU_MAX
             or trunk_hidden % _KERNEL_TRUNK_ALIGN):
@@ -165,12 +165,12 @@ def make_nl_model(
         arguments (re-specialize after a parameter update).
 
         Raises ``ValueError`` for another ILT than fourier and for widths the
-        kernel does not take (``_check_kernel_widths``): it never falls back
+        kernel does not take (``check_kernel_widths``): it never falls back
         to the plain forward.
         """
         if ilt_algorithm != "fourier":
             raise ValueError(f"the fused planner path is fourier-only, not {ilt_algorithm!r}")
-        _check_kernel_widths(params["encoder"]["gru"][0]["w_hh"].shape[0],
+        check_kernel_widths(params["encoder"]["gru"][0]["w_hh"].shape[0],
                             params["laplace_rep"][1]["w"].shape[0])
         t_model = t / (dt * 8.0) if (normalize and normalize_time) else t
         t_floor = 2.5e-3 if (normalize and normalize_time) else 2.5e-3 * dt * 8.0

@@ -4,7 +4,8 @@ The sources are compiled at first use by ``nvcc`` alone, into a shared
 library with a plain C interface that ``ctypes`` loads: no PyTorch headers,
 no ``torch.utils.cpp_extension`` and no ``ninja``. The library goes under
 ``build/nl_kernels/<hash>/`` at the repo root, keyed by a hash of the sources
-and the flags, so a changed source rebuilds and an unchanged one does not.
+and the flags, so a changed source rebuilds and an unchanged one does not
+(``serving.persistent_compile_cache`` moves ``BUILD_DIR``).
 
 Nothing here falls back to a plain version: a failed build raises with
 nvcc's output, and a refused launch raises with ``cudaGetErrorString``.
@@ -30,6 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _LIB_NAME = "libnl_kernels.so"
+compiles = 0  # nvcc runs in this process, for callers that check a warm cache
 
 
 def find_nvcc() -> str:
@@ -55,19 +57,23 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build(build_dir: Path = BUILD_DIR) -> Path:
-    """Compile the kernels if no library for these sources exists; returns its path.
+def build(build_dir=None) -> Path:
+    """Compile the kernels if no library for these sources exists under
+    ``build_dir`` (default ``BUILD_DIR``, which
+    ``serving.persistent_compile_cache`` moves); returns its path.
 
     The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
     is kept beside the library as ``build.log``.
     """
-    out_dir = Path(build_dir) / _digest()
+    global compiles
+    out_dir = Path(build_dir or BUILD_DIR) / _digest()
     lib = out_dir / _LIB_NAME
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    compiles += 1
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, check=False)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

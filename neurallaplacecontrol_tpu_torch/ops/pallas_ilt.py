@@ -21,6 +21,7 @@ in plain PyTorch on ``pack_head_weights``'s operands, for a CPU tensor.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -168,16 +169,8 @@ def nl_head_plain(x, packed, state_dim: int):
     return (f_re @ s_re - f_im @ s_im)[:, :state_dim]
 
 
-def nl_head_fused(x, packed, state_dim: int, *, terms: int, hopper=None):
-    """x [B, H] -> state difference [B, state_dim] through the head kernel.
-
-    ``terms`` is the count of live fourier terms in each padded block of
-    ``packed``. On a CPU tensor this computes ``nl_head_plain``. On a CUDA
-    tensor the kernel reads ``hopper``, ``repack_head(packed, state_dim,
-    terms)`` as a tensor on the same device.
-    """
-    if x.device.type == "cpu":
-        return nl_head_plain(x, packed, state_dim)
+def _nl_head_cuda(x, packed, hopper, state_dim: int, terms: int):
+    """The head kernel's launch: the operator's CUDA implementation."""
     if hopper is None:
         raise ValueError("the head kernel reads the repacked weights: pass hopper=repack_head(...)")
     B, Hx = x.shape
@@ -185,6 +178,43 @@ def nl_head_fused(x, packed, state_dim: int, *, terms: int, hopper=None):
     nl_cuda.launch("nl_head_launch", (x, hopper, out), (B, Hx, state_dim, terms, hopper.numel()))
     nl_head_fused.launches += 1
     return out
+
+
+def _nl_head_cpu(x, packed, hopper, state_dim: int, terms: int):
+    """The operator's CPU implementation: the plain head (``hopper`` unread)."""
+    return nl_head_plain(x, packed, state_dim).contiguous()
+
+
+@torch.library.custom_op("nlc::nl_head", mutates_args=(), device_types="cpu")
+def nl_head_op(x: torch.Tensor, packed: list[torch.Tensor], hopper: Optional[torch.Tensor], state_dim: int,
+               terms: int) -> torch.Tensor:
+    """``torch.ops.nlc.nl_head``: the head kernel as a PyTorch operator. CUDA
+    tensors launch the kernel, CPU tensors compute the plain head."""
+    return _nl_head_cpu(x, packed, hopper, state_dim, terms)
+
+
+nl_head_op.register_kernel("cuda")(_nl_head_cuda)
+
+
+@nl_head_op.register_fake
+def _nl_head_fake(x, packed, hopper, state_dim, terms):
+    return x.new_empty((x.shape[0], state_dim))
+
+
+def nl_head_fused(x, packed, state_dim: int, *, terms: int, hopper=None):
+    """x [B, H] -> state difference [B, state_dim] through the head kernel.
+
+    ``terms`` is the count of live fourier terms in each padded block of
+    ``packed``. On a CPU tensor this computes ``nl_head_plain``. On a CUDA
+    tensor the kernel reads ``hopper``, ``repack_head(packed, state_dim,
+    terms)`` as a tensor on the same device. Traced, this is a call of the
+    operator ``nl_head_op``; eager, of its implementation for the tensor's
+    device (as ``pallas_nl.nl_forward_fused``).
+    """
+    if type(x) is not torch.Tensor or torch.compiler.is_compiling():
+        return nl_head_op(x, list(packed), hopper, state_dim, terms)
+    impl = _nl_head_cpu if x.device.type == "cpu" else _nl_head_cuda
+    return impl(x, packed, hopper, state_dim, terms)
 
 
 nl_head_fused.launches = 0  # kernel launches since the last reset

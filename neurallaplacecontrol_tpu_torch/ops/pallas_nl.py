@@ -15,15 +15,19 @@ flat float32 buffer whose sections the kernel copies into shared memory
 (see ``forward_sections``). ``nl_forward_fused`` launches the CUDA kernel
 ``nl_forward_kernel`` (``csrc/nl_kernels.cu``) on that repack for CUDA
 tensors and computes ``nl_forward_plain``, the same function in plain
-PyTorch on ``pack_nl_forward``'s operands, for CPU tensors.
+PyTorch on ``pack_nl_forward``'s operands, for CPU tensors. Both are the
+implementations of one operator, ``torch.ops.nlc.nl_forward``
+(``nl_forward_op``), so an exported planner step records the kernel as a
+node of its graph.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
-from ..models.common import gru_gates
 from . import nl_cuda
 from .ilt import fourier_spherical_host
 from .pallas_ilt import (
@@ -38,6 +42,17 @@ from .pallas_ilt import (
 MMA_M, MMA_K = 16, 8  # mma.sync.m16n8k8: output columns per tile, inputs per step
 _GROUP = 8  # GRU hidden units per warp: their r/z gates fill one 16-column tile
 _LATENT = 2  # the encoder's action latent
+
+
+def gru_gates(gi, gh, h):
+    """GRU gate nonlinearity (r/z/n blocks; the candidate's hidden path is
+    gated by reset after the hidden matmul and its own bias): h' = (1 - z) n
+    + z h, as n + z (h - n). The r and z gates share one add and one sigmoid,
+    so a step is five elementwise launches."""
+    H = h.shape[-1]
+    rz = torch.sigmoid(gi[..., : 2 * H] + gh[..., : 2 * H])
+    n = torch.tanh(torch.addcmul(gi[..., 2 * H :], rz[..., :H], gh[..., 2 * H :]))
+    return torch.lerp(n, h, rz[..., H:])
 
 
 def pack_nl_forward(
@@ -227,18 +242,8 @@ def repack_nl_forward(packed, state_dim: int, in_dim: int, terms: int) -> np.nda
     return buf
 
 
-def nl_forward_fused(obs, acts_flat, packed, state_dim: int, in_dim: int, *, terms: int, hopper=None):
-    """Raw obs [B, n] + raw flattened action buffer [B, A*in] -> state
-    difference [B, state_dim] through the forward kernel.
-
-    ``terms`` is the count of live fourier terms in each padded head block
-    (see ``pallas_ilt.nl_head_fused``). On CPU tensors this computes
-    ``nl_forward_plain`` on ``packed``. On CUDA tensors the kernel reads
-    ``hopper``, ``repack_nl_forward(packed, state_dim, in_dim, terms)`` as a
-    tensor on the same device.
-    """
-    if obs.device.type == "cpu":
-        return nl_forward_plain(obs, acts_flat, packed, state_dim, in_dim)
+def _nl_forward_cuda(obs, acts_flat, packed, hopper, state_dim: int, in_dim: int, terms: int):
+    """The forward kernel's launch: the operator's CUDA implementation."""
     if hopper is None:
         raise ValueError("the forward kernel reads the repacked weights: pass hopper=repack_nl_forward(...)")
     B, n = obs.shape
@@ -256,5 +261,49 @@ def nl_forward_fused(obs, acts_flat, packed, state_dim: int, in_dim: int, *, ter
     return out
 
 
-nl_forward_fused.launches = 0  # kernel launches since the last reset
+def _nl_forward_cpu(obs, acts_flat, packed, hopper, state_dim: int, in_dim: int, terms: int):
+    """The operator's CPU implementation: the plain forward (``hopper`` unread)."""
+    return nl_forward_plain(obs, acts_flat, packed, state_dim, in_dim).contiguous()
+
+
+@torch.library.custom_op("nlc::nl_forward", mutates_args=(), device_types="cpu")
+def nl_forward_op(obs: torch.Tensor, acts_flat: torch.Tensor, packed: list[torch.Tensor],
+                  hopper: Optional[torch.Tensor], state_dim: int, in_dim: int, terms: int) -> torch.Tensor:
+    """``torch.ops.nlc.nl_forward``: the forward kernel as a PyTorch operator,
+    which ``torch.export`` records as one node. CUDA tensors launch the
+    kernel, CPU tensors compute the plain forward."""
+    return _nl_forward_cpu(obs, acts_flat, packed, hopper, state_dim, in_dim, terms)
+
+
+nl_forward_op.register_kernel("cuda")(_nl_forward_cuda)
+
+
+@nl_forward_op.register_fake
+def _nl_forward_fake(obs, acts_flat, packed, hopper, state_dim, in_dim, terms):
+    return obs.new_empty((obs.shape[0], state_dim))
+
+
+def nl_forward_fused(obs, acts_flat, packed, state_dim: int, in_dim: int, *, terms: int, hopper=None):
+    """Raw obs [B, n] + raw flattened action buffer [B, A*in] -> state
+    difference [B, state_dim] through the forward kernel.
+
+    ``terms`` is the count of live fourier terms in each padded head block
+    (see ``pallas_ilt.nl_head_fused``). On CPU tensors this computes
+    ``nl_forward_plain`` on ``packed``. On CUDA tensors the kernel reads
+    ``hopper``, ``repack_nl_forward(packed, state_dim, in_dim, terms)`` as a
+    tensor on the same device.
+
+    Under tracing (``torch.export``) this is a call of the operator
+    ``nl_forward_op``. Eager calls run the operator's implementation for
+    the tensors' device directly, which spares the dispatcher's ~20 us a
+    call on the planner's 40 launches a tick; the kernel and its count
+    are the same either way.
+    """
+    if type(obs) is not torch.Tensor or torch.compiler.is_compiling():
+        return nl_forward_op(obs, acts_flat, list(packed), hopper, state_dim, in_dim, terms)
+    impl = _nl_forward_cpu if obs.device.type == "cpu" else _nl_forward_cuda
+    return impl(obs, acts_flat, packed, hopper, state_dim, in_dim, terms)
+
+
+nl_forward_fused.launches = 0  # kernel launches since the last reset, the exported program's included
 nl_forward_fused.rows = 0  # batch rows over those launches

@@ -500,16 +500,16 @@ def make_grid_sharded_episodes(
     ``episodes(draws) -> (totals [S], records)``, ``draws`` a
     ``training.rollout.SeedDraws`` (or a stand-in with its ``select``) for
     all S seeds; the results of every seed are gathered on every rank."""
-    from ..training.rollout import EpisodeRecords, build_running_cost, make_episode_fn
+    from ..training.rollout import EpisodeRecords, build_goal_running_cost, build_running_cost, make_episode_fn
 
     if set(mesh.axis_names) != {"seeds", "k"}:
         raise ValueError(f"the grid mesh's axes are ('seeds', 'k'), not {mesh.axis_names}")
     n_s = mesh.shape["seeds"]
     all_group = mesh.group()
-    command = _k_sharded_command(mppi_cfg, mppi_params, dynamics_fn,
-                                 build_running_cost(env, state_constraint=settings.state_constraint),
-                                 mesh.group("k"), terminal_state_cost=terminal_state_cost,
-                                 dynamics_carry_init=dynamics_carry_init)
+    cost_fn = (build_goal_running_cost(env) if settings.change_goal
+               else build_running_cost(env, state_constraint=settings.state_constraint))
+    command = _k_sharded_command(mppi_cfg, mppi_params, dynamics_fn, cost_fn, mesh.group("k"),
+                                 terminal_state_cost=terminal_state_cost, dynamics_carry_init=dynamics_carry_init)
     episode = make_episode_fn(env, dynamics_fn, mppi_cfg, mppi_params, settings,
                               dynamics_carry_init=dynamics_carry_init, command_fn=command, vary_axis="seeds")
 

@@ -7,6 +7,7 @@ from .rollout import (  # noqa: F401
     EpisodeRecords,
     EpisodeSettings,
     SeedDraws,
+    build_goal_running_cost,
     build_learned_dynamics,
     build_oracle_dynamics,
     build_running_cost,

@@ -17,6 +17,7 @@ planner window carries no age channel.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from dataclasses import replace
 from typing import Optional
@@ -26,7 +27,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import Config
-from ..envs import make_env
+from ..envs import make_env, render
 from ..models import make_carried_dynamics, make_model
 from ..parallel.sharding import Mesh, gather_seeds, make_grid_sharded_episodes, make_k_sharded_mppi_command
 from ..planners import MPPIConfig, default_noise_sigma, make_mppi_params, mppi_command
@@ -35,6 +36,7 @@ from ..utils.timing import profile_trace
 from .rollout import (
     EpisodeSettings,
     SeedDraws,
+    build_goal_running_cost,
     build_learned_dynamics,
     build_learned_dynamics_encoded,
     build_oracle_dynamics,
@@ -238,17 +240,24 @@ def evaluate_policy(
     ``shard`` (the mode asked), ``shard_group_size`` and ``shard_fallback``
     to the record.
 
+    ``change_goal`` plans against a goal at x = -2 that moves to +2 once
+    half the episode has elapsed (cartpole; ``rollout.build_goal_running_cost``);
+    the recorded reward stays the standard one, as in the reference.
+    ``save_video`` (default ``config.save_video``) writes the first seed's
+    episode to ``{config.log_folder}/{model}_{env}_d{delay}.gif`` after the
+    timed region (``envs.render``; under a shard mode, the first rank
+    writes it) and raises ``ImportError`` before any episode runs where
+    matplotlib or imageio is missing.
+
     ``profile_trace_dir`` traces the timed episode with ``torch.profiler``
     (``utils.timing.profile_trace``); the trace's writing is timed with it,
-    as in the JAX package. Video and change_goal raise
-    ``NotImplementedError``, as does ``latent_ode_ref``.
+    as in the JAX package. ``latent_ode_ref`` raises ``NotImplementedError``.
     For ``latent_ode``, ``model_apply`` is the model itself (carried
     history) or its ``apply`` (tiled history), as in the JAX package.
     """
-    if change_goal:
-        raise NotImplementedError("change_goal is not ported yet")
-    if config.save_video if save_video is None else save_video:
-        raise NotImplementedError("episode video is not ported yet")
+    video = config.save_video if save_video is None else save_video
+    if video:
+        render.require()
     seeds = [int(s) for s in seeds]  # consumed more than once below
     env, mppi_cfg, mppi_params, dynamics, carry_init, encoder = build_planner(
         model_name, env_name, action_delay, config, model_apply, params, roll_outs, time_steps,
@@ -267,6 +276,7 @@ def evaluate_policy(
         random_policy=model_name == "random",
         encode_obs_time=mppi_cfg.encode_obs_time,
         state_constraint=state_constraint,
+        change_goal=change_goal,
     )
     chol = mppi_params.noise_chol
     if draws is None:
@@ -279,8 +289,8 @@ def evaluate_policy(
     if mode == "rollouts":
         mesh = Mesh(ranks, ("k",), device=chol.device)
         group = mesh.group()
-        command_fn = make_k_sharded_mppi_command(mppi_cfg, mppi_params, dynamics,
-                                                 build_running_cost(env, state_constraint), mesh,
+        cost_fn = build_goal_running_cost(env) if change_goal else build_running_cost(env, state_constraint)
+        command_fn = make_k_sharded_mppi_command(mppi_cfg, mppi_params, dynamics, cost_fn, mesh,
                                                  dynamics_carry_init=carry_init, window_encoder=encoder)
         episode = make_episode_fn(env, dynamics, mppi_cfg, mppi_params, settings, command_fn=command_fn)
         warm_cfg = replace(mppi_cfg, num_samples=mppi_cfg.num_samples // mesh.size)
@@ -313,7 +323,7 @@ def evaluate_policy(
     t0 = time.perf_counter()
     with profile_trace(profile_trace_dir):
         if episode is not None:
-            totals, _records = episode(run_draws)
+            totals, records = episode(run_draws)
         if mode == "seeds":
             totals = gather_seeds(totals, index, S, True, group)
         elif mode == "grid" and len(ranks) > n_s * n_k:
@@ -328,6 +338,17 @@ def evaluate_policy(
                                device=chol.device)
         dist.all_reduce(slowest, op=dist.ReduceOp.MAX, group=group)
         elapsed = float(slowest)
+
+    video_path = None
+    if video:
+        # the first seed's episode (mppi_with_model.py:282-285), written by
+        # the rank that holds it
+        video_path = f"{config.log_folder}/{model_name}_{env_name}_d{action_delay}.gif"
+        if ranks is None or (dist.get_rank() if dist.is_initialized() else 0) == ranks[0]:
+            os.makedirs(config.log_folder, exist_ok=True)
+            first = type(records)(*(x[0] for x in records))
+            video_path = render.save_video(render.render_episode(env, first, delay=action_delay), video_path,
+                                           fps=int(1.0 / config.dt))
 
     scale = 200.0 / settings.n_steps
     totals = totals * scale
@@ -347,7 +368,7 @@ def evaluate_policy(
         "episode_elapsed_time": elapsed,
         "episode_elapsed_time_per_it": elapsed / (settings.n_steps * n),
         "mppi_rollouts_per_sec": mppi_cfg.num_samples * settings.n_steps * n / elapsed,
-        "video_path": None,
+        "video_path": video_path,
     }
     if ranks is not None:
         asked = "seeds" if shard_seeds else "rollouts" if shard_rollouts else "grid:{}x{}".format(*shard_grid)

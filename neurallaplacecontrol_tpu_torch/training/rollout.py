@@ -138,6 +138,24 @@ def build_running_cost(env: Env, state_constraint: bool = False) -> Callable:
     return running_cost
 
 
+def build_goal_running_cost(env: Env) -> Callable:
+    """change_goal planner cost: (state, action, goal_x) -> cost
+    (mppi_with_model.py:152-162; the goal flips -2 -> +2 mid-episode)."""
+    if env.reward_state_ext is None:
+        raise ValueError(f"{env.spec.name} has no goal-dependent reward: change_goal needs cartpole")
+
+    def running_cost(state, action, goal_x):
+        return -(env.reward_state_ext(state, goal_x) + env.reward_action(action))
+
+    return running_cost
+
+
+def goal_at(it: int, n_steps: int) -> float:
+    """change_goal's goal position at episode step ``it``: -2, then +2 once
+    half the episode has elapsed (mppi_with_model.py:236-253)."""
+    return 2.0 if it > n_steps / 2.0 else -2.0
+
+
 def initial_state(env: Env, generator=None, dtype=torch.float32, device=None) -> torch.Tensor:
     """Episode start state; pendulum starts downward-spinning
     (mppi_with_model.py:188-189 overrides reset with [pi, 1])."""
@@ -205,10 +223,6 @@ class SeedDraws:
         return self._stack(lambda g: uniform(g, (nu,), 0.0, 1.0, self.dtype, self.device))
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"episode {what} is not ported yet")
-
-
 def make_episode_fn(
     env: Env,
     dynamics_fn: Optional[Callable],
@@ -233,16 +247,17 @@ def make_episode_fn(
     ``parallel.sharding.make_k_sharded_mppi_command``: ``command_fn(U, obs,
     action_buffer, noise=..., time_buffer=None, cost_args=()) -> (action,
     U_new, aux)``, handed the episode's global [S, K, T, nu] draw, with the
-    running cost built in. ``window_encoder`` goes to the planner.
+    running cost built in; under ``settings.change_goal`` that cost is
+    ``build_goal_running_cost``'s and the step's goal comes in
+    ``cost_args``. ``window_encoder`` goes to the planner.
     ``vary_axis`` is accepted and does nothing: the JAX module promotes the
     episode carry to device-varying inside ``shard_map``, and a rank's
     tensors are its own.
     """
     del vary_axis
-    if settings.change_goal:
-        _not_ported("change_goal")
     spec = env.spec
     running_cost = build_running_cost(env, state_constraint=settings.state_constraint)
+    goal_cost = build_goal_running_cost(env) if settings.change_goal else None
     A, nu = settings.action_buffer_size, spec.m
     delay = settings.delay
     dtype, device = mppi_params.noise_chol.dtype, mppi_params.noise_chol.device
@@ -258,18 +273,20 @@ def make_episode_fn(
         steps = []
         for it in range(settings.n_steps):
             obs = env.observe(raw)
+            # change_goal: the goal goes to the planner's cost as its argument
+            cost_args = () if goal_cost is None else (goal_at(it, settings.n_steps),)
             if settings.random_policy:
                 action = draws.random_action(it, nu, -spec.action_high, spec.action_high)
             elif command_fn is not None:
                 action, U, _ = command_fn(
                     U, obs, buffer, noise=draws.planner_noise(it, mppi_cfg, mppi_params),
-                    time_buffer=ages if settings.encode_obs_time else None,
+                    time_buffer=ages if settings.encode_obs_time else None, cost_args=cost_args,
                 )
             else:
                 action, U, _ = mppi_command(
-                    mppi_cfg, mppi_params, dynamics_fn, running_cost, U, obs, buffer,
+                    mppi_cfg, mppi_params, dynamics_fn, goal_cost or running_cost, U, obs, buffer,
                     noise=draws.planner_noise(it, mppi_cfg, mppi_params),
-                    time_buffer=ages if settings.encode_obs_time else None,
+                    time_buffer=ages if settings.encode_obs_time else None, cost_args=cost_args,
                     dynamics_carry_init=dynamics_carry_init, window_encoder=window_encoder,
                 )
             if settings.explore_noise is not None and not settings.random_policy:

@@ -1,0 +1,174 @@
+"""Execution tuning: the port's measured knobs as an API (port of ``tune.py``).
+
+The reference tunes only MPPI hyperparameters, through a wandb sweep
+(mppi_optim.yaml). The port has execution knobs whose best setting depends
+on the workload: the planner's NL route (the fused forward kernel, the
+window-encoder precompute, or the plain forward), the compute dtype and
+multi-device sharding. Two entry points:
+
+- ``recommend(...)`` costs nothing: it sets each knob from what was
+  measured on the card (``PERF.md``), or leaves it at the base config
+  where nothing was measured, and says which in its rationale.
+- ``autotune(...)`` measures: it times each candidate config through the
+  same ``training.evaluate_policy`` users run (whose clock starts after the
+  kernel build and a warm-up tick) and returns the fastest whose episode
+  return stays within a tolerance of the base config's, with a
+  JSON-serializable trial log.
+
+What ``recommend`` rests on (NVIDIA H100 80GB HBM3, 700 W; ``PERF.md`` §6,
+``chip_smoke.py`` phase ``kernels``): the forward kernel takes 0.0253 ms a
+launch against 0.2399 ms for the plain forward at 1,000 rows, and 0.45
+against 1.11 ms at 20,000 rows, both timed in CUDA graphs.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+from .config import Config
+
+FUSED_RATIONALE = (
+    "on: the forward kernel takes 0.0253 ms against 0.2399 ms for the plain forward at 1,000 rows "
+    "and 0.45 against 1.11 ms at 20,000 rows (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6)"
+)
+# the three planner routes of the NL model (training.eval.build_planner)
+NL_ROUTES = (
+    {"fused_nl_planner": True, "nl_planner_precompute": False},
+    {"fused_nl_planner": False, "nl_planner_precompute": True},
+    {"fused_nl_planner": False, "nl_planner_precompute": False},
+)
+
+
+@dataclass(frozen=True)
+class Recommendation:
+    """A tuned config plus why each knob landed where it did."""
+
+    config: Config
+    shard_rollouts: bool
+    rationale: dict = field(default_factory=dict)  # knob -> one-line reason
+
+    def summary(self) -> str:
+        return "\n".join(f"{k}: {v}" for k, v in sorted(self.rationale.items()))
+
+
+def kernel_takes(config: Config) -> bool:
+    """Whether the fused forward kernel takes ``config``'s NL model (the
+    fourier ILT, widths as ``models.nl.check_kernel_widths`` allows)."""
+    from .models.nl import check_kernel_widths
+
+    try:
+        check_kernel_widths(config.nl_hidden_units // 2, config.nl_hidden_units)
+    except ValueError:
+        return False
+    return config.nl_ilt_algorithm == "fourier"
+
+
+def recommend(base: Config = Config(), *, roll_outs: Optional[int] = None, n_devices: int = 1) -> Recommendation:
+    """Set the execution knobs for a workload from the card's measurements.
+
+    ``roll_outs`` defaults to ``base.mppi_roll_outs``; ``n_devices`` is how
+    many devices the planner may shard K over.
+    """
+    roll_outs = roll_outs or base.mppi_roll_outs
+    rationale, overrides = {}, {}
+
+    if base.nl_compute_dtype != "float32":
+        overrides["nl_compute_dtype"] = "float32"
+    rationale["nl_compute_dtype"] = "float32: the port runs the NL model in float32 only (bfloat16 is not ported)"
+
+    if kernel_takes(base):
+        if not base.fused_nl_planner:
+            overrides["fused_nl_planner"] = True
+        rationale["fused_nl_planner"] = FUSED_RATIONALE
+        rationale["nl_planner_precompute"] = (
+            "as the base config: unmeasured on the card, and the fused planner takes precedence over it")
+    else:
+        rationale["fused_nl_planner"] = (
+            "as the base config: the kernel does not take its NL model (the kernel takes the fourier ILT "
+            f"and nl_hidden_units a multiple of 16 up to 128; this config has {base.nl_ilt_algorithm} at "
+            f"{base.nl_hidden_units})")
+        rationale["nl_planner_precompute"] = "as the base config: unmeasured on the card"
+
+    rationale["shard_rollouts"] = (
+        f"off: {n_devices} device(s), {roll_outs} rollouts; the speed of the K-sharded planner across cards "
+        "is unmeasured (PERF.md section 7)")
+
+    cfg = base.replace(**overrides) if overrides else base
+    return Recommendation(config=cfg, shard_rollouts=False, rationale=rationale)
+
+
+def autotune(
+    model_name: str,
+    env_name: str,
+    action_delay: int,
+    *,
+    base: Config = Config(),
+    candidates: Optional[list] = None,
+    model_apply=None,
+    params=None,
+    seeds=(0, 1),
+    return_tolerance: float = 0.15,
+    results_path: Optional[str] = None,
+    evaluate=None,
+    device="cuda",
+) -> tuple:
+    """Measure candidate configs; return ``(best_config, trials)``.
+
+    Each candidate is a dict of ``Config.replace`` overrides; the base
+    config runs first (``{}`` is prepended if absent), overrides equal to
+    the base are dropped and duplicates run once. A candidate wins only if
+    its mean episode return stays within ``return_tolerance`` (relative,
+    against the base's |return|): a faster config that plans measurably
+    worse is a regression. ``candidates=None`` probes the NL planner's
+    three routes (fused kernel, precompute, plain) for ``model_name ==
+    "nl"``, and nothing but the base for other models, whose planner reads
+    none of these knobs.
+
+    ``evaluate`` is injectable (the signature of
+    ``training.evaluate_policy``); ``device`` goes to it.
+    """
+    if evaluate is None:
+        from .training import evaluate_policy as evaluate
+
+    if candidates is None:
+        candidates = [dict(r) for r in NL_ROUTES] if model_name == "nl" else []
+    seen, norm = set(), []
+    for c in [{}] + list(candidates):
+        c = {k: v for k, v in c.items() if getattr(base, k) != v}
+        key = tuple(sorted(c.items()))
+        if key not in seen:
+            seen.add(key)
+            norm.append(c)
+
+    trials = []
+    for overrides in norm:
+        cfg = base.replace(**overrides) if overrides else base
+        t0 = time.perf_counter()
+        res = evaluate(model_name, env_name, action_delay, seeds=list(seeds), config=cfg,
+                       model_apply=model_apply, params=params, device=device)
+        trials.append({
+            "overrides": dict(overrides),
+            "rollouts_per_sec": res["mppi_rollouts_per_sec"],
+            "total_reward": res["total_reward"],
+            "episode_elapsed_s": res["episode_elapsed_time"],
+            "wall_incl_setup_s": time.perf_counter() - t0,
+        })
+
+    baseline = trials[0]
+    floor = baseline["total_reward"] - return_tolerance * abs(baseline["total_reward"])
+    eligible = [t for t in trials if t["total_reward"] >= floor]
+    best = max(eligible, key=lambda t: t["rollouts_per_sec"])
+    for t in trials:
+        t["eligible"] = t in eligible
+        t["best"] = t is best
+
+    if results_path:
+        with open(results_path, "w") as f:
+            for t in trials:
+                f.write(json.dumps(t) + "\n")
+
+    best_cfg = base.replace(**best["overrides"]) if best["overrides"] else base
+    return best_cfg, trials

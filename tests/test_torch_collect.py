@@ -46,7 +46,8 @@ def test_collected_buffer_is_cached_and_jax_reads_it(tmp_path):
     assert float(a0.abs().max()) <= 2.0  # exploration noise is clipped to the bounds
 
     name = jreplay.replay_buffer_filename(ENV, DELAY)
-    assert [p.name for p in tmp_path.iterdir()] == [name]
+    # the .npz and its native .rbuf sibling, as the JAX package writes them
+    assert sorted(p.name for p in tmp_path.iterdir()) == [name, name.replace(".npz", ".rbuf")]
     for got, exp in zip(jreplay.load_replay_buffer(str(tmp_path / name)), (s0, a0, sn, ts)):
         np.testing.assert_array_equal(np.asarray(got), exp.numpy())
 
@@ -89,6 +90,7 @@ def test_port_reads_jax_buffer_and_drops_stale_native_sibling(tmp_path):
     stale.write_bytes(b"stale")
     new = [a + 1.0 for a in arrays]
     treplay.save_replay_buffer(path, *(torch.as_tensor(a) for a in new))
-    assert not stale.exists()
+    # the stale sibling is gone: the port writes a fresh one, as the JAX package does
+    assert stale.read_bytes() != b"stale"
     for got, exp in zip(jreplay.load_replay_buffer(str(path)), new):
         np.testing.assert_array_equal(np.asarray(got), exp)

@@ -492,3 +492,86 @@ def test_k_sharded_plan_in_a_one_rank_nccl_group(cuda_device):
         assert torch.equal(a_sh, a) and torch.equal(U_sh, U_new) and aux["omega"].shape == (B,)
     finally:
         dist.destroy_process_group()
+
+
+def fused_controller(device, K=B, T=40):
+    env = "oderl-cartpole"
+    n, m, high = ENV_DIMS[env]
+    cfg = Config(fused_nl_planner=True)
+    model = make_model("nl", env, n, m, high, cfg, device=device)
+    return make_controller("nl", env, 1, cfg, model_apply=model.apply, params=trained(env, device), roll_outs=K,
+                           time_steps=T, device=device)
+
+
+@pytest.mark.cuda
+def test_exported_fused_step_equals_eager_step(cuda_device, tmp_path):
+    """The exported fused controller (cartpole d1, K=1000, T=40), loaded back,
+    against ``Controller.step`` over 5 ticks on the same noise: actions and U
+    within |got - exp| / (1 + |exp|) <= 1e-6 (the same kernel on the same
+    operands, so 0 is expected); the program launches the kernel T times a
+    tick, on the launch counter."""
+    from neurallaplacecontrol_tpu_torch import serving
+
+    ctrl = fused_controller(cuda_device)
+    path = tmp_path / "c.pt2"
+    serving.export_controller(ctrl, path=str(path))
+    step = serving.load_controller_step(path)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    s1 = s2 = ctrl.reset(0)
+    for _ in range(5):
+        obs = torch.randn(5, generator=g, device=cuda_device)
+        noise = torch.randn((B, 40, 1), generator=g, device=cuda_device)
+        a1, s1 = ctrl.step(s1, obs, noise=noise)
+        before = tnl.nl_forward_fused.launches
+        a2, s2 = step(s2, obs, noise=noise)
+        torch.cuda.synchronize()
+        assert tnl.nl_forward_fused.launches - before == 40
+        assert rel_err(a2, a1) <= 1e-6 and rel_err(s2.U, s1.U) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_operator_counts_launches_inside_an_exported_program(cuda_device):
+    """``torch.ops.nlc.nl_forward`` and ``nl_head`` in a program of their own:
+    each call of the program launches each kernel once, on its counter."""
+    fused, obs, acts = forward_inputs("oderl-cartpole", 64, cuda_device)
+    packed = list(fused.packed)
+    head_hopper = torch.as_tensor(tilt.repack_head(packed[15:], 5, 17), device=cuda_device)
+
+    class Both(torch.nn.Module):
+        def forward(self, obs, acts):
+            y = tnl.nl_forward_fused(obs, acts, packed, 5, 1, terms=17, hopper=fused.hopper)
+            x = torch.tanh(torch.cat([y, y], dim=1).repeat(1, 13)[:, :128])
+            return y, tilt.nl_head_fused(x.contiguous(), packed[15:], 5, terms=17, hopper=head_hopper)
+
+    program = torch.export.export(Both(), (obs, acts), strict=False).module()
+    before = (tnl.nl_forward_fused.launches, tilt.nl_head_fused.launches)
+    got = program(obs, acts)
+    exp = Both()(obs, acts)
+    torch.cuda.synchronize()
+    assert (tnl.nl_forward_fused.launches - before[0], tilt.nl_head_fused.launches - before[1]) == (2, 2)
+    for g_, e in zip(got, exp):
+        assert torch.equal(g_, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 999, 1001])
+def test_operator_on_ragged_rows(cuda_device, rows):
+    """The operator at ragged B, eager and inside an exported program traced
+    at another B (the fake implementation's shape follows the rows), against
+    the plain forward at 1e-3."""
+    fused, obs, acts = forward_inputs("oderl-cartpole", rows, cuda_device, seed=rows)
+    exp = tnl.nl_forward_plain(obs, acts, fused.packed, 5, 1)
+    got = torch.ops.nlc.nl_forward(obs, acts, list(fused.packed), fused.hopper, 5, 1, 17)
+    assert got.shape == (rows, 5) and rel_err(got, exp) < TOL
+    _, obs8, acts8 = forward_inputs("oderl-cartpole", 8, cuda_device)
+    batch = torch.export.Dim("batch", max=100_000)
+
+    class Fwd(torch.nn.Module):
+        def forward(self, o, a):
+            return tnl.nl_forward_fused(o, a, fused.packed, 5, 1, terms=17, hopper=fused.hopper)
+
+    program = torch.export.export(Fwd(), (obs8, acts8), dynamic_shapes=({0: batch}, {0: batch}),
+                                  strict=False).module()
+    traced = program(obs, acts)
+    torch.cuda.synchronize()
+    assert traced.shape == (rows, 5) and torch.equal(traced, got)

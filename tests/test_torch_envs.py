@@ -87,3 +87,80 @@ def test_reset_is_seeded_and_in_range(env_name):
 def test_unknown_env_raises():
     with pytest.raises(ValueError):
         torch_make_env("mountaincar")
+
+
+def test_env_names_match_jax():
+    from neurallaplacecontrol_tpu.envs import ENV_NAMES as JAX_NAMES
+    from neurallaplacecontrol_tpu_torch.envs import ENV_NAMES
+
+    assert ENV_NAMES == JAX_NAMES
+
+
+@pytest.mark.parametrize("env_name,friction", CASES)
+def test_df_du_matches_jax(env_name, friction):
+    """The action Jacobian of the rhs (forward-mode AD in both packages) at
+    three states, f64, rtol 1e-12."""
+    from neurallaplacecontrol_tpu.envs.base import df_du as jax_df_du
+    from neurallaplacecontrol_tpu_torch.envs import df_du
+
+    jenv = jax_make_env(env_name, friction=friction)
+    tenv = torch_make_env(env_name, friction=friction)
+    raw, action = draws(jenv.spec, seed=5, B=3)
+    for s, a in zip(raw, action):
+        got = df_du(tenv, torch.tensor(s), torch.tensor(a))
+        assert got.shape == (jenv.spec.n_state, jenv.spec.m)
+        close(got, jax_df_du(jenv, jnp.asarray(s), jnp.asarray(a)))
+
+
+@pytest.mark.parametrize("kw", [{}, {"goal_x": 2.0, "state_constraint": True}, {"exp_reward": True}],
+                         ids=["plain", "goal_constraint", "exp_reward"])
+def test_end_effector_reward_reduced_matches_jax(kw):
+    from neurallaplacecontrol_tpu.envs.cartpole import end_effector_reward_reduced as jax_reward
+    from neurallaplacecontrol_tpu_torch.envs.cartpole import end_effector_reward_reduced
+
+    s = np.random.default_rng(2).uniform(-1.0, 1.0, (16, 3))
+    close(end_effector_reward_reduced(torch.tensor(s), **kw), jax_reward(jnp.asarray(s), **kw))
+
+
+@pytest.mark.parametrize("env_name", ["oderl-pendulum", "oderl-cartpole", "oderl-acrobot"])
+@pytest.mark.parametrize("trig", [False, True], ids=["raw", "trig"])
+def test_single_action_oracles_match_jax(env_name, trig):
+    """``*_dynamics_dt`` (delay 0, one action) on raw and trig states against
+    JAX's, f64, at per-row query times."""
+    from neurallaplacecontrol_tpu.envs import oracle as joracle
+    from neurallaplacecontrol_tpu_torch.envs import oracle as toracle
+
+    name = env_name.removeprefix("oderl-") + "_dynamics_dt"
+    jenv = jax_make_env(env_name)
+    raw, action = draws(jenv.spec, seed=9, B=8)
+    state = np.asarray(jenv.observe(jnp.asarray(raw))) if trig else raw
+    ts = np.random.default_rng(1).uniform(0.01, 0.1, (8, 1))
+    got = getattr(toracle, name)(torch.tensor(state), torch.tensor(action), torch.tensor(ts))
+    close(got, getattr(joracle, name)(jnp.asarray(state), jnp.asarray(action), jnp.asarray(ts)))
+
+
+def test_cast_params_matches_jax():
+    from neurallaplacecontrol_tpu.models.common import cast_params as jax_cast
+    from neurallaplacecontrol_tpu_torch.models.common import cast_params, tree_leaves
+
+    tree = {"a": [{"w": torch.arange(6.0).reshape(2, 3)}], "b": torch.tensor([0.1, 0.2], dtype=torch.float64)}
+    got = cast_params(tree, torch.float32)
+    exp = jax_cast({"a": [{"w": jnp.arange(6.0).reshape(2, 3)}], "b": jnp.asarray([0.1, 0.2])}, jnp.float32)
+    assert all(x.dtype == torch.float32 for x in tree_leaves(got))
+    close(got["a"][0]["w"], exp["a"][0]["w"])
+    close(got["b"], exp["b"])
+
+
+@pytest.mark.parametrize("env_name", ["oderl-pendulum", "oderl-cartpole", "oderl-acrobot"])
+def test_render_frame_is_pixel_equal_to_jax(env_name):
+    """The port's frame of a raw state, with and without the force arrow,
+    against the JAX package's, pixel for pixel."""
+    from neurallaplacecontrol_tpu.envs.render import render_frame as jax_render
+    from neurallaplacecontrol_tpu_torch.envs.render import render_frame
+
+    raw, action = draws(jax_make_env(env_name).spec, seed=4, B=2)
+    for s, a in ((raw[0], None), (raw[1], action[1])):
+        got = render_frame(env_name, torch.tensor(s), last_act=a)
+        exp = jax_render(env_name, jnp.asarray(s), last_act=a)
+        assert got.dtype == np.uint8 and got.ndim == 3 and got.shape[-1] == 3
+        np.testing.assert_array_equal(got, exp)

@@ -103,9 +103,13 @@ def assert_records_match(jrec, trec):
         # the collector's setting: exploration noise on the exp grid
         ("oderl-pendulum", 1, "oracle", {"ts_grid": "exp", "explore_noise": 1.0}),
         ("oderl-cartpole", 1, "oracle", {"observation_noise": 0.05}),
+        # the goal flips from -2 to +2 after step 3 of 6
+        ("oderl-cartpole", 1, "nl", {"change_goal": True}),
+        ("oderl-cartpole", 2, "oracle", {"change_goal": True}),
     ],
     ids=["nl", "oracle_d0_pendulum", "oracle_d1_cartpole", "oracle_d2_acrobot", "random",
-         "exp_grid_encode_obs_time", "explore_noise", "observation_noise"],
+         "exp_grid_encode_obs_time", "explore_noise", "observation_noise", "change_goal_nl",
+         "change_goal_oracle"],
 )
 def test_episode_matches_jax_f64(env_name, delay, model, kw):
     (jtot, jrec), (ttot, trec) = run_both(env_name, delay, model, **kw)
@@ -174,10 +178,19 @@ def test_batched_planner_reduces_per_seed():
     ids=["change_goal"],
 )
 def test_unported_episode_features_raise(kwargs, settings_kw):
-    (_, _, _, _), (tenv, tcfg, tparams, tdyn) = build("oderl-cartpole", 1, "oracle")
-    with pytest.raises(NotImplementedError):
+    """change_goal is ported; what still raises is a goal on an env whose
+    reward has no goal (pendulum), as the JAX package's assert refuses it."""
+    (_, _, _, _), (tenv, tcfg, tparams, tdyn) = build("oderl-pendulum", 1, "oracle")
+    with pytest.raises(ValueError, match="change_goal needs cartpole"):
         trollout.make_episode_fn(tenv, tdyn, tcfg, tparams,
                                  trollout.EpisodeSettings(delay=1, **settings_kw), **kwargs)
+
+
+def test_change_goal_moves_the_goal_mid_episode():
+    """The planner's goal is -2 through step n/2 and +2 after it, the step
+    the JAX episode flips at (``it > n_steps / 2``)."""
+    assert [trollout.goal_at(it, 6) for it in range(6)] == [-2.0, -2.0, -2.0, -2.0, 2.0, 2.0]
+    assert trollout.goal_at(100, 200) == -2.0 and trollout.goal_at(101, 200) == 2.0
 
 
 @pytest.mark.parametrize("family,carried", [("rnn", False), ("delta_t_rnn", False), ("node", False),

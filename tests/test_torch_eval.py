@@ -8,6 +8,7 @@ must equal JAX's: returns at rtol 1e-10, the rest exactly.
 """
 
 import json
+import sys
 from pathlib import Path
 
 import jax
@@ -57,19 +58,21 @@ def replay(seeds):
     return JaxDraws(seed_keys(seeds), jenv, jcfg, jparams, N_STEPS)
 
 
-def run_both(model_name):
+def run_both(model_name, **kw):
     (japply, jweights), (tapply, tweights) = nl_models()
     j = jax_evaluate(model_name, ENV, DELAY, SEEDS, config=JConfig(dt=DT), model_apply=japply,
-                     params=jweights, roll_outs=K, time_steps=T)
+                     params=jweights, roll_outs=K, time_steps=T, **kw)
     t = teval.evaluate_policy(model_name, ENV, DELAY, SEEDS, config=TConfig(dt=DT), model_apply=tapply,
                               params=tweights, roll_outs=K, time_steps=T, dtype=torch.float64,
-                              device="cpu", draws=replay(SEEDS))
+                              device="cpu", draws=replay(SEEDS), **kw)
     return j, t
 
 
-@pytest.mark.parametrize("model_name", ["nl", "oracle", "random"])
-def test_evaluate_policy_matches_jax_f64(model_name):
-    j, t = run_both(model_name)
+@pytest.mark.parametrize("model_name,kw", [("nl", {}), ("oracle", {}), ("random", {}),
+                                           ("nl", {"change_goal": True}), ("oracle", {"change_goal": True})],
+                         ids=["nl", "oracle", "random", "nl_change_goal", "oracle_change_goal"])
+def test_evaluate_policy_matches_jax_f64(model_name, kw):
+    j, t = run_both(model_name, **kw)
     assert set(t) == set(j)
     for field in j:
         if field in TIMINGS:
@@ -105,10 +108,45 @@ def test_evaluate_policy_seeds_are_reproducible():
 
 
 @pytest.mark.parametrize("kwargs", [{"save_video": True}, {"change_goal": True}], ids=["video", "change_goal"])
-def test_evaluate_policy_unported_flags_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        teval.evaluate_policy("oracle", ENV, DELAY, [0], config=TConfig(dt=DT), roll_outs=K,
+def test_evaluate_policy_unported_flags_raise(kwargs, monkeypatch):
+    """Both flags are ported; they raise where they cannot be met: video
+    without matplotlib (the GPU machine has none), before any episode runs,
+    and change_goal on an env whose reward has no goal."""
+    env_name, exc = ENV, ValueError
+    if "save_video" in kwargs:
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+        exc = ImportError
+    else:
+        env_name = "oderl-pendulum"
+    with pytest.raises(exc, match="matplotlib" if exc is ImportError else "change_goal needs cartpole"):
+        teval.evaluate_policy("oracle", env_name, DELAY, [0], config=TConfig(dt=DT), roll_outs=K,
                               time_steps=T, device="cpu", **kwargs)
+
+
+def test_evaluate_policy_writes_the_first_seeds_video(tmp_path):
+    """``save_video`` writes the first seed's episode as a gif of one frame
+    a step, each the JAX renderer's frame of that step's state and executed
+    action, and leaves the returns as they are."""
+    import imageio
+
+    from neurallaplacecontrol_tpu.envs.render import render_frame as jax_render
+
+    kw = dict(roll_outs=K, time_steps=T, dtype=torch.float64, device="cpu")
+    cfg = TConfig(dt=DT, log_folder=str(tmp_path / "logs"))
+    plain = teval.evaluate_policy("oracle", ENV, DELAY, SEEDS[:2], config=cfg, draws=replay(SEEDS[:2]), **kw)
+    filmed = teval.evaluate_policy("oracle", ENV, DELAY, SEEDS[:2], config=cfg.replace(save_video=True),
+                                   draws=replay(SEEDS[:2]), **kw)
+    assert filmed["total_rewards"] == plain["total_rewards"] and plain["video_path"] is None
+    assert filmed["video_path"] == f"{cfg.log_folder}/oracle_{ENV}_d{DELAY}.gif"
+    frames = imageio.mimread(filmed["video_path"])
+    assert len(frames) == N_STEPS
+    env, mcfg, params, dyn, _, _ = teval.build_planner("oracle", ENV, DELAY, cfg, roll_outs=K, time_steps=T,
+                                                     dtype=torch.float64, device="cpu")
+    _, rec = trollout.make_episode_fn(env, dyn, mcfg, params,
+                                      trollout.EpisodeSettings(delay=DELAY, n_steps=N_STEPS))(replay(SEEDS[:2]))
+    raw = env.obs_to_state(rec.s0[0, 0]).numpy()
+    exp = jax_render(ENV, raw, last_act=rec.a0[0, 0, -(DELAY + 1)].numpy())
+    np.testing.assert_array_equal(np.asarray(frames[0])[..., :3], exp)
 
 
 def test_evaluate_policy_writes_profile_trace(tmp_path):

@@ -38,7 +38,8 @@ sys.path.insert(0, str(REPO))
 
 import run_exp_multi_torch  # noqa: E402
 PORT_FILES = sorted((REPO / "neurallaplacecontrol_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "run_exp_multi_torch.py", REPO / "scripts" / "port_shard_check.py"]
+    REPO / "chip_smoke.py", REPO / "run_exp_multi_torch.py", REPO / "scripts" / "port_shard_check.py",
+    REPO / "scripts" / "serve_demo_torch.py", REPO / "scripts" / "port_deploy_check.py"]
 FORBIDDEN = ("jax", "neurallaplacecontrol_tpu")
 
 

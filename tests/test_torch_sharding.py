@@ -66,11 +66,14 @@ def free_port():
 
 
 def jax_grid_setup(flags):
-    env = jax_make_env("oderl-pendulum")
-    cfg = jmppi.MPPIConfig(num_samples=32, horizon=6, nu=1, u_scale=2.0, u_min=-2.0, u_max=2.0,
-                           **(W.GRID_FLAGS if flags else {}))
+    """JAX's side of the worker's ``grid_planner(flags)``."""
+    goal = flags == "goal"
+    env = jax_make_env("oderl-cartpole" if goal else "oderl-pendulum")
+    high = env.spec.action_high
+    cfg = jmppi.MPPIConfig(num_samples=32, horizon=6, nu=1, u_scale=high, u_min=-high, u_max=high,
+                           **(W.GRID_FLAGS if flags is True else {}))
     params = jmppi.make_mppi_params(jmppi.default_noise_sigma(1, 1.0, dtype=jnp.float64))
-    settings = JSettings(delay=1, n_steps=10, encode_obs_time=flags)
+    settings = JSettings(delay=1, n_steps=10, encode_obs_time=flags is True, change_goal=goal)
     keys = [jax.random.PRNGKey(s) for s in range(4)]
     return env, cfg, params, jax_oracle(env, 32, 0.05, 1), settings, keys
 
@@ -116,7 +119,7 @@ def ranks(tmp_path_factory):
     d = tmp_path_factory.mktemp("ranks")
     inputs = {
         "command_noise": {},
-        "grid_draws": {flags: record_draws(flags) for flags in (False, True)},
+        "grid_draws": {flags: record_draws(flags) for flags in (False, True, "goal")},
         "train": {name: train_inputs(name) for name in ("nl", "node", "rnn")},
     }
     for case in W.COMMAND_CASES:
@@ -235,6 +238,22 @@ def test_grid_episodes_match_jax_meshes(ranks, jax_shape):
     np.testing.assert_allclose(got["totals"], np.asarray(tot), rtol=1e-9)
     np.testing.assert_allclose(got["sn"], np.asarray(rec.sn), rtol=1e-9)
     np.testing.assert_allclose(got["a0"], np.asarray(rec.a0), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", W.GOAL_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_change_goal_episodes_match_jax(ranks, shape):
+    """change_goal episodes (the goal cost in the K-sharded command, the
+    goal passed per step) seed-sharded over the 4 gloo ranks and on the 2x2
+    grid, against JAX's unsharded batch on the same draws and the port's."""
+    env, cfg, params, dyn, settings, keys = jax_grid_setup("goal")
+    tot, rec = jax_batched(env, dyn, cfg, params, settings)(jnp.stack(keys))
+    totals, recs = port_grid_reference("goal")
+    np.testing.assert_allclose(totals, np.asarray(tot), rtol=1e-9)
+    got = ranks.get("world")[("grid", "goal", shape)]
+    np.testing.assert_allclose(got["totals"], np.asarray(tot), rtol=1e-9)
+    np.testing.assert_allclose(got["sn"], np.asarray(rec.sn), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(got["a0"], np.asarray(rec.a0), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(got["totals"], totals, rtol=1e-9)
 
 
 def test_grid_episodes_flags_match_jax(ranks):

@@ -75,6 +75,9 @@ EVAL_CFG = dict(roll_outs=16, time_steps=4, dtype=torch.float64, device="cpu")
 # grid episodes (:378-442): pendulum, K=32, T=6, 10 steps, 4 seeds
 GRID_SHAPES = [(2, 2), (4, 1), (1, 4)]
 GRID_FLAGS = {"sample_null_action": True, "noise_abs_cost": True, "encode_obs_time": True}
+# change_goal episodes (the grid case "goal"): cartpole, the same sizes,
+# seed-sharded over 4 ranks and on the 2x2 grid
+GOAL_SHAPES = [(4, 1), (2, 2)]
 # the dp x tp step (:77-144): batch 32 of cartpole, families and dtypes
 TRAIN_CASES = [("nl", torch.float64), ("nl", torch.float32), ("node", torch.float64), ("rnn", torch.float64)]
 TRAIN_STEPS = 2
@@ -106,11 +109,15 @@ def command_planner(case, dtype=torch.float64):
 
 
 def grid_planner(flags=False):
-    env = make_env("oderl-pendulum")
-    cfg = MPPIConfig(num_samples=32, horizon=6, nu=1, u_scale=2.0, u_min=-2.0, u_max=2.0,
-                     **(GRID_FLAGS if flags else {}))
+    """The grid case ``flags``: False (pendulum), True (pendulum with
+    GRID_FLAGS) or "goal" (cartpole with change_goal)."""
+    goal = flags == "goal"
+    env = make_env("oderl-cartpole" if goal else "oderl-pendulum")
+    high = env.spec.action_high
+    cfg = MPPIConfig(num_samples=32, horizon=6, nu=1, u_scale=high, u_min=-high, u_max=high,
+                     **(GRID_FLAGS if flags is True else {}))
     params = make_mppi_params(default_noise_sigma(1, 1.0, dtype=torch.float64))
-    settings = EpisodeSettings(delay=1, n_steps=10, encode_obs_time=flags)
+    settings = EpisodeSettings(delay=1, n_steps=10, encode_obs_time=flags is True, change_goal=goal)
     return env, cfg, params, build_oracle_dynamics(env, 0.05, 1), settings
 
 
@@ -227,7 +234,7 @@ def run_evals(rank: int, world: int) -> dict:
 
 def run_grids(inputs: dict, world: int) -> dict:
     out = {}
-    for flags, shapes in ((False, GRID_SHAPES), (True, [(2, 2)])):
+    for flags, shapes in ((False, GRID_SHAPES), (True, [(2, 2)]), ("goal", GOAL_SHAPES)):
         env, cfg, params, dyn, settings = grid_planner(flags)
         draws = ArrayDraws(inputs["grid_draws"][flags])
         for shape in shapes:
