@@ -45,7 +45,17 @@ and node over seeds 0-19 (200 steps), with the oracle and random, against
 the JAX package's recorded returns; the latent ODE's episode with carried
 history, cut to its first steps (``scripts/port_baselines_eval.py eval``
 runs it in full); ``train_model`` of each family on the collected buffer;
-and the reference's 20-update training segments at f64. Phase ``driver`` runs
+and the reference's 20-update training segments at f64. Phase ``precision``
+imports the tracked reference checkpoint
+(``artifacts/baseline_parity/ref_latent_ode_cartpole_d1_r4.pt``) through
+``interop``, exports it back bit-exact, holds the card's ``latent_ode_ref``
+forward to the CPU's f64 one and runs its 20-seed cartpole-d1 batch cut to
+its first steps; then it runs the trained cartpole-d1 NL in bfloat16 and in
+int8 (``ops.quant``) beside float32: the forwards' errors, int8's int32 sums
+against the CPU's bit for bit, the saturation probe, the 20-seed batches of
+both held by the 3-sigma rule (bfloat16 to the JAX package's bfloat16 batch,
+int8 to phase ``eval``'s), and one plan's time per route at K=1,000 and
+65,536. Phase ``driver`` runs
 the grid driver ``run_exp_multi_torch.main`` on the card: the 20-seed grid of
 pendulum and acrobot d1 for nl, the oracle and random (held to the JAX
 package's runs of those cells), per-delay NL training with ``--train_gate``,
@@ -267,6 +277,22 @@ TRAIN_STEP_RTOL, TRAIN_STEP_ATOL = 2e-4, 1e-6  # tests/test_sharding.py:140-144,
 SHARD_DRIVER_SEEDS = 4
 SHARD_RANKS_TIMEOUT_S = 600
 SHARD_DRIVER_TIMEOUT_S = 300
+# Phase ``precision``: the rest of the model surface. The reference .pt
+# imports through ``interop`` and plans as ``latent_ode_ref``; the NL model
+# runs in bfloat16 and in int8 beside the float32 routes.
+REF_LATENT_ODE_PT = ROOT / "artifacts" / "baseline_parity" / "ref_latent_ode_cartpole_d1_r4.pt"
+JAX_PRECISION_REFERENCE = ROOT / "artifacts" / "port" / "jax_eval_cartpole_d1_precision.json"
+LOR_FORWARD_TOL = 1e-3  # rel_err of the card's f32 forward against the CPU's f64, BASELINE_FORWARD_TOL's rule
+LOR_STEPS = 3  # the latent_ode_ref episode cut to its first steps (scripts/port_baselines_eval.py runs 200)
+LOR_MIN_REWARD = -20.0  # a cut step's reward on cartpole, as LATENT_ODE_MIN_REWARD
+BF16_ROWS = 512  # tests/test_models.py:130-173: rel max < 0.10, median < 0.01
+BF16_MAX_LIMIT, BF16_MEDIAN_LIMIT = 0.10, 0.01
+INT8_ROWS = 4096  # tests/test_quant.py:96-113: median |err| < 0.05, mean |err| / std < 0.10
+INT8_MEDIAN_LIMIT, INT8_SPREAD_LIMIT = 0.05, 0.10
+INT8_ACC_ROWS = (1, 7, 17, 1000, SEED_ROWS)  # padded and unpadded rows of torch._int_mm
+SATURATION_K = 256  # scripts/bench_int8.py's probe: K = min(k, 256), T = 40
+PLAN_KS = (1000, 65_536)
+PLAN_REPS = {1000: 6, 65_536: 3}
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (NVIDIA data sheet)
 SPLIT_PASSES = 3  # split TF32: hi*hi + hi*lo + lo*hi per product
@@ -1240,6 +1266,260 @@ def run_baselines(device, smi: str, tmp: str, baselines: dict) -> dict:
     return {"families": families, **out}
 
 
+def three_sigma(a, b) -> tuple[float, float]:
+    """The gap between two batches' mean returns and its limit, PERF.md
+    section 2's rule: |mean_a - mean_b| <= 3 sqrt(s_a^2 / n_a + s_b^2 / n_b)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    gap = abs(float(a.mean() - b.mean()))
+    return gap, 3.0 * math.sqrt(a.var(ddof=1) / len(a) + b.var(ddof=1) / len(b))
+
+
+def reference_import(device, smi: str) -> dict:
+    """The tracked reference checkpoint through ``interop``: imported on the
+    card at the file's dtype and exported back (every tensor bit-exact to
+    the file, the buffers included), the card's f32 forward against the
+    CPU's f64 forward on the same rows, and the 20-seed batch of
+    ``latent_ode_ref`` at K=1000, T=40, planned as ``evaluate_policy`` plans
+    it (``build_planner``), cut to ``LOR_STEPS`` steps, with one tick traced."""
+    from neurallaplacecontrol_tpu_torch import interop
+
+    sd = interop.load_torch_state_dict(str(REF_LATENT_ODE_PT))
+    raw = torch.load(REF_LATENT_ODE_PT, map_location="cpu", weights_only=True)
+    arch = interop.latent_ode_arch_from_state_dict(sd)
+    env = make_env(MAIN_ENV)
+    spec = env.spec
+    if (arch["state_dim"], arch["action_dim"]) != (spec.n_obs, spec.m):
+        raise RuntimeError(f"{REF_LATENT_ODE_PT.name} is no {MAIN_ENV} model: {arch}")
+    norm = norm_stats_for(MAIN_ENV, spec.action_high, spec.m)
+    back = interop.latent_ode_state_dict_from_params(interop.latent_ode_params_from_state_dict(sd, device=device),
+                                                     norm=norm, dt=float(sd["dt"]))
+    mismatched = sorted(set(raw) ^ set(back)) + [
+        k for k in raw if k in back and not (back[k].dtype == raw[k].numpy().dtype
+                                             and np.array_equal(back[k], raw[k].numpy()))]
+
+    cfg = port.Config(latent_ode_hidden_units=arch["hidden_units"])
+    model = make_model("latent_ode_ref", MAIN_ENV, spec.n_obs, spec.m, spec.action_high, cfg, device=device)
+    model64 = make_model("latent_ode_ref", MAIN_ENV, spec.n_obs, spec.m, spec.action_high, cfg,
+                         dtype=torch.float64, device="cpu")
+    params = interop.latent_ode_params_from_state_dict(sd, device=device, dtype=torch.float32)
+    params64 = interop.latent_ode_params_from_state_dict(sd, device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(30)
+    A = cfg.action_buffer_size
+    obs = rng.standard_normal((K, spec.n_obs)) * norm.state_std
+    acts = rng.uniform(-spec.action_high, spec.action_high, (K, A, spec.m))
+    ts = np.full((K, 1), cfg.dt)
+    got = model.apply(params, *(torch.tensor(x, dtype=torch.float32, device=device) for x in (obs, acts, ts)))
+    exp = model64.apply(params64, *(torch.tensor(x) for x in (obs, acts, ts)))
+    forward = {"rows": K, "rel_err": rel_err(got.double().cpu(), exp), "finite": bool(torch.isfinite(got).all()),
+               "max_abs_out": float(exp.abs().max()), "limit": LOR_FORWARD_TOL,
+               "euler_substeps": sum(len(s) for _, s in model.substep_plan)}
+
+    env_t, mppi_cfg, mppi_params, dynamics, carry_init, _ = build_planner(
+        "latent_ode_ref", MAIN_ENV, DELAY, cfg, model_apply=model.apply, params=params, roll_outs=K,
+        time_steps=T, device=device)
+    episodes = make_batched_episode_fn(env_t, dynamics, mppi_cfg, mppi_params,
+                                       EpisodeSettings(delay=DELAY, n_steps=LOR_STEPS),
+                                       dynamics_carry_init=carry_init)
+    t0 = time.perf_counter()
+    totals, records = episodes(EVAL_SEEDS)
+    torch.cuda.synchronize()
+    cut_s = time.perf_counter() - t0
+    tick = make_episode_fn(env_t, dynamics, mppi_cfg, mppi_params, EpisodeSettings(delay=DELAY, n_steps=1))
+    trace = trace_ticks(lambda: tick(SeedDraws(EVAL_SEEDS, device=device))[0].cpu(), 1,
+                        1e3 * cut_s / LOR_STEPS)
+    print("trace " + json.dumps({"model": "latent_ode_ref", **trace}), flush=True)
+    per_step = records.reward.cpu().numpy()
+    states = records.sn.cpu().numpy()
+    out = {"file": str(REF_LATENT_ODE_PT.relative_to(ROOT)), "tensors": len(raw), "arch": arch,
+           "export_mismatched": mismatched, "forward": forward, "env": MAIN_ENV, "delay": DELAY, "K": K, "T": T,
+           "steps": LOR_STEPS, "of_steps": EVAL_STEPS, "seeds": len(EVAL_SEEDS),
+           "cut_return_mean": float(totals.mean()), "reward_per_step_min": float(per_step.min()),
+           "reward_per_step_mean": float(per_step.mean()), "episode_batch_s": cut_s,
+           "tick_ms": 1e3 * cut_s / LOR_STEPS, "trace": trace, "card": smi}
+    print("precision reference " + json.dumps(out), flush=True)
+    if mismatched:
+        raise RuntimeError(f"{REF_LATENT_ODE_PT.name} does not export back bit-exact: {mismatched}")
+    if not (forward["finite"] and forward["rel_err"] < LOR_FORWARD_TOL):
+        raise RuntimeError(f"latent_ode_ref f32 forward on the card: {forward}")
+    if not (np.isfinite(per_step).all() and np.isfinite(states).all() and (per_step <= 0.0).all()
+            and per_step.min() >= LOR_MIN_REWARD):
+        raise RuntimeError(f"latent_ode_ref cut episode not finite and bounded: rewards "
+                           f"{per_step.min()}..{per_step.max()}")
+    return out
+
+
+def plan_ms(ctrl, obs, noise, reps: int):
+    """Mean wall time of one plan of ``ctrl`` from ``obs`` on ``noise``, each
+    plan ended by reading its action on the host, after two warm-up plans;
+    returns (ms, the last action)."""
+    state = ctrl.reset(0)
+    for _ in range(2):
+        ctrl.step(state, obs, noise=noise)[0].cpu()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        action = ctrl.step(state, obs, noise=noise)[0].cpu()
+    return 1e3 * (time.perf_counter() - t0) / reps, action
+
+
+def run_precision(device, smi: str, eval_returns) -> dict:
+    """Phase ``precision``: ``reference_import``, then the trained
+    cartpole-d1 NL in bfloat16 and in int8 beside the float32 routes: the
+    bf16 forward against the f32 one (tests/test_models.py's bounds), int8's
+    int32 sums on the card against the CPU's and the exact integer product
+    bit for bit, its forward's error envelope (tests/test_quant.py's bounds)
+    and ``planner_saturation_probe``, the 20-seed 200-step batches of bf16
+    (plain route) and int8, and one plan's time at each K of ``PLAN_KS`` for
+    every route. The bf16 config with ``fused_nl_planner`` must launch the
+    forward kernel (at f32) and plan as the f32 kernel route does.
+
+    The batches are held by ``three_sigma`` to the JAX package's batches of
+    the same precision (``JAX_PRECISION_REFERENCE``, made by
+    ``scripts/port_jax_precision_reference.py``), and int8 also to phase
+    ``eval``'s f32 batch (``eval_returns``). bf16's gap to the f32 batch is
+    printed, not held: bf16 compute plans this cell better than f32 by 10-18
+    in both packages (PERF.md section 6), beyond the rule's limit."""
+    from neurallaplacecontrol_tpu_torch.ops import quant
+
+    failures = []
+    jax_ref = json.loads(JAX_PRECISION_REFERENCE.read_text())
+    if (jax_ref["env"], jax_ref["delay"], jax_ref["seeds"]) != (MAIN_ENV, DELAY, EVAL_SEEDS):
+        raise RuntimeError(f"{JAX_PRECISION_REFERENCE} holds another cell: {jax_ref['env']} d{jax_ref['delay']}")
+    reference = reference_import(device, smi)
+
+    env, params, m32 = load_nl(MAIN_ENV, device)
+    spec = env.spec
+    cfg32, cfg_bf = port.Config(), port.Config(nl_compute_dtype="bfloat16")
+    mbf = make_model("nl", MAIN_ENV, spec.n_obs, spec.m, spec.action_high, cfg_bf, device=device)
+    norm = norm_stats_for(MAIN_ENV, spec.action_high, spec.m)
+    qapply = quant.quantized_apply_for("nl", MAIN_ENV, params, cfg32, spec, fold_t=float(cfg32.dt))
+
+    # bf16 against f32 on the trained weights
+    rng = np.random.default_rng(31)
+    obs = torch.tensor(rng.standard_normal((BF16_ROWS, spec.n_obs)), dtype=torch.float32, device=device)
+    abuf = torch.tensor(rng.uniform(-3.0, 3.0, (BF16_ROWS, 4, spec.m)), dtype=torch.float32, device=device)
+    ts = torch.full((BF16_ROWS, 1), cfg32.dt, device=device)
+    a, b = m32.apply(params, obs, abuf, ts), mbf.apply(params, obs, abuf, ts)
+    rel = ((b - a).abs() / (1.0 + a.abs())).flatten()
+    bf16 = {"rows": BF16_ROWS, "rel_max": float(rel.max()), "rel_median": float(rel.median()),
+            "out_dtype": str(b.dtype).removeprefix("torch."), "limits": [BF16_MAX_LIMIT, BF16_MEDIAN_LIMIT]}
+    if not (bool(torch.isfinite(b).all()) and bf16["rel_max"] < BF16_MAX_LIMIT
+            and bf16["rel_median"] < BF16_MEDIAN_LIMIT and b.dtype == torch.float32):
+        failures.append(f"bf16 forward against f32: {bf16}")
+
+    # int8: the int32 sums bit for bit, the error envelope, the saturation probe
+    q = quant.quantize_nl_params(params, state_dim=spec.n_obs, action_dim=spec.m,
+                                 s_recon_terms=cfg32.nl_s_recon_terms)
+    operands = {f"gru{i}_{w}": (layer[f"wq_{w}"], layer[f"wq_{w}_mm"])
+                for i, layer in enumerate(q["gru"]) for w in ("ih", "hh")}
+    operands.update({"enc_out": (q["enc_out"]["wq"], q["enc_out"]["wq_mm"]),
+                     **{f"mlp{i}": (layer["wq"], layer["wq_mm"]) for i, layer in enumerate(q["mlp"])}})
+    g = torch.Generator().manual_seed(32)
+    acc = {"layers": list(operands), "rows": list(INT8_ACC_ROWS), "mismatched": []}
+    for name, (wq, wq_mm) in operands.items():
+        for rows in INT8_ACC_ROWS:
+            xq = torch.randint(-127, 128, (rows, wq.shape[0]), generator=g, dtype=torch.int8)
+            card = quant.int8_matmul_int32(xq.to(device), wq_mm)[:, :wq.shape[1]].cpu()
+            cpu = quant.int8_matmul_int32(xq, wq_mm.cpu())[:, :wq.shape[1]]
+            exact = (xq.long() @ wq.cpu().long()).int()
+            if not (card.dtype == torch.int32 and torch.equal(card, cpu) and torch.equal(card, exact)):
+                acc["mismatched"].append([name, rows])
+    if acc["mismatched"]:
+        failures.append(f"int8 int32 sums differ from the CPU's: {acc['mismatched']}")
+    rng = np.random.default_rng(33)
+    obs = torch.tensor(rng.standard_normal((INT8_ROWS, spec.n_obs)) * np.array([1.5, 6.0, 0.7, 0.7, 9.0]),
+                       dtype=torch.float32, device=device)
+    abuf = torch.tensor(rng.uniform(-3.0, 3.0, (INT8_ROWS, 4, spec.m)), dtype=torch.float32, device=device)
+    ts = torch.full((INT8_ROWS, 1), cfg32.dt, device=device)
+    ref, out = m32.apply(params, obs, abuf, ts), qapply(None, obs, abuf, ts)
+    err = (out - ref).abs()
+    int8 = {"rows": INT8_ROWS, "median_abs_err": float(err.median()),
+            "mean_abs_err_over_std": float(err.mean() / ref.std()),
+            "limits": [INT8_MEDIAN_LIMIT, INT8_SPREAD_LIMIT], "int32_sums": acc}
+    if not (bool(torch.isfinite(out).all()) and int8["median_abs_err"] < INT8_MEDIAN_LIMIT
+            and int8["mean_abs_err_over_std"] < INT8_SPREAD_LIMIT):
+        failures.append(f"int8 forward's error envelope: {int8}")
+    obs0 = env.observe(env.reset(torch.Generator().manual_seed(0))).to(device)
+    int8["saturation"] = quant.planner_saturation_probe(
+        m32.apply, params, norm, obs0, action_high=spec.action_high, action_dim=spec.m, K=SATURATION_K, T=T,
+        dt=cfg32.dt, generator=torch.Generator(device=device).manual_seed(1),
+        action_buffer_size=cfg32.action_buffer_size)
+    sat = int8["saturation"]["clip_frac_per_step"]
+    if len(sat) != T or not all(0.0 <= f <= 1.0 for f in sat):
+        failures.append(f"saturation probe: {int8['saturation']}")
+
+    # the forward kernel at the largest plan's rows against its plain version
+    # (a comparison: its launches are not counted)
+    kernel_check = check_forward_rows(device, MAIN_ENV, max(PLAN_KS))
+
+    # the 20-seed batches, then one plan per route at each K
+    pallas_nl.nl_forward_fused.launches = 0
+    pallas_ilt.nl_head_fused.launches = 0
+    batches = {}
+    for name, cfg, apply in (("bf16", cfg_bf, mbf.apply), ("int8", cfg32, qapply)):
+        r = evaluate_policy("nl", MAIN_ENV, DELAY, EVAL_SEEDS, cfg, model_apply=apply, params=params,
+                            roll_outs=K, time_steps=T, device=device)
+        jax_returns = jax_ref["policies"][name]["total_rewards"]
+        gap, limit = three_sigma(r["total_rewards"], eval_returns)
+        jax_gap, jax_limit = three_sigma(r["total_rewards"], jax_returns)
+        env_t, mppi_cfg, mppi_params, dynamics, _, _ = build_planner(
+            "nl", MAIN_ENV, DELAY, cfg, model_apply=apply, params=params, roll_outs=K, time_steps=T, device=device)
+        tick = make_episode_fn(env_t, dynamics, mppi_cfg, mppi_params, EpisodeSettings(delay=DELAY, n_steps=1))
+        tick_ms = 1e3 * r["episode_elapsed_time"] / EVAL_STEPS
+        batches[name] = {**policy_stats(r), "tick_ms": tick_ms, "f32_mean": float(np.mean(eval_returns)),
+                         "gap_to_f32": gap, "limit": limit, "jax_mean": float(np.mean(jax_returns)),
+                         "jax_std": float(np.std(jax_returns)), "gap_to_jax": jax_gap, "jax_limit": jax_limit,
+                         "jax_commit": jax_ref["commit"],
+                         "trace": trace_ticks(lambda: tick(SeedDraws(EVAL_SEEDS, device=device))[0].cpu(), 1,
+                                              tick_ms)}
+        if not all(math.isfinite(x) for x in r["total_rewards"]):
+            failures.append(f"{name} 20-seed batch: non-finite return")
+        if not jax_gap <= jax_limit:
+            failures.append(f"{name} 20-seed batch: mean {batches[name]['mean']:.3f} is {jax_gap:.3f} from the JAX "
+                            f"package's {name} batch, over the limit {jax_limit:.3f}")
+        if name == "int8" and not gap <= limit:
+            failures.append(f"int8 20-seed batch: mean {batches[name]['mean']:.3f} is {gap:.3f} from the f32 "
+                            f"batch's, over the limit {limit:.3f}")
+    if pallas_nl.nl_forward_fused.launches:
+        failures.append(f"the bf16 and int8 batches launched the forward kernel "
+                        f"{pallas_nl.nl_forward_fused.launches} times")
+
+    routes = {
+        "f32_plain": (cfg32, m32.apply), "bf16_plain": (cfg_bf, mbf.apply),
+        "f32_kernel": (cfg32.replace(fused_nl_planner=True), m32.apply),
+        "bf16_kernel": (cfg_bf.replace(fused_nl_planner=True), mbf.apply), "int8": (cfg32, qapply),
+    }
+    plans = []
+    for k_rows in PLAN_KS:
+        reps = PLAN_REPS[k_rows]
+        g = torch.Generator(device=device).manual_seed(34)
+        line, actions, noise = {"K": k_rows, "T": T, "reps": reps, "card": smi}, {}, None
+        for name, (cfg, apply) in routes.items():
+            ctrl = port.make_controller("nl", MAIN_ENV, DELAY, cfg, model_apply=apply, params=params,
+                                        roll_outs=k_rows, time_steps=T, device=device)
+            if noise is None:  # one draw for every route
+                noise = torch.randn((k_rows, T, spec.m), generator=g, device=device) @ ctrl.mppi_params.noise_chol.T
+            before = pallas_nl.nl_forward_fused.launches
+            line[f"{name}_ms"], actions[name] = plan_ms(ctrl, obs0, noise, reps)
+            line[f"{name}_launches"] = pallas_nl.nl_forward_fused.launches - before
+        line["bf16_kernel_action_diff"] = float((actions["bf16_kernel"] - actions["f32_kernel"]).abs().max())
+        plans.append(line)
+        print("precision plan " + json.dumps(line), flush=True)
+        if line["bf16_kernel_launches"] != (2 + reps) * T or line["bf16_kernel_action_diff"] != 0.0:
+            failures.append(f"the bf16 config with the fused planner at K={k_rows} launched the kernel "
+                            f"{line['bf16_kernel_launches']} times (expected {(2 + reps) * T}) and planned "
+                            f"{line['bf16_kernel_action_diff']} from the f32 kernel route")
+    launches = pallas_nl.nl_forward_fused.launches
+    if pallas_ilt.nl_head_fused.launches:
+        failures.append(f"nl_head launched {pallas_ilt.nl_head_fused.launches} times in phase precision")
+
+    out = {"env": MAIN_ENV, "delay": DELAY, "K": K, "T": T, "bf16_forward": bf16, "int8_forward": int8,
+           "batches": batches, "plans": plans, "launches": launches, "kernel_check": kernel_check, "card": smi}
+    print("precision " + json.dumps(out), flush=True)
+    if failures:
+        raise RuntimeError("phase precision: " + "; ".join(failures))
+    return {**out, "reference": reference}
+
+
 def driver_args(tmp: str, part: str, *args) -> list:
     """The driver's command line for one part of phase ``driver``: its results,
     logs and checkpoints under ``tmp/driver/<part>``, on the card."""
@@ -1866,7 +2146,8 @@ def run_deploy(device, smi: str, tmp: str, eager_tick_ms: float) -> dict:
     return out
 
 
-def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict, shard_rows: list) -> dict:
+def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict, shard_rows: list,
+                 precision_rows: dict) -> dict:
     """One entry per kernel. The forward's times and bounds are at the
     evaluation's 20,000 rows, its launches the evaluation's; ``serving_tick``
     keeps its figures at the controller's 1,000 rows, ``trained_weights`` its
@@ -1906,6 +2187,8 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
             out[-1]["driver"] = {"launches": launches["driver"]}
             out[-1]["change_goal"] = {"launches": launches["change_goal"]}
             out[-1]["deploy"] = {"launches": launches["deploy"]}
+            out[-1]["precision"] = {"launches": launches["precision"], "rows": [
+                {k: precision_rows[k] for k in ("B", "max_rel_err")}]}
             out[-1]["shard"] = {"launches": launches["shard"], "rows": [
                 {k: r[k] for k in ("B", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")
                  if k in r} for r in shard_rows]}
@@ -1963,6 +2246,9 @@ def main() -> int:
         with phase("baselines"):
             run_baselines(device, smi, tmp, training["eval_results"])
 
+        with phase("precision"):
+            precision = run_precision(device, smi, evaluation["nl_returns"])
+
         with phase("driver"):
             driving = run_driver(device, smi, tmp)
 
@@ -1972,8 +2258,10 @@ def main() -> int:
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     launches = {"controller": result["launches"], "eval": evaluation["launches"],
                 "change_goal": evaluation["change_goal"]["launches"], "deploy": deploying["launches_total"],
-                "train": training["launches"], "driver": driving["launches"], "shard": sharding["launches"]}
-    print(json.dumps(kernels_line(records, seed_batch, launches, training, sharding["kernel_checks"])), flush=True)
+                "train": training["launches"], "driver": driving["launches"], "shard": sharding["launches"],
+                "precision": precision["launches"]}
+    print(json.dumps(kernels_line(records, seed_batch, launches, training, sharding["kernel_checks"],
+                                  precision["kernel_check"])), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

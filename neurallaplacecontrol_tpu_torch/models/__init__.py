@@ -1,8 +1,7 @@
 """Dynamics model families with the (obs, action_buffer, ts) -> delta interface:
-Neural Laplace (the flagship), RNN, DeltaT-RNN, NODE and the latent ODE.
-
-The JAX package's ``latent_ode_ref`` (the reference-layout twin for ``.pt``
-checkpoints) is not ported yet and raises ``NotImplementedError``.
+Neural Laplace (the flagship), RNN, DeltaT-RNN, NODE and the latent ODE,
+and ``latent_ode_ref``, the reference-layout latent ODE into which
+reference ``.pt`` checkpoints transplant (``interop``).
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ from ..config import Config
 from .base import DynamicsModel, NormStats, norm_stats_for  # noqa: F401
 from .common import count_params  # noqa: F401
 from .latent_ode import LatentODEModel, make_carried_dynamics, make_latent_ode_model  # noqa: F401
+from .latent_ode_ref import RefLatentODEModel, make_ref_latent_ode_model  # noqa: F401
 from .nl import make_nl_model
 from .node import make_node_model
 from .rnn import make_delta_t_rnn_model, make_rnn_model
@@ -32,8 +32,6 @@ def make_model(
 ) -> DynamicsModel:
     """Model factory (the JAX package's ``models.make_model``, after reference
     train_utils.py:29-156: latent dims, hidden sizes, normalization stats)."""
-    if model_name == "latent_ode_ref":
-        raise NotImplementedError("model 'latent_ode_ref' is not ported yet")
     norm = norm_stats_for(env_name, action_high, action_dim)
     common = dict(
         encode_obs_time=config.encode_obs_time,
@@ -72,6 +70,16 @@ def make_model(
             obsrv_std=config.latent_ode_obsrv_std,
             action_buffer_size=config.action_buffer_size,
             noise_rows=config.mppi_roll_outs,
+            **common,
+        )
+    if model_name == "latent_ode_ref":
+        # the reference-layout twin for transplanted `.pt` checkpoints
+        # (interop.latent_ode_params_from_state_dict); it plans through the
+        # generic learned path
+        return make_ref_latent_ode_model(
+            state_dim, action_dim, norm,
+            hidden_units=config.latent_ode_hidden_units,
+            action_buffer_size=config.action_buffer_size,
             **common,
         )
     raise ValueError(f"Unknown model: {model_name}")

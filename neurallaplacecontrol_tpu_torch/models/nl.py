@@ -17,6 +17,13 @@ six ILT algorithms, and the one that training differentiates; the planner's
 ``make_fused_planner_apply`` runs the whole forward as one CUDA kernel
 (ops.pallas_nl) on weights packed for one shared query time, for the
 fourier ILT and the widths the kernel takes only.
+
+``compute_dtype="bfloat16"`` runs the matrix stack (the GRU, its head and
+the trunk MLP) in bfloat16, as the JAX model does: the MLP's output goes
+back to float32 before the theta/phi tanh heads, and the normalization, the
+sphere map and the ILT stay float32. The parameter tree keeps its dtypes,
+so a checkpoint loads in either mode. The fused route packs float32 weights
+whatever the compute dtype.
 """
 
 from __future__ import annotations
@@ -32,13 +39,14 @@ from ..ops.pallas_ilt import to_device
 from ..ops.pallas_nl import nl_forward_fused, pack_nl_forward, repack_nl_forward
 from ..utils.device import resolve_device
 from .base import DynamicsModel, NormStats
-from .common import gru_apply, gru_init, linear_apply, linear_init, mlp_apply_tanh, mlp_init, tree_map
+from .common import gru_apply, gru_init, linear_apply, linear_init, mlp_apply_tanh, mlp_init, tree_leaves, tree_map
 
 _ACTION_LATENT = 2  # w_nl.py:89
 # widths the CUDA forward takes (csrc/nl_kernels.cu forward_plan): the GRU
 # hidden size H a multiple of 8 (one warp per 8 units) and at most 64 (16
 # warps, two layers), the trunk width a multiple of 16 (the MMA's M)
 _KERNEL_GRU_GROUP, _KERNEL_GRU_MAX, _KERNEL_TRUNK_ALIGN = 8, 64, 16
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_kernel_widths(gru_hidden: int, trunk_hidden: int) -> None:
@@ -69,8 +77,9 @@ def make_nl_model(
     device="cuda",
 ) -> DynamicsModel:
     device = resolve_device(device)
-    if compute_dtype != "float32":
-        raise NotImplementedError(f"nl_compute_dtype={compute_dtype!r} is not ported yet")
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"nl_compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}, not {compute_dtype!r}")
+    cdtype = _COMPUTE_DTYPES[compute_dtype]
     if ilt_algorithm == "cme":
         s_recon_terms = snap_cme_terms(s_recon_terms)  # w_nl.py:86-88
     # every algorithm's true node count; the MLP head is sized from it
@@ -102,10 +111,30 @@ def make_nl_model(
         }
         return tree_map(lambda x: x.to(device), params)
 
+    # the last parameter tree cast to the compute dtype, reused while its
+    # leaves are the same tensors at the same version (a planner calls the
+    # forward T times a plan on one tree); never for leaves that autograd
+    # tracks, whose casts belong to one graph
+    cast_cache = {"encoder": {}, "laplace_rep": {}}
+
+    def _compute_cast(tree, part: str):
+        if cdtype == torch.float32:
+            return tree
+        leaves = tree_leaves(tree)
+        if any(x.requires_grad for x in leaves):
+            return tree_map(lambda x: x.to(cdtype), tree)
+        cache, key = cast_cache[part], tuple((id(x), x._version) for x in leaves)
+        if cache.get("key") != key:  # the leaves stay referenced, so their ids stay theirs
+            cache.update(key=key, leaves=leaves, cast=tree_map(lambda x: x.to(cdtype), tree))
+        return cache["cast"]
+
     def rep_fn(params, theta_s, phi_s, p):
         """(theta_s, phi_s)[B,terms] + p[B,L] -> sphere angles [B,D,terms]."""
         x = torch.cat([theta_s, phi_s, p], dim=-1)
-        out = mlp_apply_tanh(params, x)
+        if cdtype == torch.float32:
+            out = mlp_apply_tanh(params, x)
+        else:
+            out = mlp_apply_tanh(_compute_cast(params, "laplace_rep"), x.to(cdtype)).to(torch.float32)
         out = out.reshape(out.shape[:-1] + (2 * state_dim, s_recon_terms))
         theta = torch.tanh(out[..., :state_dim, :]) * math.pi
         phi = torch.tanh(out[..., state_dim:, :]) * (math.pi / 2.0)
@@ -125,8 +154,11 @@ def make_nl_model(
             act_n = act_n[:, None, :]
         lead = act_n.shape[:-2]
         rev = torch.flip(act_n, dims=(-2,)).reshape((-1,) + act_n.shape[-2:])
-        h = gru_apply(params["encoder"]["gru"], rev)
-        p_action = linear_apply(params["encoder"]["out"], h).to(out_dtype)
+        if cdtype != torch.float32:
+            rev = rev.to(cdtype)
+        enc = _compute_cast(params["encoder"], "encoder")
+        h = gru_apply(enc["gru"], rev)
+        p_action = linear_apply(enc["out"], h).to(out_dtype)
         return p_action.reshape(lead + (_ACTION_LATENT,))
 
     def _decode(params, obs, p_action, ts):

@@ -46,9 +46,12 @@ from .rollout import (
 
 logger = logging.getLogger(__name__)
 
-EVAL_MODELS = ("nl", "oracle", "random", "delta_t_rnn", "rnn", "node", "latent_ode")
-# the JAX package's other evaluation model; its family is not ported yet
-NOT_PORTED_MODELS = ("latent_ode_ref",)
+EVAL_MODELS = (
+    "nl", "oracle", "random", "delta_t_rnn", "rnn", "node", "latent_ode",
+    # the reference-layout latent-ODE twin for transplanted `.pt` checkpoints
+    # (models.latent_ode_ref); it plans through the generic learned path
+    "latent_ode_ref",
+)
 
 
 def build_planner(
@@ -68,8 +71,6 @@ def build_planner(
     is None for "random", dynamics_carry_init None but for the latent ODE's
     carried history, window_encoder None but for NL under
     ``Config.nl_planner_precompute`` (without the fused planner)."""
-    if model_name in NOT_PORTED_MODELS:
-        raise NotImplementedError(f"evaluation of {model_name!r} is not ported yet")
     if model_name not in EVAL_MODELS:
         raise ValueError(f"unknown model {model_name!r}")
     device = resolve_device(device)
@@ -251,7 +252,7 @@ def evaluate_policy(
 
     ``profile_trace_dir`` traces the timed episode with ``torch.profiler``
     (``utils.timing.profile_trace``); the trace's writing is timed with it,
-    as in the JAX package. ``latent_ode_ref`` raises ``NotImplementedError``.
+    as in the JAX package.
     For ``latent_ode``, ``model_apply`` is the model itself (carried
     history) or its ``apply`` (tiled history), as in the JAX package.
     """

@@ -137,7 +137,9 @@ def make_train_segment_fn(model: DynamicsModel, optimizer: Optimizer):
             pred = model.apply(tree_unflatten(params, leaves), s0[idx], a0[idx], ts[idx])
             target = sn[idx] - s0[idx]
             loss = torch.mean((torch.squeeze(pred) - torch.squeeze(target)) ** 2)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the forward never reads (latent_ode_ref's gen-ODE net)
+            # gets a zero gradient, as under jax.grad
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
             with torch.no_grad():
                 loss = loss.detach()
                 updates, new = optimizer.update(tree_unflatten(params, grads), opt_state, params)
@@ -212,8 +214,8 @@ def train_model(
     ``model_seed + 10_000``: the streams are the port's own, not JAX's.
     ``node`` trains at batch size 1, and ``latent_ode`` through
     ``training.train_latent_ode`` (its own loss, no guard), as in the JAX
-    package; ``make_model`` raises ``NotImplementedError`` for
-    ``latent_ode_ref``.
+    package; ``latent_ode_ref`` trains through the generic segments, as it
+    does there (its gen-ODE net is never evaluated and keeps its values).
     """
     device = resolve_device(device)
     ckpt_name = model_checkpoint_name(

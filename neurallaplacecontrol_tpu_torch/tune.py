@@ -16,9 +16,12 @@ multi-device sharding. Two entry points:
   JSON-serializable trial log.
 
 What ``recommend`` rests on (NVIDIA H100 80GB HBM3, 700 W; ``PERF.md`` §6,
-``chip_smoke.py`` phase ``kernels``): the forward kernel takes 0.0253 ms a
-launch against 0.2399 ms for the plain forward at 1,000 rows, and 0.45
-against 1.11 ms at 20,000 rows, both timed in CUDA graphs.
+``chip_smoke.py`` phases ``kernels`` and ``precision``): the forward kernel
+takes 0.0253 ms a launch against 0.2399 ms for the plain forward at 1,000
+rows, and 0.45 against 1.11 ms at 20,000 rows, both timed in CUDA graphs;
+one plan through the kernel takes 10-22 ms at K=1,000 and 60-61 ms at
+65,536, against 72-161 and 82-153 ms on the plain route in bfloat16 or
+float32 (``scripts/bench_int8_torch.py --mode perf``, phase ``precision``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,11 @@ from typing import Optional
 
 from .config import Config
 
+BF16_RATIONALE = (
+    "float32: the bfloat16 plain route is slower than the kernel route at every K measured (one plan "
+    "72-161 against 10-22 ms at K=1,000, 82-153 against 60-61 ms at K=65,536; NVIDIA H100 80GB HBM3, "
+    "700 W; PERF.md section 6), and the kernel runs float32 whatever the compute dtype"
+)
 FUSED_RATIONALE = (
     "on: the forward kernel takes 0.0253 ms against 0.2399 ms for the plain forward at 1,000 rows "
     "and 0.45 against 1.11 ms at 20,000 rows (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6)"
@@ -77,7 +85,7 @@ def recommend(base: Config = Config(), *, roll_outs: Optional[int] = None, n_dev
 
     if base.nl_compute_dtype != "float32":
         overrides["nl_compute_dtype"] = "float32"
-    rationale["nl_compute_dtype"] = "float32: the port runs the NL model in float32 only (bfloat16 is not ported)"
+    rationale["nl_compute_dtype"] = BF16_RATIONALE
 
     if kernel_takes(base):
         if not base.fused_nl_planner:
@@ -127,7 +135,9 @@ def autotune(
     "nl"``, and nothing but the base for other models, whose planner reads
     none of these knobs.
 
-    ``evaluate`` is injectable (the signature of
+    A candidate that sets ``nl_compute_dtype`` (``{"nl_compute_dtype":
+    "bfloat16"}``) plans with the NL model rebuilt at that compute dtype,
+    as in the JAX package. ``evaluate`` is injectable (the signature of
     ``training.evaluate_policy``); ``device`` goes to it.
     """
     if evaluate is None:
@@ -146,9 +156,20 @@ def autotune(
     trials = []
     for overrides in norm:
         cfg = base.replace(**overrides) if overrides else base
+        trial_apply = model_apply
+        if model_name == "nl" and model_apply is not None and "nl_compute_dtype" in overrides:
+            # the compute dtype is fixed when the model is made, and the
+            # planner runs the caller's apply: rebuild it from the trial's
+            # config (the same tree, so the caller's params load unchanged)
+            from .envs import make_env
+            from .models import make_model
+
+            spec = make_env(env_name, dt=cfg.dt).spec
+            trial_apply = make_model(model_name, env_name, spec.n_obs, spec.m, spec.action_high, cfg,
+                                     device=device).apply
         t0 = time.perf_counter()
         res = evaluate(model_name, env_name, action_delay, seeds=list(seeds), config=cfg,
-                       model_apply=model_apply, params=params, device=device)
+                       model_apply=trial_apply, params=params, device=device)
         trials.append({
             "overrides": dict(overrides),
             "rollouts_per_sec": res["mppi_rollouts_per_sec"],

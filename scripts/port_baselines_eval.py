@@ -1,6 +1,7 @@
 """The port's baseline families on the card, beyond what ``chip_smoke.py`` runs.
 
     python3 scripts/port_baselines_eval.py eval              # GPU: the latent ODE's full evaluation
+    python3 scripts/port_baselines_eval.py eval_ref [cpu]    # latent_ode_ref's, from the reference .pt
     python3 scripts/port_baselines_eval.py planted [cpu]     # the checks of phase baselines, planted faults
 
 ``eval`` runs ``training.evaluate_policy`` for the latent ODE on the tracked
@@ -12,6 +13,17 @@ JAX package's recorded 20-seed returns of the cell
 (``artifacts/port/jax_baselines_pendulum_d1.npz``) under the rule of phase
 ``baselines``, |mean_port - mean_jax| <= 3 sqrt(s_jax^2 / 20 + s_port^2 / 20),
 traces one seed-batched tick, and prints one ``latent_ode_eval {...}`` line.
+
+``eval_ref`` imports the tracked reference checkpoint
+(``artifacts/baseline_parity/ref_latent_ode_cartpole_d1_r4.pt``) through
+``interop`` and runs ``evaluate_policy("latent_ode_ref", ...)`` on cartpole
+d1 twice: at the full protocol (seeds 0-19, 200 steps, K=1000, T=40), which
+``chip_smoke.py`` phase ``precision`` cuts to its first steps and for which
+no JAX run exists, and at the protocol of the JAX package's record of the
+same file (seeds 0-4, K=200, T=20; the ``"harness": "ours"`` lines of
+``artifacts/baseline_parity/ref_eval_results.jsonl``), held to that record by
+the same 3-sigma rule. It prints one ``latent_ode_ref_eval {...}`` line per
+run, one traced tick with the first.
 
 ``planted`` runs phase ``baselines``'s checks against JAX's f64 reference on
 copies of the port with one fault planted per family (in a temporary
@@ -148,8 +160,62 @@ def evaluate() -> None:
         raise RuntimeError(f"latent_ode mean return is {gap:.3f} from the JAX package's, over {limit:.3f}")
 
 
+def evaluate_ref(device: str = "cuda") -> None:
+    import torch
+
+    import neurallaplacecontrol_tpu_torch as port
+    from neurallaplacecontrol_tpu_torch import interop
+    from neurallaplacecontrol_tpu_torch.training import EpisodeSettings, SeedDraws, evaluate_policy, make_episode_fn
+    from neurallaplacecontrol_tpu_torch.training.eval import build_planner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = chip_smoke.nvidia_smi() if device == "cuda" else "cpu"
+    env_name, delay = chip_smoke.MAIN_ENV, chip_smoke.DELAY
+    sd = interop.load_torch_state_dict(str(chip_smoke.REF_LATENT_ODE_PT))
+    arch = interop.latent_ode_arch_from_state_dict(sd)
+    cfg = port.Config(latent_ode_hidden_units=arch["hidden_units"])
+    model = port.make_model("latent_ode_ref", env_name, arch["state_dim"], arch["action_dim"],
+                            port.make_env(env_name).spec.action_high, cfg, device=device)
+    params = interop.latent_ode_params_from_state_dict(sd, device=device, dtype=torch.float32)
+    record = os.path.join(ROOT, "artifacts", "baseline_parity", "ref_eval_results.jsonl")
+    with open(record) as f:
+        jax_lines = [json.loads(line) for line in f if line.strip()]
+    jax_lines = [r for r in jax_lines if r.get("harness") == "ours" and r["model_name"] == "latent_ode_ref"
+                 and r["env_name"] == env_name and r["delay"] == delay]
+    runs = [("full", chip_smoke.EVAL_SEEDS, chip_smoke.K, chip_smoke.T, None),
+            ("jax_record", [r["seed"] for r in jax_lines], jax_lines[0]["roll_outs"], jax_lines[0]["time_steps"],
+             np.asarray([r["total_reward"] for r in jax_lines]))]
+    failures = []
+    for name, seeds, k, t, jax_ret in runs:
+        t0 = time.perf_counter()
+        r = evaluate_policy("latent_ode_ref", env_name, delay, seeds, cfg, model_apply=model.apply, params=params,
+                            roll_outs=k, time_steps=t, device=device)
+        out = {"run": name, "env": env_name, "delay": delay, "K": k, "T": t, "seeds": seeds,
+               "steps": chip_smoke.EVAL_STEPS, "mean": r["total_reward"], "std": r["total_reward_std"],
+               "total_rewards": r["total_rewards"], "episode_batch_s": r["episode_elapsed_time"],
+               "tick_ms": 1e3 * r["episode_elapsed_time"] / chip_smoke.EVAL_STEPS,
+               "wall_s": time.perf_counter() - t0, "card": card}
+        if name == "full":
+            env, mppi_cfg, mppi_params, dynamics, _, _ = build_planner(
+                "latent_ode_ref", env_name, delay, cfg, model_apply=model.apply, params=params, roll_outs=k,
+                time_steps=t, device=device)
+            tick = make_episode_fn(env, dynamics, mppi_cfg, mppi_params, EpisodeSettings(delay=delay, n_steps=1))
+            out["trace"] = chip_smoke.trace_ticks(lambda: tick(SeedDraws(seeds, device=device))[0].cpu(), 1,
+                                                  out["tick_ms"])
+        else:
+            gap, limit = chip_smoke.three_sigma(r["total_rewards"], jax_ret)
+            out.update(jax_mean=float(jax_ret.mean()), jax_std=float(jax_ret.std()), gap_to_jax=gap, limit=limit)
+            if not gap <= limit:
+                failures.append(f"latent_ode_ref at the record's protocol: {gap:.1f} from JAX's, over {limit:.1f}")
+        print("latent_ode_ref_eval " + json.dumps(out), flush=True)
+        if not all(math.isfinite(x) for x in r["total_rewards"]):
+            failures.append(f"latent_ode_ref {name}: non-finite return")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+
+
 if __name__ == "__main__":
-    modes = {"eval": evaluate, "planted": planted}
+    modes = {"eval": evaluate, "eval_ref": evaluate_ref, "planted": planted}
     if len(sys.argv) not in (2, 3) or sys.argv[1] not in modes:
-        sys.exit(f"usage: {sys.argv[0]} {{eval|planted}} [device]")
+        sys.exit(f"usage: {sys.argv[0]} {{eval|eval_ref|planted}} [device]")
     modes[sys.argv[1]](*sys.argv[2:])

@@ -251,5 +251,15 @@ def test_latent_ode_fixed_draw_tiles_over_seeds():
 
 
 def test_latent_ode_ref_not_ported():
-    with pytest.raises(NotImplementedError):
-        torch_make_model("latent_ode_ref", ENV, N, M, HIGH, TConfig(), device="cpu")
+    """``make_model("latent_ode_ref")`` (refused before the reference-layout
+    twin was ported) builds JAX's tree (keys, shapes) and, on JAX's init,
+    JAX's forward at f64 within F64_TOL."""
+    jmodel = jax_make_model("latent_ode_ref", ENV, N, M, HIGH, JConfig(), dtype=jnp.float64)
+    tmodel = torch_make_model("latent_ode_ref", ENV, N, M, HIGH, TConfig(), dtype=torch.float64, device="cpu")
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    own = tmodel.init(torch.Generator().manual_seed(0))
+    assert [tuple(x.shape) for x in tree_leaves(own)] == [x.shape for x in jax.tree_util.tree_leaves(jparams)]
+    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    obs, abuf, ts = inputs(16, seed=4)
+    exp = np.asarray(jmodel.apply(jparams, *(jnp.asarray(x) for x in (obs, abuf, ts))))
+    assert rel(tmodel.apply(tparams, *(torch.tensor(x) for x in (obs, abuf, ts))), exp) < F64_TOL

@@ -575,3 +575,106 @@ def test_operator_on_ragged_rows(cuda_device, rows):
     traced = program(obs, acts)
     torch.cuda.synchronize()
     assert traced.shape == (rows, 5) and torch.equal(traced, got)
+
+
+REF_LATENT_ODE_PT = REPO / "artifacts" / "baseline_parity" / "ref_latent_ode_cartpole_d1_r4.pt"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 17, 1000, 20000])
+def test_int8_sums_on_card_equal_cpu(rows, cuda_device):
+    """Every int8 matrix of the quantized cartpole-d1 NL through the padded
+    ``torch._int_mm`` (fewer than 17 rows and widths that are no multiple of
+    8 padded with zeros): the card's int32 sums equal the CPU's and the
+    exact int64 product bit for bit."""
+    from neurallaplacecontrol_tpu_torch.ops import quant
+
+    q = quant.quantize_nl_params(trained("oderl-cartpole", cuda_device), state_dim=5, action_dim=1,
+                                 s_recon_terms=17)
+    mats = [(p[f"wq_{w}"], p[f"wq_{w}_mm"]) for p in q["gru"] for w in ("ih", "hh")]
+    mats += [(q["enc_out"]["wq"], q["enc_out"]["wq_mm"])] + [(p["wq"], p["wq_mm"]) for p in q["mlp"]]
+    g = torch.Generator().manual_seed(rows)
+    for wq, wq_mm in mats:
+        xq = torch.randint(-127, 128, (rows, wq.shape[0]), generator=g, dtype=torch.int8)
+        card = quant.int8_matmul_int32(xq.to(cuda_device), wq_mm)[:, :wq.shape[1]].cpu()
+        assert card.dtype == torch.int32 and card.shape == (rows, wq.shape[1])
+        assert torch.equal(card, quant.int8_matmul_int32(xq, wq_mm.cpu())[:, :wq.shape[1]])
+        assert torch.equal(card, (xq.long() @ wq.cpu().long()).int())
+
+
+@pytest.mark.cuda
+def test_int8_forward_on_card_matches_cpu(cuda_device):
+    """The int8 (+fold) forward on the card against the same forward on the
+    CPU: the int32 sums are exact, so the two part only by float32 rounding
+    around them and the rare activation that rounds to the other int8 step
+    (median relative gap < 1e-6, max < 2e-2)."""
+    from neurallaplacecontrol_tpu_torch.ops import quant
+    from neurallaplacecontrol_tpu_torch.envs import make_env
+
+    spec = make_env("oderl-cartpole").spec
+    apply = {d: quant.quantized_apply_for("nl", "oderl-cartpole", trained("oderl-cartpole", d), Config(), spec,
+                                          fold_t=DT) for d in ("cpu", cuda_device)}
+    rng = np.random.default_rng(5)
+    obs = torch.tensor(rng.standard_normal((B, 5)), dtype=torch.float32)
+    acts = torch.tensor(rng.uniform(-3.0, 3.0, (B, 4, 1)), dtype=torch.float32)
+    ts = torch.full((B, 1), DT)
+    exp = apply["cpu"](None, obs, acts, ts)
+    got = apply[cuda_device](None, obs.to(cuda_device), acts.to(cuda_device), ts.to(cuda_device)).cpu()
+    rel = (got - exp).abs() / (1.0 + exp.abs())
+    assert float(rel.median()) < 1e-6 and float(rel.max()) < 2e-2
+
+
+@pytest.mark.cuda
+def test_latent_ode_ref_on_card_matches_cpu_f64(cuda_device):
+    """The tracked reference checkpoint through ``interop``: the card's f32
+    and f64 ``latent_ode_ref`` forwards against the CPU's f64 (limits 1e-3,
+    chip_smoke's LOR_FORWARD_TOL, and 1e-10), and the export from the card's
+    tree bit-exact to the file."""
+    from neurallaplacecontrol_tpu_torch import interop
+    from neurallaplacecontrol_tpu_torch.models.base import norm_stats_for
+
+    sd = interop.load_torch_state_dict(str(REF_LATENT_ODE_PT))
+    rng = np.random.default_rng(6)
+    obs = rng.standard_normal((B, 5)) * 3.0
+    acts = rng.uniform(-3.0, 3.0, (B, 4, 1))
+    ts = np.full((B, 1), DT)
+    exp = None
+    for device, dtype, limit in (("cpu", torch.float64, None), (cuda_device, torch.float64, 1e-10),
+                                 (cuda_device, torch.float32, 1e-3)):
+        model = make_model("latent_ode_ref", "oderl-cartpole", 5, 1, 3.0, dtype=dtype, device=device)
+        params = interop.latent_ode_params_from_state_dict(sd, device=device, dtype=dtype)
+        out = model.apply(params, *(torch.tensor(x, dtype=dtype, device=device) for x in (obs, acts, ts)))
+        out = out.double().cpu()
+        if exp is None:
+            exp = out
+        else:
+            assert rel_err(out, exp) < limit
+    back = interop.latent_ode_state_dict_from_params(
+        interop.latent_ode_params_from_state_dict(sd, device=cuda_device),
+        norm=norm_stats_for("oderl-cartpole", 3.0, 1), dt=float(sd["dt"]))
+    raw = torch.load(REF_LATENT_ODE_PT, weights_only=True)
+    assert set(back) == set(raw)
+    for k, v in raw.items():
+        assert back[k].dtype == v.numpy().dtype and np.array_equal(back[k], v.numpy()), k
+
+
+@pytest.mark.cuda
+def test_bf16_config_with_fused_planner_launches_the_f32_kernel(cuda_device):
+    """``nl_compute_dtype="bfloat16"`` with ``fused_nl_planner``: the planner
+    runs the forward kernel on float32 weights, T launches a tick, and ticks
+    as the float32 config's kernel route does on the same noise (equal)."""
+    params = trained("oderl-cartpole", cuda_device)
+    noise = torch.randn((B, 40, 1), generator=torch.Generator(device=cuda_device).manual_seed(0),
+                        device=cuda_device)
+    actions = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = Config(fused_nl_planner=True, nl_compute_dtype=dtype)
+        model = make_model("nl", "oderl-cartpole", 5, 1, 3.0, cfg, device=cuda_device)
+        ctrl = make_controller("nl", "oderl-cartpole", 1, cfg, model_apply=model.apply, params=params,
+                               device=cuda_device)
+        tnl.nl_forward_fused.launches = 0
+        action, _ = ctrl.step(ctrl.reset(0), torch.zeros(5, device=cuda_device), noise=noise)
+        torch.cuda.synchronize()
+        assert tnl.nl_forward_fused.launches == 40
+        actions.append(action)
+    assert torch.equal(actions[0], actions[1])

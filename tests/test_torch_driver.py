@@ -129,12 +129,27 @@ def test_driver_quarantines_a_failing_cell(tmp_path):
     assert "eval FAILED oderl-pendulum rnn d=2" in log and "No checkpoint" in log
 
 
+def test_driver_takes_latent_ode_ref_as_jax_does(tmp_path):
+    """``--models latent_ode_ref``: JAX's parser takes any name (its MODELS
+    is only the default), and the port's now evaluates this family, so the
+    cell runs; with no checkpoint under saved_models_path and nothing
+    training it, it is recorded as errored, as JAX's quarantine records it."""
+    out = driver.main(argv(tmp_path, "--delays", "1", "--envs", "oderl-cartpole",
+                           "--models", "latent_ode_ref,oracle"))
+    recs = read(tmp_path)
+    assert recs == out["records"]
+    assert recs[0] == {"model_name": "latent_ode_ref", "env_name": "oderl-cartpole", "delay": 1, "errored": True}
+    assert recs[1]["model_name"] == "oracle" and not recs[1]["errored"]
+    log = next(tmp_path.glob("run_exp_multi_torch-*_log.txt")).read_text()
+    assert "eval FAILED oderl-cartpole latent_ode_ref d=1" in log and "No checkpoint" in log
+
+
 @pytest.mark.parametrize("extra,message", [
     (("--shard", "grid:2"), "grid:NSxNK"),
     (("--shard", "grid:0x2"), "grid:NSxNK"),
     (("--shard", "grid:2xk"), "grid:NSxNK"),
     (("--shard", "bogus"), "none|seeds|rollouts"),
-    (("--models", "nl,latent_ode_ref"), "latent_ode_ref"),
+    (("--models", "nl,latent_ode_refs"), "latent_ode_ref"),  # a name no family has
     (("--models", "bogus"), "bogus"),
     (("--multihost", "127.0.0.1:1,2", "--ensemble_delays", "true", "--delays", "0,1"), "incompatible"),
     (("--multihost", "127.0.0.1:1"), "coordinator_host:port,N"),

@@ -164,11 +164,29 @@ def test_evaluate_policy_writes_profile_trace(tmp_path):
 
 @pytest.mark.parametrize("model_name,cfg", [("latent_ode_ref", TConfig())])
 def test_evaluate_policy_unported_models_raise(model_name, cfg):
-    (_, _), (tapply, tweights) = nl_models()
-    with pytest.raises(NotImplementedError):
-        teval.evaluate_policy(model_name, ENV, DELAY, [0], config=cfg, model_apply=tapply,
-                              params=tweights, roll_outs=K, time_steps=T, dtype=torch.float64,
-                              device="cpu")
+    """``latent_ode_ref`` (refused before its port) evaluates through the
+    generic learned path: the tracked reference checkpoint, imported by each
+    package's interop, against JAX's ``evaluate_policy`` at f64 on JAX's
+    draws, returns within rtol 1e-10 and every other field but the timings
+    equal."""
+    from neurallaplacecontrol_tpu import interop as jinterop
+    from neurallaplacecontrol_tpu_torch import interop as tinterop
+
+    pt = str(REPO / "artifacts" / "baseline_parity" / "ref_latent_ode_cartpole_d1_r4.pt")
+    jm = jax_make_model(model_name, ENV, 5, 1, 3.0, JConfig(dt=DT), dtype=jnp.float64)
+    tm = torch_make_model(model_name, ENV, 5, 1, 3.0, cfg.replace(dt=DT), dtype=torch.float64, device="cpu")
+    jweights = jinterop.latent_ode_params_from_state_dict(jinterop.load_torch_state_dict(pt))
+    tweights = tinterop.latent_ode_params_from_state_dict(tinterop.load_torch_state_dict(pt), device="cpu")
+    seeds = SEEDS[:2]
+    j = jax_evaluate(model_name, ENV, DELAY, seeds, config=JConfig(dt=DT), model_apply=jm.apply,
+                     params=jweights, roll_outs=K, time_steps=T)
+    t = teval.evaluate_policy(model_name, ENV, DELAY, seeds, config=cfg.replace(dt=DT), model_apply=tm.apply,
+                              params=tweights, roll_outs=K, time_steps=T, dtype=torch.float64, device="cpu",
+                              draws=replay(seeds))
+    assert set(t) == set(j)
+    np.testing.assert_allclose(t["total_rewards"], j["total_rewards"], rtol=1e-10)
+    for key in set(j) - set(TIMINGS) - {"total_rewards", "total_reward", "total_reward_std"}:
+        assert t[key] == j[key], key
 
 
 @pytest.mark.parametrize("family,carried", [("rnn", False), ("delta_t_rnn", False), ("node", False),

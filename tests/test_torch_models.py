@@ -126,11 +126,21 @@ def test_norm_stats_match_jax(env):
 
 
 def test_unported_models_raise():
-    with pytest.raises(NotImplementedError):
-        torch_make_model("latent_ode_ref", "oderl-pendulum", 3, 1, 2.0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0,
-                         TConfig(nl_compute_dtype="bfloat16"), device="cpu")
+    """What was refused before reference-weight import and bf16 were ported
+    now builds (``latent_ode_ref``; NL with ``nl_compute_dtype="bfloat16"``,
+    whose tree is the f32 model's); an unknown name or compute dtype raises,
+    and so do the fused forward's refusals below."""
+    lor = torch_make_model("latent_ode_ref", "oderl-pendulum", 3, 1, 2.0, device="cpu")
+    assert lor.name == "latent_ode_ref" and lor.latents == 5 and lor.rec_dims == 20
+    bf16 = torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, TConfig(nl_compute_dtype="bfloat16"), device="cpu")
+    f32 = torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, device="cpu")
+    shapes = [[(x.shape, x.dtype) for x in jax.tree_util.tree_leaves(m.init(torch.Generator().manual_seed(0)))]
+              for m in (bf16, f32)]
+    assert shapes[0] == shapes[1]
+    with pytest.raises(ValueError, match="Unknown model"):
+        torch_make_model("latent_ode_refs", "oderl-pendulum", 3, 1, 2.0, device="cpu")
+    with pytest.raises(ValueError, match="nl_compute_dtype"):
+        torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, TConfig(nl_compute_dtype="float16"), device="cpu")
     # the fused planner forward takes the fourier ILT and the kernel's widths only
     model = torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, TConfig(nl_ilt_algorithm="dehoog"),
                              device="cpu")

@@ -39,7 +39,9 @@ sys.path.insert(0, str(REPO))
 import run_exp_multi_torch  # noqa: E402
 PORT_FILES = sorted((REPO / "neurallaplacecontrol_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "run_exp_multi_torch.py", REPO / "scripts" / "port_shard_check.py",
-    REPO / "scripts" / "serve_demo_torch.py", REPO / "scripts" / "port_deploy_check.py"]
+    REPO / "scripts" / "serve_demo_torch.py", REPO / "scripts" / "port_deploy_check.py",
+    REPO / "scripts" / "port_precision_check.py", REPO / "scripts" / "bench_bf16_torch.py",
+    REPO / "scripts" / "bench_int8_torch.py"]
 FORBIDDEN = ("jax", "neurallaplacecontrol_tpu")
 
 
@@ -74,6 +76,7 @@ def test_port_and_chip_smoke_import_and_tick_without_jax():
     chip_smoke (module only) import, and a CPU controller ticks."""
     code = textwrap.dedent(
         """
+        import json
         import sys
         sys.modules["jax"] = None
         sys.modules["neurallaplacecontrol_tpu"] = None
@@ -190,6 +193,27 @@ def test_port_and_chip_smoke_import_and_tick_without_jax():
         for env in chip_smoke.DRIVER_ENVS:
             for name in ("nl", "oracle"):
                 assert chip_smoke.jax_cell_returns(env, 1, name).shape == (20,)
+        # phase precision: the reference .pt through interop into latent_ode_ref,
+        # the bf16 and int8 routes, the JAX references of their batches
+        from neurallaplacecontrol_tpu_torch import interop
+        from neurallaplacecontrol_tpu_torch.ops import quant
+        sd = interop.load_torch_state_dict(str(chip_smoke.REF_LATENT_ODE_PT))
+        lor = port.make_model("latent_ode_ref", "oderl-cartpole", 5, 1, 3.0, device="cpu")
+        out = lor.apply(interop.latent_ode_params_from_state_dict(sd, device="cpu", dtype=torch.float32),
+                        torch.zeros(4, 5), torch.zeros(4, 4, 1), torch.full((4, 1), 0.05))
+        assert out.shape == (4, 5) and bool(torch.isfinite(out).all())
+        _, nl_params, _ = chip_smoke.load_nl("oderl-cartpole", torch.device("cpu"))
+        spec = port.make_env("oderl-cartpole").spec
+        qa = quant.quantized_apply_for("nl", "oderl-cartpole", nl_params, port.Config(), spec, fold_t=0.05)
+        bf = port.make_model("nl", "oderl-cartpole", 5, 1, 3.0, port.Config(nl_compute_dtype="bfloat16"),
+                             device="cpu")
+        for f in (qa, bf.apply):
+            assert bool(torch.isfinite(f(nl_params, torch.zeros(4, 5), torch.zeros(4, 4, 1),
+                                         torch.full((4, 1), 0.05))).all())
+        pref = json.loads(chip_smoke.JAX_PRECISION_REFERENCE.read_text())
+        assert (pref["env"], pref["delay"], pref["seeds"]) == (chip_smoke.MAIN_ENV, chip_smoke.DELAY,
+                                                                chip_smoke.EVAL_SEEDS)
+        assert all(len(pref["policies"][k]["total_rewards"]) == 20 for k in ("bf16", "int8"))
         assert "matplotlib" not in sys.modules
         loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                         or m == "neurallaplacecontrol_tpu"

@@ -106,8 +106,19 @@ def test_reset_is_seeded():
 
 
 def test_make_controller_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
+    """``latent_ode_ref`` (refused before its port) serves: a controller on
+    its model ticks finite, in-range actions; the random policy, a learned
+    family without weights and a non-f32 fused planner stay refused."""
+    model = torch_make_model("latent_ode_ref", ENV, 5, 1, 3.0, TConfig(), device="cpu")
+    ctrl = tserving.make_controller("latent_ode_ref", ENV, DELAY, model_apply=model.apply,
+                                    params=model.init(torch.Generator().manual_seed(0)), roll_outs=K,
+                                    time_steps=T, device="cpu")
+    action, _ = ctrl.step(ctrl.reset(0), torch.zeros(5))
+    assert bool(torch.isfinite(action).all()) and float(action.abs().max()) <= 3.0
+    with pytest.raises(ValueError):
         tserving.make_controller("latent_ode_ref", ENV, DELAY, device="cpu")
+    with pytest.raises(ValueError):
+        tserving.make_controller("random", ENV, DELAY, device="cpu")
     with pytest.raises(ValueError):
         tserving.make_controller("nl", ENV, DELAY, device="cpu")
     with pytest.raises(ValueError, match="float32"):

@@ -299,8 +299,9 @@ def test_train_reduces_loss_and_checkpoints(tmp_path):
     """The port's counterpart of tests/test_data_train.py::
     test_train_reduces_loss_and_checkpoints (NL): synthetic data, a fixed
     epoch budget, the loss halves, the checkpoint lands and loads with
-    retrain=False, a missing checkpoint raises, and the family not ported
-    (latent_ode_ref) raises NotImplementedError."""
+    retrain=False, a missing checkpoint raises, and latent_ode_ref (refused
+    before its port) trains through the generic segments as in the JAX
+    package: finite losses, its checkpoint, its gen-ODE net untouched."""
     cfg = small_config(tmp_path, iters_per_log=25, training_epochs=8, learning_rate=1e-3)
     model, params, res = ttrain.train_model("nl", ENV, cfg, delay=0, retrain=True, force_retrain=True,
                                             dtype=torch.float64, device="cpu")
@@ -319,8 +320,15 @@ def test_train_reduces_loss_and_checkpoints(tmp_path):
     with pytest.raises(ValueError):
         ttrain.train_model("nl", ENV, cfg, delay=3, retrain=False, device="cpu")
     for family in ("latent_ode_ref",):
-        with pytest.raises(NotImplementedError):
-            ttrain.train_model(family, ENV, cfg, delay=0, retrain=True, force_retrain=True, device="cpu")
+        lcfg = small_config(tmp_path, iters_per_log=25, training_epochs=2, latent_ode_hidden_units=16)
+        lmodel, lparams, lres = ttrain.train_model(family, ENV, lcfg, delay=0, retrain=True, force_retrain=True,
+                                                   dtype=torch.float64, device="cpu")
+        assert lmodel.name == family and len(lres["epoch_losses"]) == 2
+        assert all(math.isfinite(x) for x in lres["epoch_losses"])
+        assert (tmp_path / model_checkpoint_name(family, ENV, 0, "exp", 0, False, training_epochs=2)).is_file()
+        init = lmodel.init(torch.Generator().manual_seed(0))
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(lparams["gen_ode"]), tree_leaves(init["gen_ode"])))
+        assert not torch.equal(lparams["decoder"]["w"], init["decoder"]["w"])
 
 
 def test_retrain_false_falls_back_to_tracked_checkpoints(tmp_path, monkeypatch):
@@ -380,10 +388,11 @@ def family_segment_inputs(seed=1, n=80, bs=4):
     return s0, a0, sn, ts, rng.permutation(n)[: 20 * bs].reshape(20, bs)
 
 
-@pytest.mark.parametrize("family", ["rnn", "delta_t_rnn", "node"])
+@pytest.mark.parametrize("family", ["rnn", "delta_t_rnn", "node", "latent_ode_ref"])
 def test_family_segment_matches_jax_f64(family):
     """20 updates of each family from JAX's init on the same data and batch
-    indices, ``node`` at batch size 1 as train_model runs it: the losses,
+    indices, ``node`` at batch size 1 as train_model runs it, latent_ode_ref
+    through the same generic segment as in the JAX package: the losses,
     params and Adam moments at rtol 1e-9 (atol 1e-12 on the moments)."""
     bs = 1 if family == "node" else 4
     s0, a0, sn, ts, idx = family_segment_inputs(bs=bs)

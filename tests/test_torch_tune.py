@@ -1,7 +1,7 @@
 """The port's tuning API (neurallaplacecontrol_tpu_torch.tune), after
 tests/test_tune.py: ``recommend`` sets each knob from the card's
 measurements or leaves it, carries none of the JAX package's TPU thresholds
-and never picks bfloat16; ``autotune`` picks the fastest candidate that does
+and picks no bfloat16, which the card measured slower; ``autotune`` picks the fastest candidate that does
 not regress the return, through an injected evaluator and through one real
 tiny CPU run of ``evaluate_policy``."""
 
@@ -31,9 +31,12 @@ def test_recommend_reference_shape_takes_the_kernel():
     (Config(), 262144, True), (Config(nl_compute_dtype="bfloat16"), None, False)])
 def test_recommend_never_picks_bfloat16(cfg, roll_outs, jax_bf16):
     """Shapes where the JAX package's v5e thresholds pick bfloat16 stay at
-    float32, and a bfloat16 base is put back: the port runs no bfloat16 NL."""
+    float32, and a bfloat16 base is put back: on the card the bfloat16 plain
+    route plans no faster than the float32 one and slower than the kernel
+    route at K=1,000 and 65,536, and the rationale says so."""
     rec = tune.recommend(cfg, roll_outs=roll_outs)
     assert rec.config.nl_compute_dtype == "float32"
+    assert rec.rationale["nl_compute_dtype"] == tune.BF16_RATIONALE and "H100" in tune.BF16_RATIONALE
     jax_dtype = jtune.recommend(cfg.replace(nl_compute_dtype="float32"), roll_outs=roll_outs).config.nl_compute_dtype
     assert (jax_dtype == "bfloat16") == jax_bf16
 
@@ -140,3 +143,31 @@ def test_autotune_runs_evaluate_policy_on_the_cpu(tmp_path):
     returns = [t["total_reward"] for t in trials]
     assert max(returns) - min(returns) < 1e-2 * abs(returns[0])
     assert isinstance(best, Config)
+
+
+def test_autotune_rebuilds_the_apply_for_a_compute_dtype():
+    """A ``{"nl_compute_dtype": "bfloat16"}`` candidate, as the JAX package's
+    autotune takes it: the trial plans with the NL model rebuilt at that
+    dtype (the caller's apply is f32), on the caller's params."""
+    from neurallaplacecontrol_tpu_torch.models import make_model
+    from neurallaplacecontrol_tpu_torch.utils.checkpoint import load_pytree, model_checkpoint_name, resolve_checkpoint
+
+    params = load_pytree(resolve_checkpoint(model_checkpoint_name("nl", "oderl-cartpole", 1, "exp", 0, True)),
+                         device="cpu")
+    f32 = make_model("nl", "oderl-cartpole", 5, 1, 3.0, Config(), device="cpu")
+    bf16 = make_model("nl", "oderl-cartpole", 5, 1, 3.0, Config(nl_compute_dtype="bfloat16"), device="cpu")
+    x = (torch.randn(6, 5, generator=torch.Generator().manual_seed(0)), torch.zeros(6, 4, 1), torch.full((6, 1), 0.05))
+    seen = {}
+
+    def evaluate(model_name, env_name, delay, seeds, config, model_apply=None, params=None, **kw):
+        seen[config.nl_compute_dtype] = model_apply(params, *x)
+        return {"mppi_rollouts_per_sec": 2.0 if config.nl_compute_dtype == "bfloat16" else 1.0,
+                "total_reward": -100.0, "episode_elapsed_time": 1.0}
+
+    best, trials = tune.autotune("nl", "oderl-cartpole", 1, base=Config(), model_apply=f32.apply, params=params,
+                                 candidates=[{"nl_compute_dtype": "bfloat16"}], evaluate=evaluate, device="cpu")
+    assert best.nl_compute_dtype == "bfloat16" and [t["overrides"] for t in trials] == [
+        {}, {"nl_compute_dtype": "bfloat16"}]
+    assert torch.equal(seen["float32"], f32.apply(params, *x))
+    assert torch.equal(seen["bfloat16"], bf16.apply(params, *x))
+    assert not torch.equal(seen["bfloat16"], seen["float32"])
