@@ -104,10 +104,14 @@ from neurallaplacecontrol_tpu_torch.data import (
     replay_buffer_filename,
     save_replay_buffer,
 )
+from neurallaplacecontrol_tpu_torch import oderl
+from neurallaplacecontrol_tpu_torch.data.synthetic import generate_irregular_data_delay_latent
 from neurallaplacecontrol_tpu_torch.envs import env_step, make_env
+from neurallaplacecontrol_tpu_torch.envs.oracle import cartpole_dynamics_dt_latent, cartpole_dynamics_dt_latent_reduced
 from neurallaplacecontrol_tpu_torch.models import make_carried_dynamics, make_latent_ode_model, make_model
 from neurallaplacecontrol_tpu_torch.models.base import norm_stats_for
-from neurallaplacecontrol_tpu_torch.models.common import mlp_apply_tanh
+from neurallaplacecontrol_tpu_torch.models import seq_baselines
+from neurallaplacecontrol_tpu_torch.models.common import cast_params, mlp_apply_tanh
 from neurallaplacecontrol_tpu_torch.ops import ilt, nl_cuda, pallas_ilt, pallas_nl
 from neurallaplacecontrol_tpu_torch.ops.integrate import odeint_dopri5_with_stats
 from neurallaplacecontrol_tpu_torch.results import latex_table, mean_confidence_interval, normalized_scores, summarize
@@ -123,7 +127,8 @@ from neurallaplacecontrol_tpu_torch.training import ensemble
 from neurallaplacecontrol_tpu_torch.training.eval import build_planner
 from neurallaplacecontrol_tpu_torch.training.sweep import SweepSpec, run_mppi_sweep
 from neurallaplacecontrol_tpu_torch.models.common import tree_leaves, tree_unflatten
-from neurallaplacecontrol_tpu_torch.training.train import make_optimizer, make_train_segment_fn, median
+from neurallaplacecontrol_tpu_torch.oderl.dynamics import OderlDraws
+from neurallaplacecontrol_tpu_torch.training.train import make_adam, make_optimizer, make_train_segment_fn, median
 from neurallaplacecontrol_tpu_torch.training.train_latent_ode import build_history_windows, make_latent_ode_segment_fn
 from neurallaplacecontrol_tpu_torch.utils.checkpoint import (
     from_jax_params,
@@ -297,6 +302,28 @@ F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sh
 TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (NVIDIA data sheet)
 SPLIT_PASSES = 3  # split TF32: hi*hi + hi*lo + lo*hi per product
 HBM_RATE = 3.35e12  # H100 SXM HBM3 bytes/s
+# Phase ``research``: the ODE-RL stack, the sequence baselines and the
+# latent data, held to the JAX package's f64 run of
+# ``scripts/port_jax_research_reference.py`` and to the port's own f64
+JAX_RESEARCH_REFERENCE = ROOT / "artifacts" / "port" / "jax_research_pendulum.npz"
+RESEARCH_ENV = "oderl-pendulum"
+RESEARCH_ROWS, RESEARCH_H, RESEARCH_TAU = 100, 2.0, 5.0  # forward_simulate's initial states and horizon
+RESEARCH_F32_TOL = 1e-3  # each family's f32 rollout against its f64 one on the same draws, rel_err
+RESEARCH_SIM_TOL = 1e-10  # simulate_enode at f64 against JAX's, rel_err
+RESEARCH_UPDATE_TOL = 1e-7  # each trainer update's loss against JAX's, relative
+RESEARCH_SEQ_TOL = 1e-7  # each sequence-model update's loss against JAX's, relative
+RESEARCH_LATENT_TOL = 1e-10  # the latent generator and the two-frame oracles, rel_err
+RESEARCH_TRACE_UPDATES = 1  # each demo trainer's updates under torch.profiler
+# ENODE's f64 train_policy at full width takes 1.55-2.08 s an update on an
+# NVIDIA H100 80GB HBM3 at 700 W (host-bound): the phase holds the first 5 of
+# the artifact's 20 updates of it, and all 20 of gradient_match and
+# train_dynamics
+RESEARCH_POLICY_UPDATES = 5
+# The demo at its own widths, its iterations cut to fit the phase's ~90 s:
+# train_dynamics 200 -> 100 updates, train_policy 100 -> 20 (0.69-0.83 s an
+# update on an NVIDIA H100 80GB HBM3 at 700 W, host-bound); gradient_match
+# keeps 300
+RESEARCH_DEMO_DYN_UPDATES, RESEARCH_DEMO_POL_UPDATES = 100, 20
 
 
 @contextmanager
@@ -1520,6 +1547,317 @@ def run_precision(device, smi: str, eval_returns) -> dict:
     return {**out, "reference": reference}
 
 
+class RecordedDraws:
+    """``oderl.OderlDraws`` that keeps every draw it makes, so that the f32
+    run of a family can replay the f64 run's draws (``replay``)."""
+
+    def __init__(self, generator):
+        self.draws, self.items = OderlDraws(generator), []
+
+    def _keep(self, value):
+        self.items.append(value)
+        return value
+
+    def f_noise(self, net, params, L, rows=1):
+        return self._keep(self.draws.f_noise(net, params, L, rows))
+
+    def pets(self, T, L, PN, n, dtype):
+        return self._keep(self.draws.pets(T, L, PN, n, dtype))
+
+    def moments(self, T, L, N, n, dtype):
+        return self._keep(self.draws.moments(T, L, N, n, dtype))
+
+    def randint(self, high, n):
+        return self._keep(self.draws.randint(high, n))
+
+    def replay(self, dtype):
+        """The draws again, in order, float64 tensors cast to ``dtype``."""
+        def cast(x):
+            if torch.is_tensor(x):
+                return x.to(dtype) if x.dtype == torch.float64 else x
+            if isinstance(x, (list, tuple)):
+                return type(x)(cast(v) for v in x)
+            if isinstance(x, dict):
+                return {k: cast(v) for k, v in x.items()}
+            return x
+
+        return ListDraws([cast(v) for v in self.items])
+
+
+class ListDraws:
+    """The methods of ``oderl.OderlDraws`` over a list of draws, one a call."""
+
+    def __init__(self, items):
+        self.items = list(items)
+
+    def _next(self, *_args, **_kw):
+        return self.items.pop(0)
+
+    f_noise = pets = moments = randint = _next
+
+
+class ArtifactDraws:
+    """The JAX run's draws of an ENODE trainer: ENODE draws no function
+    noise, so ``f_noise`` is None, and ``randint`` hands over the recorded
+    indices in the order the trainer asks for them."""
+
+    def __init__(self, *index_arrays, device):
+        self.items = [torch.as_tensor(x, dtype=torch.long, device=device) for row in zip(*index_arrays) for x in row]
+
+    def f_noise(self, net, params, L, rows=1):
+        return None
+
+    def randint(self, high, n):
+        return self.items.pop(0)
+
+
+class ArtifactSyntheticDraws:
+    """``data.SyntheticDraws``' methods over the JAX latent generator's draws."""
+
+    def __init__(self, ref, device):
+        self.ref, self.dtype, self.device = ref, torch.float64, device
+
+    def _t(self, key):
+        return torch.as_tensor(self.ref[key], dtype=torch.float64, device=self.device)
+
+    def states_actions(self, rounds, n_states, state_dim, n_actions, action_dim, shared):
+        return self._t("latent/u_states"), self._t("latent/u_actions")
+
+    def grid_dts(self, ts_grid, dt, rounds):
+        return self._t("latent/grid_dts")
+
+    def buffer(self, n, size, action_dim):
+        return self._t("latent/u_buffer")
+
+
+def read_jax_research_reference(path=JAX_RESEARCH_REFERENCE) -> dict:
+    """The artifact's arrays, ``meta`` parsed; refuses a reference made from
+    JAX sources that differ from this checkout's."""
+    with np.load(path) as z:
+        ref = {k: z[k] for k in z.files}
+    ref["meta"] = json.loads(str(ref["meta"]))
+    stale = [f for f, digest in ref["meta"]["sources"].items()
+             if hashlib.sha256((ROOT / f).read_bytes()).hexdigest() != digest]
+    if stale:
+        raise RuntimeError(f"{path.name} was made from other JAX sources than this checkout's: {stale}")
+    return ref
+
+
+def _tree(ref, prefix, device, dtype=torch.float64):
+    return from_jax_params(unflatten_params({k[len(prefix) + 1:]: v for k, v in ref.items()
+                                             if k.startswith(prefix + "/")}), device=device, dtype=dtype)
+
+
+def _rel_losses(got, exp) -> float:
+    got, exp = np.asarray(got, np.float64), np.asarray(exp, np.float64)
+    return float(np.max(np.abs(got - exp) / np.abs(exp)))
+
+
+def research_families(device) -> dict:
+    """Part 1: ``forward_simulate`` of each dynamics family at ``DEFAULTS``
+    (full width) from 100 states, f32 against the port's f64 on the same
+    init and draws."""
+    env = make_env(RESEARCH_ENV)
+    s0 = env.observe(torch.stack([env.reset(torch.Generator(device=device).manual_seed(i), torch.float64, device)
+                                  for i in range(RESEARCH_ROWS)]))
+    out = {}
+    for fam in oderl.DYNAMICS_FAMILIES:
+        c64 = oderl.make_ctrl(env, fam, dtype=torch.float64, device=device)
+        c32 = oderl.make_ctrl(env, fam, dtype=torch.float32, device=device)
+        p32 = c32.init(torch.Generator(device=device).manual_seed(0))
+        p64 = cast_params(p32, torch.float64)
+        rec = RecordedDraws(torch.Generator(device=device).manual_seed(1))
+        kw = dict(L=10, tau=RESEARCH_TAU, compute_rew=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st64, rt64, _ = c64.forward_simulate(p64, rec, RESEARCH_H, s0, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st32, rt32, _ = c32.forward_simulate(p32, rec.replay(torch.float32), RESEARCH_H, s0.float(), **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out[fam] = {"shape": list(st32.shape), "st_rel_err": rel_err(st32.double(), st64),
+                    "rt_rel_err": rel_err(rt32.double(), rt64), "f64_s": t1 - t0, "f32_s": t2 - t1,
+                    "finite": bool(torch.isfinite(st32).all() and torch.isfinite(rt32).all())}
+    return out
+
+
+def research_enode_vs_jax(device, ref) -> dict:
+    """Part 2: ENODE at f64 on JAX's init, data and draws: ``simulate_enode``
+    and the first updates of each trainer at its default arguments (20, and
+    ``RESEARCH_POLICY_UPDATES`` of ``train_policy``)."""
+    env = make_env(RESEARCH_ENV)
+    ctrl = oderl.make_ctrl(env, "enode", dtype=torch.float64, device=device)
+    params = oderl.ctrl_params_from_jax(ctrl, _tree(ref, "enode/init", "cpu"))
+    D = oderl.Dataset(*(torch.as_tensor(ref[f"data/{k}"], device=device) for k in oderl.Dataset._fields))
+    n = int(ref["gm/losses"].shape[0])
+    out = {}
+    st, rt, ts = ctrl.forward_simulate(params, ArtifactDraws(device=device), RESEARCH_H,
+                                       torch.as_tensor(ref["sim/s0"], device=device), L=10, tau=RESEARCH_TAU,
+                                       compute_rew=True)
+    rows = int(ref["sim/st_head"].shape[1])
+    t = lambda k: torch.as_tensor(ref[k], device=device)  # noqa: E731
+    out["simulate_rel_err"] = max(rel_err(st[:, :, -1], t("sim/st_last")), rel_err(rt[:, :, -1], t("sim/rt_last")),
+                                  rel_err(st[:, :rows], t("sim/st_head")), rel_err(rt[:, :rows], t("sim/rt_head")),
+                                  rel_err(ts, t("sim/ts")))
+    probe_x = t("probe/x")[None].expand(10, -1, -1)
+    timings = {}
+
+    def timed(name, updates, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        timings[name] = 1e3 * (time.perf_counter() - t0) / updates
+        return res
+
+    p, losses = timed("gradient_match", n, lambda: oderl.gradient_match(
+        ctrl, params, D, ArtifactDraws(device=device), n_iter=n))
+    out["gradient_match"] = {"max_rel": _rel_losses(losses, ref["gm/losses"]),
+                             "probe_rel_err": rel_err(ctrl.f_net.apply(p["f"], probe_x), t("gm/probe_f"))}
+    p, losses = timed("train_dynamics", n, lambda: oderl.train_dynamics(
+        ctrl, params, D, ArtifactDraws(ref["dyn/traj"], ref["dyn/start"], device=device), n_iter=n, log_every=0))
+    out["train_dynamics"] = {"max_rel": _rel_losses(losses, ref["dyn/losses"]),
+                             "probe_rel_err": max(rel_err(ctrl.f_net.apply(p["f"], probe_x), t("dyn/probe_f")),
+                                                  rel_err(p["logsn"], t("dyn/logsn")))}
+    n_pol = min(n, RESEARCH_POLICY_UPDATES)
+    p, rewards = timed("train_policy", n_pol, lambda: oderl.train_policy(
+        ctrl, params, D, ArtifactDraws(ref["pol/idx"][:n_pol], device=device), n_iter=n_pol, log_every=0))
+    out["train_policy"] = {"max_rel": _rel_losses(rewards, ref["pol/rewards"][:n_pol]), "updates": n_pol}
+    if n_pol == n:  # the artifact's probes are of the params after all its updates
+        out["train_policy"]["probe_rel_err"] = max(rel_err(ctrl.policy_apply(p, t("probe/s")), t("pol/probe_g")),
+                                                   rel_err(ctrl.value_apply(p, t("probe/s")), t("pol/probe_V")))
+    out["updates"], out["ms_per_update"] = n, timings
+    return out
+
+
+def research_demo(device, tmp: str) -> dict:
+    """Part 3: ``scripts/oderl_demo_torch.py`` in f32 at its own sizes, then a
+    few updates of each trainer on its result under ``trace_ticks``."""
+    from scripts import oderl_demo_torch as demo
+
+    dyn = {**demo.DYN, "n_iter": RESEARCH_DEMO_DYN_UPDATES}
+    pol = {**demo.POL, "n_iter": RESEARCH_DEMO_POL_UPDATES}
+    res = demo.main(device=device, out=str(Path(tmp) / "oderl"), dyn=dyn, pol=pol)
+    out = {}
+    n_updates = {"gradient_match": demo.GM["n_iter"], "train_dynamics": dyn["n_iter"], "train_policy": pol["n_iter"]}
+    for name, n in n_updates.items():
+        losses = np.asarray(res[name]["losses"])
+        k = max(1, n // 10)
+        out[name] = {"updates": n, "first_mean": float(losses[:k].mean()), "last_mean": float(losses[-k:].mean()),
+                     "ms_per_update": 1e3 * res[name]["seconds"] / n}
+        # the drift and segment fits lower their losses; the policy raises the
+        # imagined return, compared on every stored state before and after
+        before, after = res[name].get("imagined_return", (out[name]["first_mean"], out[name]["last_mean"]))
+        out[name]["improved"] = after > before if name == "train_policy" else after < before
+        if name == "train_policy":
+            out[name]["imagined_return_before"], out[name]["imagined_return_after"] = before, after
+    ctrl = oderl.make_ctrl(make_env(RESEARCH_ENV), "enode", device=device, **demo.SIZES)
+    params = ctrl.load(res["checkpoint"])
+    D = oderl.collect_data(ctrl.env, 2.0, 8, torch.Generator(device=device).manual_seed(2), device=device)
+    g = torch.Generator(device=device).manual_seed(3)
+    runs = {
+        "gradient_match": lambda: oderl.gradient_match(ctrl, params, D, g, n_iter=RESEARCH_TRACE_UPDATES,
+                                                       lr=demo.GM["lr"]),
+        "train_dynamics": lambda: oderl.train_dynamics(ctrl, params, D, g, n_iter=RESEARCH_TRACE_UPDATES,
+                                                       n_seg=demo.DYN["n_seg"], log_every=0),
+        "train_policy": lambda: oderl.train_policy(ctrl, params, D, g, log_every=0,
+                                                   **{**pol, "n_iter": RESEARCH_TRACE_UPDATES}),
+    }
+    for name, run in runs.items():
+        trace = trace_ticks(run, RESEARCH_TRACE_UPDATES, out[name]["ms_per_update"])
+        out[name].update({k: trace[k] for k in ("device_ops_per_tick", "device_busy_ms_per_tick", "idle_share",
+                                                "traced_tick_ms")})
+    return out
+
+
+def research_sequences(device, ref) -> dict:
+    """Part 4: ODE-RNN, GRU and GRU-D at their default widths, 60 f64 Adam
+    updates of the reconstruction MSE on JAX's irregular sine and init."""
+    x, ts = (torch.as_tensor(ref[k], device=device) for k in ("seq/x", "seq/ts"))
+    makers = {"ode_rnn": lambda: seq_baselines.make_ode_rnn(1, device=device),
+              "gru": lambda: seq_baselines.make_classic_rnn(1, cell="gru", device=device),
+              "expdecay": lambda: seq_baselines.make_classic_rnn(1, cell="expdecay", device=device)}
+    out = {}
+    for name, make in makers.items():
+        model = make()
+        params = seq_baselines.sequence_params_from_jax(model, _tree(ref, f"seq/{name}/init", "cpu"))
+        opt = make_adam(1e-2)
+        state = opt.init(params)
+        losses = []
+        for _ in range(int(ref[f"seq/{name}/losses"].shape[0])):
+            leaves = [v.detach().requires_grad_(True) for v in tree_leaves(params)]
+            loss = torch.mean((model.reconstruct(tree_unflatten(params, leaves), x, ts) - x) ** 2)
+            updates, state = opt.update(tree_unflatten(params, list(torch.autograd.grad(loss, leaves))), state)
+            params = tree_unflatten(params, [(a + u).detach() for a, u in zip(tree_leaves(params),
+                                                                             tree_leaves(updates))])
+            losses.append(loss.detach())
+        out[name] = {"max_rel": _rel_losses([float(v) for v in losses], ref[f"seq/{name}/losses"]),
+                     "encode_rel_err": rel_err(model.encode(params, x, ts),
+                                               torch.as_tensor(ref[f"seq/{name}/encode"], device=device))}
+    return out
+
+
+def research_latent(device, ref) -> dict:
+    """Part 5: the latent generator on cartpole (``latent=True``, delay 2) on
+    JAX's draws, and both two-frame oracles, at f64."""
+    env = make_env("oderl-cartpole", ts_grid="exp")
+    got = generate_irregular_data_delay_latent(env, ArtifactSyntheticDraws(ref, device), 2, samples_per_dim=3,
+                                               rand=True, latent=True)
+    t = lambda k: torch.as_tensor(ref[k], device=device)  # noqa: E731
+    out = {"generator_rel_err": max(rel_err(g, t(f"latent/{k}")) for k, g in zip(("s0", "a0", "sb", "sn", "ts"),
+                                                                                  got)),
+           "rows": int(got[0].shape[0])}
+    trig, prev, act, ts = t("oracle/trig"), t("oracle/trig_prev"), t("oracle/action"), t("oracle/ts")
+    out["oracle_rel_err"] = max(
+        rel_err(cartpole_dynamics_dt_latent(trig, prev, act, ts), t("oracle/latent")),
+        rel_err(cartpole_dynamics_dt_latent_reduced(trig[:, [0, 2, 3]], prev[:, [0, 2, 3]], act, ts),
+                t("oracle/latent_reduced")))
+    return out
+
+
+def run_research(device, smi: str, tmp: str) -> dict:
+    """Phase ``research``: the modules off the paper's path, on the card.
+    1. The five dynamics families' f32 rollouts against their f64 ones
+    (``RESEARCH_F32_TOL``). 2. ENODE against the JAX package at f64 on its
+    init, data and draws (``JAX_RESEARCH_REFERENCE``): ``simulate_enode``
+    (``RESEARCH_SIM_TOL``) and each trainer's first updates, 20 of
+    ``gradient_match`` and ``train_dynamics`` and ``RESEARCH_POLICY_UPDATES`` of
+    ``train_policy`` (``RESEARCH_UPDATE_TOL``). 3. The f32 demo at its widths with its
+    iterations cut (``RESEARCH_DEMO_*``), each fit improving, with each
+    trainer's update time and device trace. 4. The sequence models' 60
+    updates (``RESEARCH_SEQ_TOL``). 5. The latent data
+    (``RESEARCH_LATENT_TOL``). One ``research <part> {...}`` line per part."""
+    ref = read_jax_research_reference()
+    failures, out, seconds = [], {}, {}
+    parts = (("families", lambda: research_families(device)), ("enode", lambda: research_enode_vs_jax(device, ref)),
+             ("demo", lambda: research_demo(device, tmp)), ("sequences", lambda: research_sequences(device, ref)),
+             ("latent", lambda: research_latent(device, ref)))
+    for name, run in parts:
+        t0 = time.perf_counter()
+        out[name] = run()
+        seconds[name] = time.perf_counter() - t0
+        print(f"research {name} " + json.dumps({**out[name], "part_s": seconds[name], "card": smi}), flush=True)
+    for fam, r in out["families"].items():
+        if not (r["finite"] and max(r["st_rel_err"], r["rt_rel_err"]) < RESEARCH_F32_TOL):
+            failures.append(f"{fam}: f32 rollout {max(r['st_rel_err'], r['rt_rel_err']):.3e} from f64")
+    if not out["enode"]["simulate_rel_err"] < RESEARCH_SIM_TOL:
+        failures.append(f"simulate_enode {out['enode']['simulate_rel_err']:.3e} from JAX's")
+    for name in ("gradient_match", "train_dynamics", "train_policy"):
+        if not out["enode"][name]["max_rel"] < RESEARCH_UPDATE_TOL:
+            failures.append(f"{name}: an update {out['enode'][name]['max_rel']:.3e} from JAX's")
+        if not out["demo"][name]["improved"]:
+            failures.append(f"demo {name}: no improvement ({out['demo'][name]})")
+    for name, r in out["sequences"].items():
+        if not r["max_rel"] < RESEARCH_SEQ_TOL:
+            failures.append(f"sequence model {name}: an update {r['max_rel']:.3e} from JAX's")
+    if not max(out["latent"]["generator_rel_err"], out["latent"]["oracle_rel_err"]) < RESEARCH_LATENT_TOL:
+        failures.append(f"latent data {out['latent']}")
+    if failures:
+        raise RuntimeError("phase research: " + "; ".join(failures))
+    return {**out, "seconds": seconds}
+
+
 def driver_args(tmp: str, part: str, *args) -> list:
     """The driver's command line for one part of phase ``driver``: its results,
     logs and checkpoints under ``tmp/driver/<part>``, on the card."""
@@ -2248,6 +2586,9 @@ def main() -> int:
 
         with phase("precision"):
             precision = run_precision(device, smi, evaluation["nl_returns"])
+
+        with phase("research"):
+            run_research(device, smi, tmp)
 
         with phase("driver"):
             driving = run_driver(device, smi, tmp)

@@ -14,7 +14,9 @@ seed-batched evaluation
 (``training.evaluate_policy``), expert and synthetic data (``data``) and
 training (``training.train_model``). The planner-path NL forward is a
 hand-written CUDA kernel (``ops.pallas_nl``; ``ops.pallas_ilt`` holds its
-head-only sibling).
+head-only sibling). Off the paper's path it has the ODE-RL stack
+(``oderl``), the sequence baselines (``models.seq_baselines``) with the toy
+data (``data.toy``), and the two-frame latent data.
 
 Entry points take ``device="cuda"`` by default and raise when CUDA is
 absent; pass ``device="cpu"`` to run on the CPU, where every kernel wrapper
@@ -36,13 +38,17 @@ _EXPORTS = {
     "train_model": ".training",
 }
 __all__ = sorted(_EXPORTS)
+# sub-packages reached as attributes, imported at first use (the JAX package's _LAZY)
+_LAZY = {"oderl", "results", "serving", "tune"}
 
 
 def __getattr__(name):
-    if name not in _EXPORTS:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     import importlib
 
+    if name in _LAZY:
+        return importlib.import_module(f".{name}", __name__)
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     value = getattr(importlib.import_module(_EXPORTS[name], __name__), name)
     globals()[name] = value
     return value

@@ -60,6 +60,10 @@ class SyntheticDraws:
     def dt(self, ts_grid: str, dt: float, rounds: int) -> torch.Tensor:  # [rounds]
         return sample_dt(self.generator, ts_grid, dt, (rounds,), self.dtype, self.device)
 
+    def grid_dts(self, ts_grid: str, dt: float, rounds: int) -> torch.Tensor:  # [rounds, 3]
+        """The interval draws of each round's 3-point time grid."""
+        return sample_dt(self.generator, ts_grid, dt, (rounds, 3), self.dtype, self.device)
+
     def buffer(self, n: int, size: int, action_dim: int) -> torch.Tensor:
         """Uniform draws for the random action buffers [n, size, action_dim]."""
         return self._uniform((n, size, action_dim))
@@ -135,6 +139,78 @@ def _generate(env: Env, draws, samples_per_dim: int, rounds: int, rand: bool, de
         ages = torch.flip(torch.arange(action_buffer_size, dtype=dtype, device=device), dims=(0,))
         buf = torch.cat([buf, ages[None, :, None].expand(N, action_buffer_size, 1)], dim=2)
     return s0, buf, sn, ts
+
+
+def generate_irregular_data_delay_latent(
+    env: Env,
+    draws,
+    delay: int,
+    samples_per_dim: Optional[int] = None,
+    rand: bool = False,
+    latent: bool = False,
+):
+    """Two-frame synthetic data for latent (finite-difference) models
+    (reference overlay.generate_irregular_data_delay_latent:222-397 +
+    base_env.batch_integrate_system_double_time:175-229).
+
+    Each of ``samples_per_dim`` rounds integrates TWO consecutive observation
+    intervals of a sampled 3-point time grid (``draws.grid_dts``): sb = the
+    frame after the first interval, sn = the frame after the second.
+    Returns (s0, a0, sb, sn, ts) in trig form, with ``delay`` extra random
+    actions (``draws.buffer``) appended to the action (overlay :378-384). As
+    in the JAX package (``data/synthetic.py:146-147``), ``ts`` is the second
+    ABSOLUTE grid point, not the first interval (overlay uses ts[1]; the two
+    agree on the 'fixed' grid). With latent=True (cartpole only) sn is the
+    two-frame latent oracle's step from (s0, sb) and every frame reduces to
+    its position dims [x, l cos, l sin] (overlay :385-391).
+    """
+    spec = env.spec
+    spd = samples_per_dim or default_samples_per_dim(spec.name)
+    n_state, m = spec.n_state, spec.m
+    dtype, device = draws.dtype, draws.device
+    a_high = spec.action_high
+    if latent and "cartpole" not in spec.name:
+        raise ValueError("the latent reduction is cartpole-only")
+
+    if rand:
+        u_s, u_a = draws.states_actions(spd, spd**n_state, n_state, spd, m, False)
+        s0s = (u_s - 0.5) * 2.0 * torch.tensor(env.state_max, dtype=dtype, device=device)
+        actions = (u_a - 0.5) * 2.0 * a_high
+    else:
+        s0, a = _grid_states_actions(env, spd, env.state_max, dtype, device)
+        s0s, actions = s0.expand((spd,) + s0.shape), a.expand((spd,) + a.shape)
+    # each round's 3-point grid (build_time_grid only_one_step=False, T=3)
+    pts = draws.grid_dts(spec.ts_grid, spec.dt, spd)
+    if spec.ts_grid != "fixed":
+        grid = torch.cumsum(pts, dim=1)
+    else:
+        grid = spec.dt * torch.arange(3, dtype=dtype, device=device).expand(spd, 3)
+    d1 = (grid[:, 1] - grid[:, 0])[:, None, None, None]
+    d2 = (grid[:, 2] - grid[:, 1])[:, None, None, None]
+
+    S, A = s0s.shape[1], actions.shape[1]
+    s_b = s0s[:, :, None, :].expand(spd, S, A, n_state)
+    a_b = actions[:, None, :, :].expand(spd, S, A, m)
+    sb = s_b + d1 * env.rhs(s_b, a_b)
+    sn = sb + d2 * env.rhs(sb, a_b)
+
+    def flat(x):  # action-major within each round (batch_integrate_system layout)
+        return x.transpose(1, 2).reshape(-1, x.shape[-1])
+
+    s0, sb, sn = env.observe(flat(s_b)), env.observe(flat(sb)), env.observe(flat(sn))
+    a0 = flat(a_b)
+    ts = torch.repeat_interleave(grid[:, 1], S * A)[:, None]
+
+    if delay > 0:
+        extra = (draws.buffer(a0.shape[0], delay, m) - 0.5) * 2.0 * a_high
+        a0 = torch.cat([a0[:, None, :], extra], dim=1)
+
+    if latent:
+        from ..envs.oracle import cartpole_dynamics_dt_latent
+
+        sn = cartpole_dynamics_dt_latent(sb, s0, a0[:, 0] if a0.dim() == 3 else a0, ts)
+        s0, sb, sn = s0[:, [0, 2, 3]], sb[:, [0, 2, 3]], sn[:, [0, 2, 3]]
+    return s0, a0, sb, sn, ts
 
 
 def generate_irregular_data_delay_time_multi(

@@ -75,15 +75,6 @@ def make_optimizer(config: Config) -> Optimizer:
     wd = config.weight_decay
     lr0 = config.learning_rate
 
-    def init(params) -> AdamState:
-        leaf = tree_leaves(params)[0]
-        zeros = [torch.zeros_like(x) for x in tree_leaves(params)]
-        return AdamState(
-            count=torch.zeros((), dtype=torch.int32, device=leaf.device),
-            mu=tree_unflatten(params, zeros),
-            nu=tree_unflatten(params, [z.clone() for z in zeros]),
-        )
-
     def learning_rate(count: torch.Tensor, dtype) -> torch.Tensor:
         if not config.use_lr_scheduler:
             return torch.tensor(lr0, dtype=dtype, device=count.device)
@@ -103,19 +94,44 @@ def make_optimizer(config: Config) -> Optimizer:
         g = [torch.where(keep, x, (x / g_norm) * max_norm) for x in g]
         if wd:
             g = [x + wd * p for x, p in zip(g, tree_leaves(params))]
-        mu = [(1 - _ADAM_B1) * x + _ADAM_B1 * m for x, m in zip(g, tree_leaves(state.mu))]
-        nu = [(1 - _ADAM_B2) * (x * x) + _ADAM_B2 * v for x, v in zip(g, tree_leaves(state.nu))]
-        count = torch.where(state.count < _INT32_MAX, state.count + 1, state.count)
-        dtype = g[0].dtype
-        c = count.to(dtype)
-        bc1 = 1 - torch.pow(torch.tensor(_ADAM_B1, dtype=dtype, device=c.device), c)
-        bc2 = 1 - torch.pow(torch.tensor(_ADAM_B2, dtype=dtype, device=c.device), c)
-        step = -learning_rate(state.count, dtype)
-        updates = [step * ((m / bc1) / (torch.sqrt(v / bc2) + _ADAM_EPS)) for m, v in zip(mu, nu)]
-        return tree_unflatten(grads, updates), AdamState(
-            count=count, mu=tree_unflatten(state.mu, mu), nu=tree_unflatten(state.nu, nu))
+        return _adam(grads, g, state, learning_rate(state.count, g[0].dtype))
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=_adam_init, update=update)
+
+
+def _adam_init(params) -> AdamState:
+    zeros = [torch.zeros_like(x) for x in tree_leaves(params)]
+    return AdamState(
+        count=torch.zeros((), dtype=torch.int32, device=zeros[0].device),
+        mu=tree_unflatten(params, zeros),
+        nu=tree_unflatten(params, [z.clone() for z in zeros]),
+    )
+
+
+def _adam(grads, g: list, state: AdamState, lr: torch.Tensor):
+    """Adam on the gradient leaves ``g`` (the tree of ``grads``), scaled by -lr."""
+    mu = [(1 - _ADAM_B1) * x + _ADAM_B1 * m for x, m in zip(g, tree_leaves(state.mu))]
+    nu = [(1 - _ADAM_B2) * (x * x) + _ADAM_B2 * v for x, v in zip(g, tree_leaves(state.nu))]
+    count = torch.where(state.count < _INT32_MAX, state.count + 1, state.count)
+    dtype = g[0].dtype
+    c = count.to(dtype)
+    bc1 = 1 - torch.pow(torch.tensor(_ADAM_B1, dtype=dtype, device=c.device), c)
+    bc2 = 1 - torch.pow(torch.tensor(_ADAM_B2, dtype=dtype, device=c.device), c)
+    updates = [-lr * ((m / bc1) / (torch.sqrt(v / bc2) + _ADAM_EPS)) for m, v in zip(mu, nu)]
+    return tree_unflatten(grads, updates), AdamState(
+        count=count, mu=tree_unflatten(state.mu, mu), nu=tree_unflatten(state.nu, nu))
+
+
+def make_adam(learning_rate: float) -> Optimizer:
+    """``optax.adam(learning_rate)`` alone: Adam (b1 0.9, b2 0.999, eps 1e-8)
+    scaled by ``-learning_rate``, with no clip and no guard, the optimizer of
+    the JAX package's ODE-RL trainers."""
+
+    def update(grads, state: AdamState, params=None):
+        g = tree_leaves(grads)
+        return _adam(grads, g, state, torch.tensor(learning_rate, dtype=g[0].dtype, device=g[0].device))
+
+    return Optimizer(init=_adam_init, update=update)
 
 
 def make_train_segment_fn(model: DynamicsModel, optimizer: Optimizer):

@@ -92,6 +92,19 @@ def from_jax_params(tree, device="cuda", dtype=None):
     return convert(tree)
 
 
+def from_jax_params_like(tree, like, dtype=None):
+    """A JAX parameter tree of numpy arrays as the port's tree ``like``: the
+    same keys and shapes, else ``ValueError``; each leaf on the device of its
+    counterpart in ``like``, in ``dtype`` (its counterpart's when None)."""
+    flat, want = flatten_params(tree), flatten_params(like)
+    if sorted(flat) != sorted(want):
+        raise ValueError(f"keys {sorted(flat)} differ from the model's {sorted(want)}")
+    for key, value in want.items():
+        if flat[key].shape != value.shape:
+            raise ValueError(f"{key} has shape {flat[key].shape}, the model {value.shape}")
+    return _unflatten_like(flat, like, dtype=dtype)
+
+
 def save_pytree(path, params) -> None:
     """Write ``params`` as the JAX package's flat ``/``-joined ``.npz``."""
     Path(path).parent.mkdir(parents=True, exist_ok=True)
@@ -110,21 +123,18 @@ def load_pytree(path, device="cuda", dtype=None, like=None):
         flat = {k: z[k] for k in z.files}
     if like is None:
         return from_jax_params(unflatten_params(flat), device=device, dtype=dtype)
-    want = flatten_params(like)
-    if sorted(flat) != sorted(want):
-        raise ValueError(f"{path}: keys {sorted(flat)} differ from the model's {sorted(want)}")
-    for key, value in want.items():
-        if flat[key].shape != value.shape:
-            raise ValueError(f"{path}: {key} has shape {flat[key].shape}, the model {value.shape}")
-    return _unflatten_like(flat, like)
+    try:
+        return from_jax_params_like(flat, like)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
-def _unflatten_like(flat: dict, like, prefix: str = ""):
+def _unflatten_like(flat: dict, like, prefix: str = "", dtype=None):
     if isinstance(like, dict):
-        return {k: _unflatten_like(flat, v, f"{prefix}/{k}" if prefix else k) for k, v in like.items()}
+        return {k: _unflatten_like(flat, v, f"{prefix}/{k}" if prefix else k, dtype) for k, v in like.items()}
     if isinstance(like, (list, tuple)):
-        return [_unflatten_like(flat, v, f"{prefix}/{i}" if prefix else str(i)) for i, v in enumerate(like)]
-    return torch.as_tensor(flat[prefix], dtype=like.dtype, device=like.device)
+        return [_unflatten_like(flat, v, f"{prefix}/{i}" if prefix else str(i), dtype) for i, v in enumerate(like)]
+    return torch.tensor(flat[prefix], dtype=dtype or like.dtype, device=like.device)
 
 
 def tracked_checkpoint_path(name: str, repo_root=None) -> Path:

@@ -29,7 +29,10 @@ a ``torch.distributed`` group, one process per device
 A host is the L ranks of one node. The cells split by host (round-robin, as
 ``--multihost`` splits them by process), each host's ranks shard its own
 cells, and one rank per host writes the host's records; the records carry
-``shard`` and ``shard_group_size``. With ``--multihost`` every process is a
+``shard`` and ``shard_group_size``. A host's first rank does its training,
+a delay ensemble's included, and broadcasts each cell's parameters to the
+host's other ranks; an ensemble over a group of several hosts is refused,
+as under ``--multihost``. With ``--multihost`` every process is a
 host of one rank. A single process is a world of one, where every shard
 mode is the unsharded evaluation.
 
@@ -226,8 +229,10 @@ def main(argv=None) -> dict:
     if ranks_per_host > 1 and not shard_kwargs:
         parser.error(f"a host of {ranks_per_host} ranks evaluates with --shard; with 'none' every rank "
                      "would run the same cells")
-    if ranks_per_host > 1 and ns.ensemble_delays.lower() == "true" and len(ns.delays.split(",")) > 1:
-        parser.error("--ensemble_delays runs one process per host: launch it without torchrun's ranks")
+    hosts = int(os.environ.get("WORLD_SIZE", "1")) // ranks_per_host if multihost.under_torchrun() else 1
+    if hosts > 1 and ns.ensemble_delays.lower() == "true" and len(ns.delays.split(",")) > 1:
+        parser.error(f"--ensemble_delays trains on one host, and torchrun's group spans {hosts}: the ensemble "
+                     "couples delays across cells (as under --multihost)")
     envs = ns.envs.split(",")
     delays = [int(d) for d in ns.delays.split(",")]
     models = ns.models.split(",")

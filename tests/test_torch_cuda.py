@@ -678,3 +678,53 @@ def test_bf16_config_with_fused_planner_launches_the_f32_kernel(cuda_device):
         assert tnl.nl_forward_fused.launches == 40
         actions.append(action)
     assert torch.equal(actions[0], actions[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dynamics", ["enode", "benode", "ibnode", "pets", "deep_pilco"])
+def test_oderl_rollout_on_card_matches_cpu_f64(cuda_device, dynamics):
+    """Each ODE-RL family's f64 rollout (nets 2x32, 8 states, 0.5 s) on the
+    card against the CPU's on the same init and draws, < 1e-10."""
+    from neurallaplacecontrol_tpu_torch import oderl
+    from neurallaplacecontrol_tpu_torch.envs import make_env
+    from neurallaplacecontrol_tpu_torch.models.common import tree_map
+
+    env = make_env("oderl-pendulum")
+    opts = dict(n_ens=4, nl_f=2, nn_f=32, nn_g=32, nn_V=32)
+    cpu = oderl.make_ctrl(env, dynamics, dtype=torch.float64, device="cpu", **opts)
+    card = oderl.make_ctrl(env, dynamics, dtype=torch.float64, device=cuda_device, **opts)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    s0 = env.observe(torch.stack([env.reset(torch.Generator().manual_seed(i), torch.float64) for i in range(8)]))
+    draws = []
+
+    class Keep(oderl.OderlDraws):
+        def f_noise(self, *a, **k):
+            draws.append(super().f_noise(*a, **k))
+            return draws[-1]
+
+        def pets(self, *a, **k):
+            draws.append(super().pets(*a, **k))
+            return draws[-1]
+
+        def moments(self, *a, **k):
+            draws.append(super().moments(*a, **k))
+            return draws[-1]
+
+    exp = cpu.forward_simulate(params, Keep(torch.Generator().manual_seed(1)), 0.5, s0, L=4, tau=5.0,
+                               compute_rew=True)
+
+    def to_card(x):
+        if isinstance(x, (list, tuple)):
+            return type(x)(to_card(v) for v in x)
+        return x.to(cuda_device) if torch.is_tensor(x) else x
+
+    class Replay:
+        def f_noise(self, *a, **k):
+            return to_card(draws.pop(0))
+
+        pets = moments = f_noise
+
+    got = card.forward_simulate(tree_map(lambda x: x.to(cuda_device), params), Replay(), 0.5, s0.to(cuda_device),
+                                L=4, tau=5.0, compute_rew=True)
+    for g, e in zip(got, exp):
+        assert rel_err(g.cpu(), e) < 1e-10

@@ -160,3 +160,64 @@ def test_oracle_val_loss_helpers():
     loss = tval.get_val_loss_delay_time_multi(model.apply, model.init(torch.Generator().manual_seed(0)), env,
                                               delay, samples_per_dim=3, dtype=torch.float64, device="cpu")
     assert np.isfinite(loss) and loss > 1e-8
+
+
+class JaxLatentDraws:
+    """The JAX latent generator's draws (data/synthetic.py:130-216): its key
+    split into one key per round, each split 3 ways into the state, action
+    and time-grid keys, and the extra actions from ``fold_in(key, 7)``."""
+
+    def __init__(self, key, rounds, dtype=torch.float64):
+        self.key, self.dtype, self.device = key, dtype, torch.device("cpu")
+        self.round_keys = [jax.random.split(k, 3) for k in jax.random.split(key, rounds)]
+
+    def _t(self, x):
+        return torch.tensor(np.asarray(x), dtype=self.dtype)
+
+    def states_actions(self, rounds, n_states, state_dim, n_actions, action_dim, shared):
+        assert rounds == len(self.round_keys) and not shared
+        return (self._t(np.stack([jax.random.uniform(k[0], (n_states, state_dim)) for k in self.round_keys])),
+                self._t(np.stack([jax.random.uniform(k[1], (n_actions, action_dim)) for k in self.round_keys])))
+
+    def grid_dts(self, ts_grid, dt, rounds):
+        return self._t(np.stack([jax_sample_dt(k[2], ts_grid, dt, (3,)) for k in self.round_keys]))
+
+    def buffer(self, n, size, action_dim):
+        return self._t(jax.random.uniform(jax.random.fold_in(self.key, 7), (n, size, action_dim)))
+
+
+LATENT_CASES = {  # env, delay, rand, latent, ts_grid
+    "cartpole_latent_d2": ("oderl-cartpole", 2, True, True, "exp"),
+    "cartpole_latent_d0_grid_fixed": ("oderl-cartpole", 0, False, True, "fixed"),
+    "pendulum_d1_uniform": ("oderl-pendulum", 1, True, False, "uniform"),
+    "acrobot_d0_grid": ("oderl-acrobot", 0, False, False, "exp"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LATENT_CASES))
+def test_latent_generator_matches_jax_f64(case):
+    """``generate_irregular_data_delay_latent`` on JAX's draws, < 1e-12 at
+    f64; ``ts`` is the second absolute grid point, the JAX package's quirk,
+    and with ``latent`` sn is the two-frame oracle's step from (s0, sb)."""
+    env_name, delay, rand, latent, grid = LATENT_CASES[case]
+    key, spd = jax.random.PRNGKey(12), 3
+    kw = dict(samples_per_dim=spd, rand=rand, latent=latent)
+    exp = jsyn.generate_irregular_data_delay_latent(jax_make_env(env_name, ts_grid=grid), key, delay, **kw)
+    got = tsyn.generate_irregular_data_delay_latent(torch_make_env(env_name, ts_grid=grid),
+                                                    JaxLatentDraws(key, spd), delay, **kw)
+    for name, g, e in zip(("s0", "a0", "sb", "sn", "ts"), got, exp):
+        assert g.shape == e.shape and g.dtype == torch.float64, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-12, atol=1e-12, err_msg=name)
+    if latent:
+        assert got[0].shape[1] == 3
+    with pytest.raises(ValueError, match="cartpole-only"):
+        tsyn.generate_irregular_data_delay_latent(torch_make_env("oderl-pendulum"), JaxLatentDraws(key, spd), 0,
+                                                  samples_per_dim=spd, latent=True)
+
+
+def test_latent_generator_own_draws():
+    s0, a0, sb, sn, ts = tsyn.generate_irregular_data_delay_latent(
+        torch_make_env("oderl-cartpole", ts_grid="exp"), tsyn.SyntheticDraws(0, torch.float64, "cpu"), 1,
+        samples_per_dim=2, rand=True, latent=True)
+    assert s0.shape == sb.shape == sn.shape == (64, 3) and a0.shape == (64, 2, 1) and ts.shape == (64, 1)
+    assert bool(torch.isfinite(sn).all()) and bool((ts > 0).all())

@@ -166,17 +166,18 @@ def test_driver_refuses_before_any_work(extra, message, tmp_path, monkeypatch, c
     assert not (tmp_path / "run").exists()
 
 
-@pytest.mark.parametrize("extra,message", [
-    (("--multihost", "127.0.0.1:1,2", "--shard", "seeds"), "pass one"),
-    ((), "evaluates with --shard"),
-    (("--shard", "seeds", "--ensemble_delays", "true", "--delays", "0,1"), "--ensemble_delays"),
+@pytest.mark.parametrize("extra,message,world", [
+    (("--multihost", "127.0.0.1:1,2", "--shard", "seeds"), "pass one", 2),
+    ((), "evaluates with --shard", 2),
+    (("--shard", "seeds", "--ensemble_delays", "true", "--delays", "0,1"), "--ensemble_delays", 4),
 ], ids=["multihost_and_torchrun", "several_ranks_unsharded", "ensemble_on_several_ranks"])
-def test_driver_refuses_under_torchrun(extra, message, tmp_path, monkeypatch, capsys):
-    """Under torchrun's environment (a host of 2 ranks) the refusals come
+def test_driver_refuses_under_torchrun(extra, message, world, tmp_path, monkeypatch, capsys):
+    """Under torchrun's environment (hosts of 2 ranks) the refusals come
     before the process group is joined: two names for the group, ranks that
-    would all run the same unsharded cells, and ensemble training, which
-    runs one process per host."""
-    for key, value in dict(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0", LOCAL_WORLD_SIZE="2",
+    would all run the same unsharded cells, and ensemble training over a
+    group of several hosts (2 of 2 ranks here; one host of several ranks
+    trains it on its first rank: tests/test_torch_multihost.py)."""
+    for key, value in dict(RANK="0", WORLD_SIZE=str(world), LOCAL_RANK="0", LOCAL_WORLD_SIZE="2",
                            MASTER_ADDR="127.0.0.1", MASTER_PORT="1").items():
         monkeypatch.setenv(key, value)
     monkeypatch.setattr(driver.multihost, "initialize", lambda *a, **k: pytest.fail("joined a group"))

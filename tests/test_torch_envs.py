@@ -164,3 +164,29 @@ def test_render_frame_is_pixel_equal_to_jax(env_name):
         exp = jax_render(env_name, jnp.asarray(s), last_act=a)
         assert got.dtype == np.uint8 and got.ndim == 3 and got.shape[-1] == 3
         np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.parametrize("form", ["trig", "raw", "reduced"])
+def test_two_frame_latent_oracles_match_jax(form):
+    """``cartpole_dynamics_dt_latent`` on 5-wide trig and 4-wide raw frames,
+    and ``_latent_reduced`` on 3-wide position frames, against JAX's at f64:
+    velocities by finite differences of two frames, semi-implicit Euler."""
+    from neurallaplacecontrol_tpu.envs import oracle as joracle
+    from neurallaplacecontrol_tpu_torch.envs import oracle as toracle
+
+    jenv = jax_make_env("oderl-cartpole")
+    raw, action = draws(jenv.spec, seed=4, B=16)
+    prev_raw = raw - 0.05 * np.random.default_rng(5).uniform(-1.0, 1.0, raw.shape)
+    ts = np.random.default_rng(6).uniform(0.02, 0.1, (16, 1))
+    if form == "raw":
+        state, prev = raw, prev_raw
+    else:
+        state, prev = (np.asarray(jenv.observe(jnp.asarray(x))) for x in (raw, prev_raw))
+        if form == "reduced":
+            state, prev = state[:, [0, 2, 3]], prev[:, [0, 2, 3]]
+    name = "cartpole_dynamics_dt_latent" + ("_reduced" if form == "reduced" else "")
+    for tq in (ts, ts[:, 0]):
+        got = getattr(toracle, name)(torch.tensor(state), torch.tensor(prev), torch.tensor(action), torch.tensor(tq))
+        exp = getattr(joracle, name)(jnp.asarray(state), jnp.asarray(prev), jnp.asarray(action), jnp.asarray(tq))
+        assert got.shape == exp.shape
+        close(got, exp)

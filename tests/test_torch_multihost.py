@@ -145,3 +145,50 @@ def test_two_process_gloo_driver_grid(tmp_path):
         ref = evaluate_policy(r["model_name"], r["env_name"], r["delay"], range(3), cfg, device="cpu")
         np.testing.assert_allclose(r["total_rewards"], ref["total_rewards"], rtol=1e-6,
                                    err_msg=f"{r['model_name']} d={r['delay']}")
+
+
+def test_two_rank_host_trains_the_ensemble(tmp_path):
+    """Two ranks of torchrun's environment run the driver with
+    ``--ensemble_delays true --delays 0,1 --shard seeds`` on the CPU (gloo):
+    rank 0 trains the rnn delay ensemble, broadcasts each delay's members to
+    rank 1, and the two ranks evaluate every cell's seeds in halves. The
+    records equal a one-process run's (``--shard none``) of the same flags."""
+    sys.path.insert(0, str(REPO))
+    import run_exp_multi_torch as driver
+
+    def argv(run, shard):
+        return ["--device", "cpu", "--envs", "oderl-pendulum", "--delays", "0,1", "--models", "rnn,random",
+                "--ensemble_delays", "true", "--ensemble_gate", "none", "--shard", shard, "--retrain", "true",
+                "--force_retrain", "true", "--train_seconds", "1000", "--training_epochs", "1",
+                "--train_with_expert_trajectories", "false", "--train_samples_per_dim", "2", "--iters_per_log", "20",
+                "--rnn_hidden_units", "8", "--seed_runs", "4", "--dt", "0.5", "--mppi_roll_outs", "8",
+                "--mppi_time_steps", "3", "--results", str(tmp_path / run / "results.jsonl"),
+                "--saved_models_path", str(tmp_path / run) + "/", "--log_folder", str(tmp_path / run)]
+
+    code = ("import sys, torch; sys.path.insert(0, sys.argv[1]); import run_exp_multi_torch as d; "
+            "torch.set_num_threads(1); d.main(sys.argv[2:])")
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(REPO)] + argv("ranks", "seeds"),
+                              env=dict(env, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2",
+                                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+                              cwd=str(tmp_path), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    ref = driver.main(argv("one", "none"))["records"]
+    written = [json.loads(x) for x in (tmp_path / "ranks" / "results.jsonl").read_text().splitlines()]
+    assert "(ensemble" in outs[0] and "[trained" not in outs[1]
+    assert [(r["model_name"], r["delay"]) for r in written] == [(r["model_name"], r["delay"]) for r in ref]
+    assert {(r["model_name"], r["delay"]) for r in written} == {(m, d) for m in ("rnn", "random") for d in (0, 1)}
+    for got, want in zip(written, ref):
+        assert not got["errored"] and got["shard"] == "seeds" and got["shard_group_size"] == 2
+        np.testing.assert_array_equal(got["total_rewards"], want["total_rewards"],
+                                   err_msg=f"{got['model_name']} d={got['delay']}")

@@ -41,7 +41,10 @@ PORT_FILES = sorted((REPO / "neurallaplacecontrol_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "run_exp_multi_torch.py", REPO / "scripts" / "port_shard_check.py",
     REPO / "scripts" / "serve_demo_torch.py", REPO / "scripts" / "port_deploy_check.py",
     REPO / "scripts" / "port_precision_check.py", REPO / "scripts" / "bench_bf16_torch.py",
-    REPO / "scripts" / "bench_int8_torch.py"]
+    REPO / "scripts" / "bench_int8_torch.py", REPO / "scripts" / "oderl_demo_torch.py",
+    REPO / "scripts" / "bench_episode_batch_torch.py", REPO / "scripts" / "bench_scaling_torch.py",
+    REPO / "scripts" / "bench_train_torch.py", REPO / "scripts" / "bench_pallas_torch.py",
+    REPO / "scripts" / "bench_mxu_sweep_torch.py", REPO / "scripts" / "port_research_check.py"]
 FORBIDDEN = ("jax", "neurallaplacecontrol_tpu")
 
 
@@ -214,6 +217,23 @@ def test_port_and_chip_smoke_import_and_tick_without_jax():
         assert (pref["env"], pref["delay"], pref["seeds"]) == (chip_smoke.MAIN_ENV, chip_smoke.DELAY,
                                                                 chip_smoke.EVAL_SEEDS)
         assert all(len(pref["policies"][k]["total_rewards"]) == 20 for k in ("bf16", "int8"))
+        # phase research: the JAX run's artifact, the latent data part on the CPU,
+        # the ODE-RL stack and the sequence models
+        rref = chip_smoke.read_jax_research_reference()
+        assert rref["gm/losses"].shape == rref["dyn/losses"].shape == rref["pol/rewards"].shape == (20,)
+        lat = chip_smoke.research_latent(torch.device("cpu"), rref)
+        assert max(lat["generator_rel_err"], lat["oracle_rel_err"]) < chip_smoke.RESEARCH_LATENT_TOL
+        from neurallaplacecontrol_tpu_torch import oderl
+        from neurallaplacecontrol_tpu_torch.models import seq_baselines
+        octrl = oderl.make_ctrl(port.make_env("oderl-pendulum"), "enode", device="cpu")
+        oparams = oderl.ctrl_params_from_jax(octrl, chip_smoke._tree(rref, "enode/init", "cpu"))
+        st, rt, _ = octrl.forward_simulate(oparams, torch.Generator().manual_seed(0), 0.1,
+                                           torch.as_tensor(rref["sim/s0"][:2], dtype=torch.float32))
+        assert st.shape == (10, 2, 2, 3) and bool(torch.isfinite(st).all())
+        smodel = seq_baselines.make_ode_rnn(1, device="cpu")
+        sp = seq_baselines.sequence_params_from_jax(smodel, chip_smoke._tree(rref, "seq/ode_rnn/init", "cpu"))
+        assert smodel.encode(sp, torch.as_tensor(rref["seq/x"]), torch.as_tensor(rref["seq/ts"])).shape == (6, 10)
+        import scripts.oderl_demo_torch  # noqa: F401
         assert "matplotlib" not in sys.modules
         loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                         or m == "neurallaplacecontrol_tpu"
