@@ -68,7 +68,16 @@ evaluation under each shard mode in a one-rank NCCL group (equal to phase
 (``scripts/port_shard_check.py``: K-sharded ticks at K=1,000 and 262,144
 against the one-rank plan, the seed-sharded evaluation, grid shapes), the
 forward kernel at the ranks' row counts, the dp x tp training step, and the
-driver under torchrun with ``--shard``.
+driver under torchrun with ``--shard``. Phase ``entry`` (after ``driver``)
+runs the repo's own entry points: ``bench_torch.py`` in a fresh process (its
+JSON line must show the kernel route, the trained checkpoint and the analytic
+FLOP count), ``scripts/eval_bigk_torch.py`` at K=16,384,
+``scripts/heldout_parity_torch.py`` on the tracked checkpoints and
+``scripts/make_readme_table_torch.py`` on phase ``driver``'s records. Phase
+``train`` also holds ``train_model``'s loss curve at 500 and 1,000 updates
+to the band of the JAX package's three runs of the e2e training
+(``artifacts/port/jax_e2e_pendulum_d1.json``, made by
+``scripts/port_jax_e2e_reference.py``).
 
 Every phase prints ``phase <name> start`` and ``phase <name> done <seconds>``.
 Any failure raises, and the script exits non-zero. The last three lines are
@@ -138,6 +147,8 @@ from neurallaplacecontrol_tpu_torch.utils.checkpoint import (
     tracked_checkpoint_path,
     unflatten_params,
 )
+from scripts import eval_bigk_torch, heldout_parity_torch, make_readme_table_torch
+from scripts.e2e_nl_pendulum_torch import check_curve, read_jax_curve, window_means
 
 ROOT = Path(__file__).resolve().parent
 ENVS = ("oderl-pendulum", "oderl-cartpole", "oderl-acrobot")
@@ -191,6 +202,13 @@ JAX_WEIGHTS_FORWARD_MEDIAN_LIMIT = 1e-3
 # weights (the f32 plain forward 4.6e-7 to 1.5e-6); the kernel with one TF32
 # pass where it takes three read 5.2e-4 to 2.1e-3
 TRAINED_KERNEL_COND_TOL = 1e-5
+# The curve of train_model's run against the JAX package's three runs of the
+# e2e training (artifacts/port/jax_e2e_pendulum_d1.json, made by
+# scripts/port_jax_e2e_reference.py): its 500-update means at these counts
+# lie within scripts/e2e_nl_pendulum_torch.py's band (a factor 3 beyond the
+# JAX runs' min and max). Early training is set by the init more than by the
+# data, so the phase's 4,000 collected rows are held to the e2e's band.
+TRAIN_BAND_COUNTS = (500, 1000)
 # the analytic pairs of tests/test_ilt.py (F, f) and its table of MSE limits
 # against the closed form on linspace(0.05, 4, 40); fourier's bound is that
 # file's convergence test (sin, 257 terms)
@@ -1003,8 +1021,11 @@ def run_train(device, smi: str, tmp: str) -> dict:
     launches = {"nl_forward": pallas_nl.nl_forward_fused.launches, "nl_head": pallas_ilt.nl_head_fused.launches}
     mean, ci, _ = normalized_scores(results.values(), agg="ci95")[(DELAY, TRAIN_ENV, "nl")]
 
+    band = check_curve(window_means(res["segment_losses"]), read_jax_curve(), counts=TRAIN_BAND_COUNTS)
+
     out = {
         "env": TRAIN_ENV, "delay": DELAY, "card": smi, "vs_jax": vs_jax, "trace_per_update": trace,
+        "band": band,
         "train_model": {"updates": updates, "wall_s": wall, "train_seconds": res["train_seconds"],
                         "updates_per_s": updates / wall, "ms_per_update": 1e3 * wall / updates,
                         "epoch_losses": res["epoch_losses"], "train_loss": res["train_loss"],
@@ -1033,6 +1054,8 @@ def run_train(device, smi: str, tmp: str) -> dict:
         raise RuntimeError(f"non-finite training loss: {losses}")
     if not res["epoch_losses"][-1] < res["epoch_losses"][0]:
         raise RuntimeError(f"the last epoch's loss is not below the first's: {res['epoch_losses']}")
+    if [p["updates"] for p in band["points"]] != list(TRAIN_BAND_COUNTS) or not band["inside"]:
+        raise RuntimeError(f"train_model's curve leaves the JAX runs' band: {band}")
     if not same:
         raise RuntimeError("the checkpoint read back differs from the trained params")
     if not val["trained"] < val["init"]:
@@ -2484,8 +2507,87 @@ def run_deploy(device, smi: str, tmp: str, eager_tick_ms: float) -> dict:
     return out
 
 
+# Phase ``entry``: the repo's own entry points on the card. bench_torch.py's
+# line in a fresh process; eval_bigk_torch, heldout_parity_torch and
+# make_readme_table_torch in this one, with their files in the phase's
+# temporary directory
+ENTRY_TIMEOUT_S = 300
+ENTRY_FLOPS = 384_338  # bench.py's analytic count of one cartpole NL forward (n=5, m=1)
+HELDOUT_MODELS = ("node", "latent_ode", "nl")
+
+
+def run_entry(device, smi: str, tmp: str, results_path) -> dict:
+    """Phase ``entry``: ``bench_torch.py`` in a subprocess, its line parsed and
+    checked (the kernel route, the trained checkpoint, the analytic FLOP
+    count, an MFU in (0, 1], the kernel's launches); ``eval_bigk_torch`` at
+    K=16,384 (finite returns, the kernel's launches counted here);
+    ``heldout_parity_torch`` on the tracked checkpoints (finite MSEs); and
+    ``make_readme_table_torch`` on the driver's records at ``results_path``
+    (each NL cell's score in the table)."""
+    failures, seconds, out = [], {}, {"card": smi}
+    fwd = pallas_nl.nl_forward_fused
+    steps_launches = (EVAL_STEPS + 1) * T
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")], cwd=ROOT, capture_output=True, text=True,
+                          timeout=ENTRY_TIMEOUT_S, check=False)
+    seconds["bench_torch"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench_torch.py exited {proc.returncode}: {proc.stderr[-3000:]}")
+    bench = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["bench_torch"] = bench
+    expect = {"route": "kernel", "trained_checkpoint": True, "nl_forward_flops": ENTRY_FLOPS,
+              "nl_forward_launches": steps_launches}
+    failures += [f"bench_torch {k}: {bench.get(k)!r}, expected {v!r}" for k, v in expect.items() if bench.get(k) != v]
+    if not 0.0 < bench["mfu_vs_h100_tf32_peak"] <= 1.0:
+        failures.append(f"bench_torch mfu_vs_h100_tf32_peak {bench['mfu_vs_h100_tf32_peak']} is not in (0, 1]")
+    if not (math.isfinite(bench["value"]) and bench["value"] > 0 and bench["train_steps_per_sec"] > 0):
+        failures.append(f"bench_torch value {bench['value']}, train_steps_per_sec {bench['train_steps_per_sec']}")
+
+    fwd.launches = 0
+    t0 = time.perf_counter()
+    with redirect_stdout(io.StringIO()):
+        bigk = eval_bigk_torch.main(["--out", str(Path(tmp) / "results_bigk.jsonl")])
+    torch.cuda.synchronize()
+    seconds["eval_bigk_torch"] = time.perf_counter() - t0
+    launches = {"bench_torch": bench["nl_forward_launches"], "eval_bigk_torch": fwd.launches}
+    out["eval_bigk_torch"] = {k: bigk[k] for k in ("roll_outs", "total_rewards", "total_reward",
+                                                   "mppi_rollouts_per_sec", "episode_elapsed_time", "route")}
+    if not all(math.isfinite(x) for x in bigk["total_rewards"]):
+        failures.append(f"eval_bigk_torch: non-finite return {bigk['total_rewards']}")
+    if fwd.launches != steps_launches or bigk["nl_forward_launches"] != steps_launches:
+        failures.append(f"eval_bigk_torch: nl_forward launched {fwd.launches} times, expected {steps_launches}")
+
+    t0 = time.perf_counter()
+    with redirect_stdout(io.StringIO()):
+        heldout = heldout_parity_torch.main(["--models", ",".join(HELDOUT_MODELS), "--out",
+                                             str(Path(tmp) / "heldout_parity.log")])
+    seconds["heldout_parity_torch"] = time.perf_counter() - t0
+    out["heldout_parity_torch"] = heldout
+    if set(heldout) != set(HELDOUT_MODELS) or not all(math.isfinite(v) and v > 0 for v in heldout.values()):
+        failures.append(f"heldout_parity_torch: {heldout}")
+
+    t0 = time.perf_counter()
+    with redirect_stdout(io.StringIO()):
+        table = make_readme_table_torch.main(str(results_path))
+    seconds["make_readme_table_torch"] = time.perf_counter() - t0
+    recs = [json.loads(x) for x in Path(results_path).read_text().splitlines() if x.strip()]
+    scores = normalized_scores([r for r in recs if not r.get("errored")])
+    nl_cells = [f"{v[0]:.1f} ± {v[1]:.1f}" for (d, e, m), v in scores.items() if m == "nl"]
+    nl_row = next(line for line in table.splitlines() if line.startswith("| **nl**"))
+    out["make_readme_table_torch"] = {"records": len(recs), "nl_row": nl_row}
+    if not nl_cells or not all(c in nl_row for c in nl_cells):
+        failures.append(f"make_readme_table_torch: the NL row {nl_row!r} lacks the cells {nl_cells}")
+
+    out["seconds"], out["launches"] = seconds, launches
+    print("entry " + json.dumps(out), flush=True)
+    if failures:
+        raise RuntimeError("phase entry: " + "; ".join(failures))
+    return out
+
+
 def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict, shard_rows: list,
-                 precision_rows: dict) -> dict:
+                 precision_rows: dict, entry_launches: dict) -> dict:
     """One entry per kernel. The forward's times and bounds are at the
     evaluation's 20,000 rows, its launches the evaluation's; ``serving_tick``
     keeps its figures at the controller's 1,000 rows, ``trained_weights`` its
@@ -2527,6 +2629,7 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
             out[-1]["deploy"] = {"launches": launches["deploy"]}
             out[-1]["precision"] = {"launches": launches["precision"], "rows": [
                 {k: precision_rows[k] for k in ("B", "max_rel_err")}]}
+            out[-1]["entry"] = {"launches": entry_launches}
             out[-1]["shard"] = {"launches": launches["shard"], "rows": [
                 {k: r[k] for k in ("B", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")
                  if k in r} for r in shard_rows]}
@@ -2593,6 +2696,9 @@ def main() -> int:
         with phase("driver"):
             driving = run_driver(device, smi, tmp)
 
+        with phase("entry"):
+            entry = run_entry(device, smi, tmp, Path(tmp) / "driver" / "grid" / "results.jsonl")
+
         with phase("shard"):
             sharding = run_shard(device, smi, evaluation["nl_returns"], tmp)
 
@@ -2602,7 +2708,7 @@ def main() -> int:
                 "train": training["launches"], "driver": driving["launches"], "shard": sharding["launches"],
                 "precision": precision["launches"]}
     print(json.dumps(kernels_line(records, seed_batch, launches, training, sharding["kernel_checks"],
-                                  precision["kernel_check"])), flush=True)
+                                  precision["kernel_check"], entry["launches"])), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

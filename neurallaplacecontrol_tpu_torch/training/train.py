@@ -290,6 +290,7 @@ def train_model(
     loss_cap = float("inf")
     data_gen = torch.Generator().manual_seed(model_seed + 10_000)
     epoch_losses = []
+    segment_curve = []  # [updates at the segment's end, its mean loss]
     seen_shapes = set()
     stop = False
     total_iters = 0
@@ -356,6 +357,7 @@ def train_model(
             # updates (train_utils.py:450-459; the default never fires),
             # outside the budget
             total_iters += seg_len
+            segment_curve.append([total_iters, track_loss])
             if total_iters >= next_eval:
                 next_eval += config.iters_per_evaluation
                 with timer.exclude():
@@ -383,6 +385,7 @@ def train_model(
         "train_loss": last_loss,
         "best_val_loss": best_loss,
         "epoch_losses": epoch_losses,
+        "segment_losses": segment_curve,
         "n_params": n_params,
         "total_reward": eval_rewards[-1] if eval_rewards else None,
         "eval_rewards": eval_rewards,

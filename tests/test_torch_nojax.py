@@ -44,7 +44,10 @@ PORT_FILES = sorted((REPO / "neurallaplacecontrol_tpu_torch").rglob("*.py")) + [
     REPO / "scripts" / "bench_int8_torch.py", REPO / "scripts" / "oderl_demo_torch.py",
     REPO / "scripts" / "bench_episode_batch_torch.py", REPO / "scripts" / "bench_scaling_torch.py",
     REPO / "scripts" / "bench_train_torch.py", REPO / "scripts" / "bench_pallas_torch.py",
-    REPO / "scripts" / "bench_mxu_sweep_torch.py", REPO / "scripts" / "port_research_check.py"]
+    REPO / "scripts" / "bench_mxu_sweep_torch.py", REPO / "scripts" / "port_research_check.py",
+    REPO / "bench_torch.py", REPO / "scripts" / "e2e_nl_pendulum_torch.py", REPO / "scripts" / "eval_bigk_torch.py",
+    REPO / "scripts" / "heldout_parity_torch.py", REPO / "scripts" / "env_simulator_torch.py",
+    REPO / "scripts" / "make_readme_table_torch.py", REPO / "scripts" / "calibrate_cme_torch.py"]
 FORBIDDEN = ("jax", "neurallaplacecontrol_tpu")
 
 
@@ -234,6 +237,11 @@ def test_port_and_chip_smoke_import_and_tick_without_jax():
         sp = seq_baselines.sequence_params_from_jax(smodel, chip_smoke._tree(rref, "seq/ode_rnn/init", "cpu"))
         assert smodel.encode(sp, torch.as_tensor(rref["seq/x"]), torch.as_tensor(rref["seq/ts"])).shape == (6, 10)
         import scripts.oderl_demo_torch  # noqa: F401
+        # the repo's own entry points (chip_smoke imports the others)
+        import bench_torch
+        import scripts.calibrate_cme_torch  # noqa: F401
+        import scripts.env_simulator_torch  # noqa: F401
+        assert bench_torch.nl_forward_flops_analytic(5, 1) == 384338
         assert "matplotlib" not in sys.modules
         loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                         or m == "neurallaplacecontrol_tpu"
@@ -304,6 +312,15 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         run_exp_multi_torch.main(["--envs", "oderl-pendulum", "--delays", "0", "--models", "oracle",
                                   "--results", str(tmp_path / "r.jsonl"), "--log_folder", str(tmp_path / "logs")])
     assert not (tmp_path / "r.jsonl").exists() and not (tmp_path / "logs").exists()
+    import bench_torch
+    from scripts import e2e_nl_pendulum_torch, eval_bigk_torch, heldout_parity_torch
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_torch.main()
+    for main in (eval_bigk_torch.main, heldout_parity_torch.main, e2e_nl_pendulum_torch.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--out", str(tmp_path / "entry.out")])
+    assert not (tmp_path / "entry.out").exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

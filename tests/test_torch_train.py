@@ -308,8 +308,13 @@ def test_train_reduces_loss_and_checkpoints(tmp_path):
     losses = res["epoch_losses"]
     assert len(losses) == 8 and all(math.isfinite(x) for x in losses)
     assert losses[-1] < losses[0] / 2, losses
-    assert set(res) == {"train_loss", "best_val_loss", "epoch_losses", "n_params", "total_reward",
-                        "eval_rewards", "train_seconds"}
+    assert set(res) == {"train_loss", "best_val_loss", "epoch_losses", "segment_losses", "n_params",
+                        "total_reward", "eval_rewards", "train_seconds"}
+    # the port's one extra key: every segment's mean loss at its updates
+    assert [u for u, _ in res["segment_losses"]] == [25 * (i + 1) for i in range(len(res["segment_losses"]))]
+    seg_per_epoch = len(res["segment_losses"]) // 8
+    np.testing.assert_allclose([np.mean([x for _, x in res["segment_losses"][i:i + seg_per_epoch]])
+                                for i in range(0, len(res["segment_losses"]), seg_per_epoch)], losses, rtol=1e-12)
     name = model_checkpoint_name("nl", ENV, 0, "exp", 0, False, training_epochs=8)
     assert (tmp_path / name).is_file()
     _, params2, res2 = ttrain.train_model("nl", ENV, cfg, delay=0, retrain=False, dtype=torch.float64,
