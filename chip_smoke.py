@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase widths [--phase kernels ...]
 
 Builds the hand-written CUDA kernels of ``neurallaplacecontrol_tpu_torch``
 from ``neurallaplacecontrol_tpu_torch/csrc`` with ``nvcc``, holds each kernel
@@ -74,7 +75,15 @@ JSON line must show the kernel route, the trained checkpoint and the analytic
 FLOP count), ``scripts/eval_bigk_torch.py`` at K=16,384,
 ``scripts/heldout_parity_torch.py`` on the tracked checkpoints and
 ``scripts/make_readme_table_torch.py`` on phase ``driver``'s records. Phase
-``train`` also holds ``train_model``'s loss curve at 500 and 1,000 updates
+``widths`` (after ``entry``) runs the forward kernel at nl_hidden_units 24 to
+1,024 on cartpole at 1,000 and 20,000 rows against its plain version (the
+resident kernel up to 128, its weight-streaming variant past it) on a seeded
+init and, past 128, on the tracked checkpoint widened to each width; the head
+kernel at a 512-wide input; and the driver at nl_hidden_units 512 on cartpole
+d1: 30 s of training warm-started from the widened tracked checkpoint, 10
+seeds through the streamed kernel and through the plain route on the same
+checkpoint, replayed ticks and the exported step.
+Phase ``train`` also holds ``train_model``'s loss curve at 500 and 1,000 updates
 to the band of the JAX package's three runs of the e2e training
 (``artifacts/port/jax_e2e_pendulum_d1.json``, made by
 ``scripts/port_jax_e2e_reference.py``).
@@ -82,7 +91,9 @@ to the band of the JAX package's three runs of the e2e training
 Every phase prints ``phase <name> start`` and ``phase <name> done <seconds>``.
 Any failure raises, and the script exits non-zero. The last three lines are
 the kernels' record (one JSON object), the card's name and power limit as
-``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
+``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``. With
+``--phase``, the build and the named phases of ``ALONE`` run, in the order
+given, and the last line is the card's.
 
 The script imports nothing of JAX; it needs the repository around it and
 one CUDA device, and fails without either.
@@ -90,6 +101,7 @@ one CUDA device, and fails without either.
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import io
 import json
@@ -144,6 +156,7 @@ from neurallaplacecontrol_tpu_torch.utils.checkpoint import (
     load_pytree,
     model_checkpoint_name,
     resolve_checkpoint,
+    save_pytree,
     tracked_checkpoint_path,
     unflatten_params,
 )
@@ -714,17 +727,22 @@ def run_eval(device, smi: str) -> dict:
     env, params, model = load_nl(MAIN_ENV, device)
     cfg = port.Config(fused_nl_planner=True)
 
-    pallas_nl.nl_forward_fused.launches = pallas_nl.nl_forward_fused.rows = 0
+    fwd = pallas_nl.nl_forward_fused
+    fwd.launches = fwd.rows = fwd.streamed_launches = fwd.streamed_rows = 0
     pallas_ilt.nl_head_fused.launches = 0
     results = {name: evaluate_policy(name, MAIN_ENV, DELAY, EVAL_SEEDS, cfg, model_apply=model.apply,
                                      params=params, roll_outs=K, time_steps=T, device=device)
                for name in ("random", "oracle", "nl")}
-    launches = {"nl_forward": pallas_nl.nl_forward_fused.launches,
-                "nl_head": pallas_ilt.nl_head_fused.launches}
-    rows_per_launch = pallas_nl.nl_forward_fused.rows / max(1, launches["nl_forward"])
+    launches = {"nl_forward": fwd.launches, "nl_head": pallas_ilt.nl_head_fused.launches,
+                "nl_forward_streamed": fwd.streamed_launches}
+    rows_per_launch = fwd.rows / max(1, launches["nl_forward"])
+    # the variant the kernel library plans at the evaluation's dims, and its rows per CTA
+    fused = model.make_fused_planner_apply(params, cfg.dt)
+    plan = dict(zip(("variant", "rows_per_cta", "smem_bytes"), nl_cuda.forward_plan(
+        forward_dims(SEED_ROWS, fused, env.spec, cfg.nl_s_recon_terms))))
 
     out = {"env": MAIN_ENV, "delay": DELAY, "K": K, "T": T, "steps": EVAL_STEPS, "seeds": len(EVAL_SEEDS),
-           "launches": launches, "forward_rows_per_launch": rows_per_launch, "card": smi}
+           "launches": launches, "forward_rows_per_launch": rows_per_launch, "forward_plan": plan, "card": smi}
     for name, r in results.items():
         out[name] = policy_stats(r)
         jax_returns = np.asarray(ref["policies"][name]["total_rewards"])
@@ -765,6 +783,9 @@ def run_eval(device, smi: str) -> dict:
     if launches["nl_forward"] != expected or rows_per_launch != SEED_ROWS:
         raise RuntimeError(f"nl_forward launched {launches['nl_forward']} times at {rows_per_launch} rows, "
                            f"expected {expected} at {SEED_ROWS}")
+    if launches["nl_forward_streamed"] or plan["variant"] != "resident":
+        raise RuntimeError(f"the main path ran {launches['nl_forward_streamed']} streamed launches (plan {plan}): "
+                           "at width 128 every launch is the resident kernel's")
     if not gap <= limit:
         raise RuntimeError(f"NL mean return {port_nl.mean():.3f} is {gap:.3f} from the JAX run's "
                            f"{jax_nl.mean():.3f}, over the limit {limit:.3f}")
@@ -2586,13 +2607,342 @@ def run_entry(device, smi: str, tmp: str, results_path) -> dict:
     return out
 
 
+WIDTHS = (24, 100, 128, 160, 256, 512, 1024)  # nl_hidden_units of phase widths' kernel checks
+WIDTH_ROWS = (K, SEED_ROWS)
+WIDTH_COND_LIMIT = 1e-5  # forward_errors' kernel_cond, as on phase train's early weights
+# the f32 plain forward's rel_err to the f64 one below which f32 resolves the seeded init's
+# outputs, and the kernel is held to the plain forward by KERNEL_TOL as well
+WIDTH_RESOLVED = 1e-4
+WIDE = 512  # the driver cell's nl_hidden_units
+WIDE_SEEDS = 10
+WIDE_TRAIN_SECONDS = 30
+WIDE_HEAD_HX = 512
+WIDE_EXPORT_TICKS = 5
+# the exported controller's horizon: the trace of T = 40 forwards at width 512 took 27 s on an
+# NVIDIA H100 80GB HBM3 at 700 W, past the phase's budget; tests/test_torch_cuda.py exports T = 40
+WIDE_EXPORT_T = 8
+
+
+def widen_nl(params, width: int, seed: int) -> dict:
+    """An NL tree of width 128 embedded in one of nl_hidden_units = ``width``:
+    the trained weights in the leading GRU units (each of the r, z, n blocks)
+    and trunk columns, every new weight and bias drawn N(0, 0.02^2) from
+    ``seed``. On phase widths' cartpole inputs the new units move the
+    outputs by 0.04 (width 160) to 0.35 (width 1,024) in ``rel_err``, far
+    past ``KERNEL_TOL``, while f32 resolves them as it resolves the trained
+    model's."""
+    g = torch.Generator().manual_seed(seed)
+
+    def grow(old, shape, gates=None):
+        new = (0.02 * torch.randn(shape, generator=g, dtype=torch.float64)).to(old.dtype).to(old.device)
+        if gates is None:
+            new[tuple(slice(0, k) for k in old.shape)] = old
+            return new
+        H, Hn = gates
+        rows = (slice(0, old.shape[0]),) if old.dim() == 2 else ()
+        for gate in range(3):
+            new[rows + (slice(gate * Hn, gate * Hn + H),)] = old[rows + (slice(gate * H, (gate + 1) * H),)]
+        return new
+
+    H, Hn = params["encoder"]["gru"][0]["w_hh"].shape[0], width // 2
+    gru = []
+    for i, layer in enumerate(params["encoder"]["gru"]):
+        k = layer["w_ih"].shape[0] if i == 0 else Hn
+        gru.append({"w_ih": grow(layer["w_ih"], (k, 3 * Hn), (H, Hn)), "w_hh": grow(layer["w_hh"], (Hn, 3 * Hn), (H, Hn)),
+                    "b_ih": grow(layer["b_ih"], (3 * Hn,), (H, Hn)), "b_hh": grow(layer["b_hh"], (3 * Hn,), (H, Hn))})
+    out = params["encoder"]["out"]
+    l0, l1, l2 = params["laplace_rep"]
+    return {
+        "encoder": {"gru": gru, "out": {"w": grow(out["w"], (Hn, out["w"].shape[1])), "b": out["b"]}},
+        "laplace_rep": [
+            {"w": grow(l0["w"], (l0["w"].shape[0], width)), "b": grow(l0["b"], (width,))},
+            {"w": grow(l1["w"], (width, width)), "b": grow(l1["b"], (width,))},
+            {"w": grow(l2["w"], (width, l2["w"].shape[1])), "b": l2["b"]},
+        ],
+    }
+
+
+def replay_diffs(ctrls, env, device, ticks: int = REPLAY_TICKS) -> list:
+    """Replays ``ctrls[0]``'s closed loop tick by tick through every
+    controller: each tick, every controller plans from the first's state
+    (cast to its own dtype) on the same observation and noise draw. Returns,
+    for each later controller, the largest action gap to the first's: the
+    forward's part of a tick, without the gaps of earlier ticks carried in
+    the warm-started plans."""
+    spec = env.spec
+    raw = env.reset(torch.Generator().manual_seed(0)).to(device)
+    g = torch.Generator(device=device).manual_seed(2)
+    chol = ctrls[0].mppi_params.noise_chol.float()
+    state = ctrls[0].reset(0)
+    gaps = [0.0] * (len(ctrls) - 1)
+    for _ in range(ticks):
+        obs = env.observe(raw)
+        noise = torch.randn((K, T, spec.m), generator=g, device=device) @ chol.T
+        acts, first = [], None
+        for c in ctrls:
+            dtype = c.reset(0).U.dtype
+            a, nxt = c.step(type(state)(*(x.to(dtype) for x in state)), obs.to(dtype), noise=noise.to(dtype))
+            acts.append(a.double())
+            first = nxt if first is None else first
+        gaps = [max(gap, float((a - acts[0]).abs().max())) for gap, a in zip(gaps, acts[1:])]
+        state = first
+        raw = env_step(env, raw, state.action_buffer[-(DELAY + 1)].to(raw.dtype), spec.dt)
+    return gaps
+
+
+def plain_controller(cfg, params, packed, spec, device, dtype=torch.float32):
+    """The controller of ``cfg`` with the plain forward on ``packed`` in place
+    of the kernel."""
+    packed = tuple(x.to(dtype) for x in packed)
+    return port.make_controller(
+        "nl", MAIN_ENV, DELAY, cfg.replace(fused_nl_planner=False), roll_outs=K, time_steps=T, device=device,
+        dtype=dtype, params=params, model_apply=lambda _p, obs, w, _ts: pallas_nl.nl_forward_plain(
+            obs, w.reshape(w.shape[0], -1), packed, spec.n_obs, spec.m))
+
+
+def forward_dims(rows: int, fused, spec, terms: int) -> tuple:
+    """The integer dims of a forward launch at ``rows`` rows of ``fused``'s
+    packed weights, as ``nl_cuda.forward_plan`` takes them."""
+    packed, A = fused.packed, port.Config().action_buffer_size
+    return (rows, spec.n_obs, A, spec.m, packed[1].shape[0], packed[13].shape[0], spec.n_obs, terms,
+            fused.hopper.numel())
+
+
+def width_forward_checks(device, width: int, tracked) -> list:
+    """The forward kernel at ``width`` on cartpole against its plain version
+    at 1,000 and 20,000 rows, on two sets of weights. On the port's init
+    drawn from a seed (``weights: "seeded"``): the term-scaled f64 error
+    (``WIDTH_COND_LIMIT``), ``KERNEL_TOL`` where f32 resolves the outputs,
+    graph and eager ms of both, the bounds at the model's real widths. Past
+    128, on the tracked checkpoint widened to ``width`` (``widen_nl``,
+    ``weights: "widened"``), whose outputs f32 resolves: the errors, held by
+    ``run_widths`` to ``KERNEL_TOL`` as phase ``kernels`` holds the tracked
+    weights. Each record names the variant that ran, its rows per CTA and
+    shared memory."""
+    spec = make_env(MAIN_ENV).spec
+    n, in_dim, A = spec.n_obs, spec.m, port.Config().action_buffer_size
+    cfg = port.Config(nl_hidden_units=width)
+    terms = cfg.nl_s_recon_terms
+    model = make_model("nl", MAIN_ENV, n, in_dim, spec.action_high, cfg, device=device)
+    weights = {"seeded": model.init(torch.Generator(device=device).manual_seed(width))}
+    if width > 128:
+        weights["widened"] = widen_nl(tracked, width, seed=width)
+    recs = []
+    for name, params in weights.items():
+        fused = model.make_fused_planner_apply(params, cfg.dt)
+        packed = fused.packed
+        for rows in WIDTH_ROWS:
+            rng = np.random.default_rng(rows + width)
+            obs = torch.tensor(rng.standard_normal((rows, n)), dtype=torch.float32, device=device)
+            acts = torch.tensor(rng.uniform(-spec.action_high, spec.action_high, (rows, A * in_dim)),
+                                dtype=torch.float32, device=device)
+            kernel = partial(pallas_nl.nl_forward_fused, obs, acts, packed, n, in_dim, terms=terms,
+                             hopper=fused.hopper)
+            plain = partial(pallas_nl.nl_forward_plain, obs, acts, packed, n, in_dim)
+            got = kernel()
+            torch.cuda.synchronize()
+            variant, cta_rows, smem = nl_cuda.forward_plan(forward_dims(rows, fused, spec, terms))
+            rec = {"width": width, "weights": name, "B": rows, "variant": variant, "rows_per_cta": cta_rows,
+                   "smem_bytes": smem, "finite": bool(torch.isfinite(got).all()) and got.shape == (rows, n),
+                   **forward_errors(got, obs, acts, packed, n, in_dim)}
+            if name == "seeded":  # the times do not depend on the weights
+                rec["resolved"] = rec["plain_vs_plain64"] < WIDTH_RESOLVED
+                reps = TIMED_LAUNCHES if rows <= K else 10
+                rec["ms"], rec["plain_ms"] = graph_ms(kernel, reps), graph_ms(plain, reps)
+                rec["eager_ms"], rec["plain_eager_ms"] = time_ms(kernel, reps), time_ms(plain, reps)
+                rec.update(bounds(*forward_cost(rows, n, A, in_dim, packed[1].shape[0], packed[13].shape[0], n,
+                                                terms, packed)))
+                rec["share_of_bound_tc"] = rec["bound_tc_ms"] / rec["ms"]
+            print(f"widths forward {width} {name} B={rows}: " + json.dumps(rec), flush=True)
+            recs.append(rec)
+    return recs
+
+
+def width_head_check(device) -> dict:
+    """The head kernel at Hx = ``WIDE_HEAD_HX`` (cartpole's 5 x 17 columns, in
+    chunks sized to the stage) against its plain version at 1,000 rows."""
+    D, terms = 5, port.Config().nl_s_recon_terms
+    rng = np.random.default_rng(WIDE_HEAD_HX)
+    w = rng.standard_normal((WIDE_HEAD_HX, 2 * D * terms)) / math.sqrt(WIDE_HEAD_HX)
+    b = 0.1 * rng.standard_normal(2 * D * terms)
+    head = pallas_ilt.to_device(pallas_ilt.pack_head_weights(w, b, D, terms, 0.125), device)
+    hopper = torch.as_tensor(pallas_ilt.repack_head(head, D, terms), device=device)
+    x = torch.tensor(np.tanh(rng.standard_normal((K, WIDE_HEAD_HX))), dtype=torch.float32, device=device)
+    kernel = partial(pallas_ilt.nl_head_fused, x, head, D, terms=terms, hopper=hopper)
+    plain = partial(pallas_ilt.nl_head_plain, x, head, D)
+    got, exp = kernel(), plain()
+    torch.cuda.synchronize()
+    rec = {"Hx": WIDE_HEAD_HX, "B": K, "chunks": pallas_ilt.head_chunks(WIDE_HEAD_HX, D, terms),
+           "max_abs_err": float((got - exp).abs().max()), "max_rel_err": rel_err(got, exp),
+           "smem_bytes": nl_cuda.smem_bytes("nl_head", (K, WIDE_HEAD_HX, D, terms, hopper.numel())),
+           "ms": graph_ms(kernel), "plain_ms": graph_ms(plain), **bounds(*head_cost(K, WIDE_HEAD_HX, D, terms, head))}
+    print("widths head " + json.dumps(rec), flush=True)
+    return rec
+
+
+def wide_driver_cell(device, tmp: str, tracked) -> dict:
+    """The driver at nl_hidden_units = ``WIDE`` on cartpole d1:
+    ``train_model`` for ``WIDE_TRAIN_SECONDS`` on the tracked buffer,
+    warm-started from the tracked checkpoint widened to ``WIDE``
+    (``widen_nl``), and a ``WIDE_SEEDS``-seed evaluation through the forward
+    kernel (its streamed variant), then the same checkpoint through the plain
+    route, the two held by the 3-sigma rule. On the trained checkpoint: the
+    kernel against the plain forward (``KERNEL_TOL``, as phase ``kernels``
+    holds the tracked weights), ``REPLAY_TICKS`` replayed ticks of the
+    kernel's controller against the plain forward's (``ACTION_TOL``), and
+    the exported step, at a horizon of ``WIDE_EXPORT_T``, against the eager
+    one (``DEPLOY_TICK_LIMIT``)."""
+    import run_exp_multi_torch as driver
+
+    from neurallaplacecontrol_tpu_torch import serving
+
+    fwd = pallas_nl.nl_forward_fused
+    failures, seconds, out = [], {}, {}
+    env = make_env(MAIN_ENV)
+    spec = env.spec
+    cfg = port.Config(nl_hidden_units=WIDE, fused_nl_planner=True)
+    terms = cfg.nl_s_recon_terms
+    saved = Path(tmp) / "driver" / "wide" / "saved"
+    ckpt = saved / model_checkpoint_name("nl", MAIN_ENV, DELAY, "exp", 0, True)
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    start = widen_nl(tracked, WIDE, seed=WIDE)
+    save_pytree(str(ckpt), start)  # where train_model warm-starts
+    common = ["--envs", MAIN_ENV, "--delays", str(DELAY), "--models", "nl", "--nl_hidden_units", str(WIDE),
+              "--seed_runs", str(WIDE_SEEDS), "--offline_datasets_path", str(ROOT / "artifacts" / "offlinedata") + "/"]
+    fwd.launches = fwd.rows = fwd.streamed_launches = fwd.streamed_rows = 0
+    t0 = time.perf_counter()
+    trained = driver.main(driver_args(tmp, "wide", *common, "--fused_nl_planner", "true", "--retrain", "true",
+                                      "--train_gate", "none", "--train_seconds", str(WIDE_TRAIN_SECONDS)))
+    torch.cuda.synchronize()
+    seconds["train_and_kernel_eval"] = time.perf_counter() - t0
+    launches = {"kernel": fwd.launches, "streamed": fwd.streamed_launches, "streamed_rows": fwd.streamed_rows}
+    fwd.launches = fwd.rows = fwd.streamed_launches = fwd.streamed_rows = 0
+    t0 = time.perf_counter()
+    plain = driver.main(driver_args(tmp, "wide_plain", *common, "--fused_nl_planner", "false",
+                                    "--saved_models_path", str(saved) + "/"))
+    torch.cuda.synchronize()
+    seconds["plain_eval"] = time.perf_counter() - t0
+    launches["plain_route"] = fwd.launches
+    recs = trained["records"] + plain["records"]
+    expected = (EVAL_STEPS + 1) * T
+    if len(recs) != 2 or any(r.get("errored") or not math.isfinite(r["total_reward"]) for r in recs):
+        failures.append(f"records {recs}")
+    else:
+        a, b = (np.asarray(r["total_rewards"]) for r in recs)
+        gap, limit = three_sigma(a, b)
+        out["returns"] = {"kernel": [float(a.mean()), float(a.std())], "plain": [float(b.mean()), float(b.std())],
+                          "gap": gap, "limit": limit,
+                          "episode_batch_s": [r["episode_elapsed_time"] for r in recs]}
+        if not gap <= limit:
+            failures.append(f"kernel and plain returns {gap:.3f} apart, over the limit {limit:.3f}")
+    if (launches["kernel"], launches["streamed"], launches["streamed_rows"], launches["plain_route"]) != (
+            expected, expected, expected * WIDE_SEEDS * K, 0):
+        failures.append(f"launches {launches}: expected {expected} streamed at {WIDE_SEEDS * K} rows, none plain")
+
+    # the trained checkpoint: the forward on its weights, the replayed ticks, the exported step
+    model = make_model("nl", MAIN_ENV, spec.n_obs, spec.m, spec.action_high, cfg, device=device)
+    params = load_pytree(str(ckpt), device=device)
+    # how far training moved the weights from the widened start, relative to the start's norm
+    moved = [(x - y).square().sum() for x, y in zip(tree_leaves(params), tree_leaves(start))]
+    out["moved_from_start"] = float(torch.stack(moved).sum().sqrt() / torch.stack(
+        [y.square().sum() for y in tree_leaves(start)]).sum().sqrt())
+    fused = model.make_fused_planner_apply(params, cfg.dt)
+    rows = WIDE_SEEDS * K
+    out["forward_plan"] = dict(zip(("variant", "rows_per_cta", "smem_bytes"),
+                                   nl_cuda.forward_plan(forward_dims(rows, fused, spec, terms))))
+    rng = np.random.default_rng(WIDE)
+    obs = torch.tensor(rng.standard_normal((rows, spec.n_obs)), dtype=torch.float32, device=device)
+    acts = torch.tensor(rng.uniform(-spec.action_high, spec.action_high, (rows, 4 * spec.m)), dtype=torch.float32,
+                        device=device)
+    got = pallas_nl.nl_forward_fused(obs, acts, fused.packed, spec.n_obs, spec.m, terms=terms, hopper=fused.hopper)
+    e = out["trained_forward"] = forward_errors(got, obs, acts, fused.packed, spec.n_obs, spec.m)
+    if not e["kernel_vs_plain"] < KERNEL_TOL:
+        failures.append(f"the kernel on the trained weights: {e}")
+    ctrl = port.make_controller("nl", MAIN_ENV, DELAY, cfg, model_apply=model.apply, params=params, roll_outs=K,
+                                time_steps=T, device=device)
+    before = fwd.streamed_launches
+    gaps = replay_diffs([plain_controller(cfg, params, fused.packed, spec, device), ctrl,
+                         plain_controller(cfg, params, fused.packed, spec, device, torch.float64)], env, device)
+    launches["replay"] = fwd.streamed_launches - before
+    out["replay"] = {"kernel_vs_plain": gaps[0], "plain64_vs_plain": gaps[1]}
+    if not gaps[0] <= ACTION_TOL or launches["replay"] != REPLAY_TICKS * T:
+        failures.append(f"replayed ticks: kernel and plain controllers {gaps[0]} apart (limit {ACTION_TOL}), "
+                        f"{launches['replay']} streamed launches")
+    ctrl = port.make_controller("nl", MAIN_ENV, DELAY, cfg, model_apply=model.apply, params=params, roll_outs=K,
+                                time_steps=WIDE_EXPORT_T, device=device)
+    t0 = time.perf_counter()
+    step = serving.load_controller_step(serving.export_controller(ctrl, path=str(Path(tmp) / "wide.pt2")))
+    seconds["export"] = time.perf_counter() - t0
+    g = torch.Generator(device=device).manual_seed(1)
+    eager = loaded = ctrl.reset(0)
+    raw = env.reset(torch.Generator().manual_seed(0)).to(device)
+    errs, per_tick = [], []
+    for _ in range(WIDE_EXPORT_TICKS):
+        obs = env.observe(raw)
+        noise = torch.randn((K, WIDE_EXPORT_T, spec.m), generator=g, device=device) @ ctrl.mppi_params.noise_chol.T
+        a_e, eager = ctrl.step(eager, obs, noise=noise)
+        before = fwd.streamed_launches
+        a_x, loaded = step(loaded, obs, noise=noise)
+        torch.cuda.synchronize()
+        per_tick.append(fwd.streamed_launches - before)
+        errs.append(max(rel_err(a_x, a_e), rel_err(loaded.U, eager.U)))
+        raw = env_step(env, raw, eager.action_buffer[-(DELAY + 1)], spec.dt)
+    out["export"] = {"ticks": WIDE_EXPORT_TICKS, "T": WIDE_EXPORT_T, "max_rel_err": max(errs),
+                     "streamed_launches_per_tick": per_tick}
+    if not max(errs) <= DEPLOY_TICK_LIMIT or per_tick != [WIDE_EXPORT_T] * WIDE_EXPORT_TICKS:
+        failures.append(f"exported step {out['export']} against the eager one (limit {DEPLOY_TICK_LIMIT})")
+    out["launches"], out["seconds"] = launches, seconds
+    out["failures"] = failures
+    return out
+
+
+def run_widths(device, smi: str, tmp: str) -> dict:
+    """Phase ``widths``: the forward kernel at every width of ``WIDTHS`` (the
+    resident variant up to 128, the streamed one past it) against its plain
+    version, the head kernel at a wide input, and the driver at
+    nl_hidden_units = ``WIDE`` end to end (``wide_driver_cell``)."""
+    failures, seconds = [], {}
+    _, tracked, _ = load_nl(MAIN_ENV, device)
+    t0 = time.perf_counter()
+    checks = [rec for width in WIDTHS for rec in width_forward_checks(device, width, tracked)]
+    seconds["forward_checks"] = time.perf_counter() - t0
+    for r in checks:
+        where = f"width {r['width']} ({r['weights']}) at B={r['B']}"
+        if not r["finite"]:
+            failures.append(f"{where}: non-finite output or wrong shape")
+        if r["weights"] == "seeded" and not r["kernel_cond"] < WIDTH_COND_LIMIT:
+            failures.append(f"{where}: term-scaled error {r['kernel_cond']:.3e} >= {WIDTH_COND_LIMIT}")
+        if (r["weights"] == "widened" or r["resolved"]) and not r["kernel_vs_plain"] < KERNEL_TOL:
+            failures.append(f"{where}: relative error {r['kernel_vs_plain']:.3e} >= {KERNEL_TOL}")
+        if (r["variant"] == "resident") != (r["width"] <= 128):
+            failures.append(f"{where}: the {r['variant']} variant ran")
+    head = width_head_check(device)
+    if not head["max_rel_err"] < KERNEL_TOL:
+        failures.append(f"head at Hx={WIDE_HEAD_HX}: relative error {head['max_rel_err']:.3e} >= {KERNEL_TOL}")
+    t0 = time.perf_counter()
+    cell = wide_driver_cell(device, tmp, tracked)
+    seconds["driver_cell"] = time.perf_counter() - t0
+    failures += [f"driver cell: {f}" for f in cell.pop("failures")]
+    out = {"card": smi, "checks": checks, "head": head, "driver": cell, "seconds": seconds}
+    print("widths " + json.dumps({"card": smi, "head": head, "driver": cell, "seconds": seconds}), flush=True)
+    if failures:
+        raise RuntimeError("phase widths: " + "; ".join(failures))
+    return out
+
+
 def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict, shard_rows: list,
-                 precision_rows: dict, entry_launches: dict) -> dict:
+                 precision_rows: dict, entry_launches: dict, widths: dict, main_plan: dict) -> dict:
     """One entry per kernel. The forward's times and bounds are at the
     evaluation's 20,000 rows, its launches the evaluation's; ``serving_tick``
     keeps its figures at the controller's 1,000 rows, ``trained_weights`` its
     launches in phase ``train`` and its error there on the weights the port
-    trained. The head is timed at 1,000 rows, the shape of its check."""
+    trained. The head is timed at 1,000 rows, the shape of its check.
+    ``variants`` gives the launches of each variant: the resident kernel's
+    on the main path at width 128 (the evaluation's launches less its
+    streamed ones, with the rows per CTA that ``main_plan``, the kernel
+    library's plan at the evaluation's dims, gives), the streamed one's in
+    phase widths' driver cell; ``widths`` phase widths' checks and its wide
+    head."""
     replaces = {
         "nl_forward": "neurallaplacecontrol_tpu/ops/pallas_nl.py:158",
         "nl_head": "neurallaplacecontrol_tpu/ops/pallas_ilt.py:113",
@@ -2620,6 +2970,8 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
             "library_ms": None,
             "serving_tick": serving,
         })
+        if name == "nl_head":
+            out[-1]["widths"] = {k: widths["head"][k] for k in ("Hx", "B", "max_rel_err", "ms", "plain_ms", "bound_ms")}
         if name == "nl_forward":
             out[-1]["trained_weights"] = {"launches": launches["train"][name],
                                           "max_rel_err": training["kernel_on_trained_weights"],
@@ -2630,13 +2982,42 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
             out[-1]["precision"] = {"launches": launches["precision"], "rows": [
                 {k: precision_rows[k] for k in ("B", "max_rel_err")}]}
             out[-1]["entry"] = {"launches": entry_launches}
+            wl = widths["driver"]["launches"]
+            out[-1]["variants"] = {
+                "resident": {"launches": launches["eval"][name] - launches["eval"]["nl_forward_streamed"],
+                             "rows": SEED_ROWS, "rows_per_cta": main_plan["rows_per_cta"],
+                             "source": "nl_kernels.cu::nl_forward_kernel", "phase": "eval"},
+                "streamed": {"launches": wl["streamed"], "rows": wl["streamed_rows"] // max(1, wl["streamed"]),
+                             "rows_per_cta": widths["driver"]["forward_plan"]["rows_per_cta"],
+                             "source": "nl_kernels.cu::nl_forward_streamed_kernel", "phase": "widths"},
+            }
+            out[-1]["widths"] = [{k: r[k] for k in ("width", "weights", "B", "variant", "rows_per_cta", "smem_bytes",
+                                                    "kernel_cond", "kernel_vs_plain", "kernel_vs_plain64", "resolved",
+                                                    "ms", "eager_ms", "plain_ms", "plain_eager_ms", "bound_ms",
+                                                    "bound_tc_ms", "share_of_bound_tc") if k in r}
+                                 for r in widths["checks"]]
             out[-1]["shard"] = {"launches": launches["shard"], "rows": [
                 {k: r[k] for k in ("B", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")
                  if k in r} for r in shard_rows]}
     return {"kernels": out}
 
 
-def main() -> int:
+# phases that need no earlier phase's output, for --phase
+ALONE = {
+    "kernels": lambda device, smi, tmp: (check_kernels(device), check_forward_seed_batch(device)),
+    "controller": lambda device, smi, tmp: run_controller(device, smi),
+    "eval": lambda device, smi, tmp: run_eval(device, smi),
+    "ilt": lambda device, smi, tmp: run_ilt(device),
+    "research": run_research,
+    "widths": run_widths,
+}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.")
+    parser.add_argument("--phase", action="append", choices=sorted(ALONE),
+                        help="run only the build and this phase (repeatable); every phase when absent")
+    args = parser.parse_args(argv)
     t_start = time.perf_counter()
     pkg = Path(port.__file__).resolve().parent
     if pkg.parent != ROOT:
@@ -2660,6 +3041,14 @@ def main() -> int:
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers", "spill")) or "error" in line.lower():
                 print("ptxas " + line.strip(), flush=True)
+
+    if args.phase:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name in args.phase:
+                with phase(name):
+                    ALONE[name](device, smi, tmp)
+        print(smi, flush=True)
+        return 0
 
     with phase("kernels"):
         records = check_kernels(device)
@@ -2699,6 +3088,9 @@ def main() -> int:
         with phase("entry"):
             entry = run_entry(device, smi, tmp, Path(tmp) / "driver" / "grid" / "results.jsonl")
 
+        with phase("widths"):
+            widths = run_widths(device, smi, tmp)
+
         with phase("shard"):
             sharding = run_shard(device, smi, evaluation["nl_returns"], tmp)
 
@@ -2708,7 +3100,8 @@ def main() -> int:
                 "train": training["launches"], "driver": driving["launches"], "shard": sharding["launches"],
                 "precision": precision["launches"]}
     print(json.dumps(kernels_line(records, seed_batch, launches, training, sharding["kernel_checks"],
-                                  precision["kernel_check"], entry["launches"])), flush=True)
+                                  precision["kernel_check"], entry["launches"], widths,
+                                  evaluation["forward_plan"])), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

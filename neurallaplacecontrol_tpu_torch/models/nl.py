@@ -16,7 +16,9 @@ Architecture per reference w_nl.py:
 six ILT algorithms, and the one that training differentiates; the planner's
 ``make_fused_planner_apply`` runs the whole forward as one CUDA kernel
 (ops.pallas_nl) on weights packed for one shared query time, for the
-fourier ILT and the widths the kernel takes only.
+fourier ILT only, at any width: ragged widths are zero-padded at pack time,
+and widths whose weights do not fit in shared memory run the kernel's
+weight-streaming variant.
 
 ``compute_dtype="bfloat16"`` runs the matrix stack (the GRU, its head and
 the trunk MLP) in bfloat16, as the JAX model does: the MLP's output goes
@@ -42,23 +44,7 @@ from .base import DynamicsModel, NormStats
 from .common import gru_apply, gru_init, linear_apply, linear_init, mlp_apply_tanh, mlp_init, tree_leaves, tree_map
 
 _ACTION_LATENT = 2  # w_nl.py:89
-# widths the CUDA forward takes (csrc/nl_kernels.cu forward_plan): the GRU
-# hidden size H a multiple of 8 (one warp per 8 units) and at most 64 (16
-# warps, two layers), the trunk width a multiple of 16 (the MMA's M)
-_KERNEL_GRU_GROUP, _KERNEL_GRU_MAX, _KERNEL_TRUNK_ALIGN = 8, 64, 16
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def check_kernel_widths(gru_hidden: int, trunk_hidden: int) -> None:
-    """Raise ``ValueError`` for a width the fused forward kernel cannot take."""
-    if (gru_hidden % _KERNEL_GRU_GROUP or gru_hidden > _KERNEL_GRU_MAX
-            or trunk_hidden % _KERNEL_TRUNK_ALIGN):
-        raise ValueError(
-            f"the fused NL forward takes a GRU hidden size that is a multiple of "
-            f"{_KERNEL_GRU_GROUP} and at most {_KERNEL_GRU_MAX} (nl_hidden_units <= "
-            f"{2 * _KERNEL_GRU_MAX}) and a trunk width that is a multiple of "
-            f"{_KERNEL_TRUNK_ALIGN}; got GRU {gru_hidden}, trunk {trunk_hidden}"
-        )
 
 
 def make_nl_model(
@@ -196,14 +182,13 @@ def make_nl_model(
         and action buffers; the returned function ignores its params and ts
         arguments (re-specialize after a parameter update).
 
-        Raises ``ValueError`` for another ILT than fourier and for widths the
-        kernel does not take (``check_kernel_widths``): it never falls back
-        to the plain forward.
+        Any width: ``repack_nl_forward`` zero-pads ragged ones, and the kernel
+        library streams the weights of those that do not fit in shared
+        memory. Raises ``ValueError`` for another ILT than fourier; it never
+        falls back to the plain forward.
         """
         if ilt_algorithm != "fourier":
             raise ValueError(f"the fused planner path is fourier-only, not {ilt_algorithm!r}")
-        check_kernel_widths(params["encoder"]["gru"][0]["w_hh"].shape[0],
-                            params["laplace_rep"][1]["w"].shape[0])
         t_model = t / (dt * 8.0) if (normalize and normalize_time) else t
         t_floor = 2.5e-3 if (normalize and normalize_time) else 2.5e-3 * dt * 8.0
         t_model = max(t_model, t_floor)

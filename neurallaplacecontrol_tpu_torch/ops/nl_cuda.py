@@ -102,6 +102,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
         fn.restype = ctypes.c_longlong
+    lib.nl_forward_variant.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.nl_forward_variant.restype = ctypes.c_int
     lib.nl_error_string.argtypes = [ctypes.c_int]
     lib.nl_error_string.restype = ctypes.c_char_p
     return lib
@@ -144,6 +146,30 @@ def launch(name: str, tensors, dims) -> None:
             _READY.add(device.index)
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib, name, getattr(lib, name)(ptrs, len(tensors), ints, len(dims), stream), dims)
+
+
+FORWARD_VARIANTS = ("resident", "streamed")
+_REFUSALS = {
+    -1: "the dims are malformed or the buffer's length is not the layout's",
+    -2: "the streamed variant's shared memory does not hold 8 rows of the trunk's two activations "
+        "and one tile of each product at these widths",
+}
+
+
+@functools.lru_cache(maxsize=256)
+def forward_plan(dims: tuple) -> tuple[str, int, int]:
+    """(variant, batch rows per CTA, dynamic shared memory in bytes) of a
+    forward launch with these ``dims`` (as ``nl_forward_launch`` takes them),
+    as the kernel library plans it: ``"resident"`` (``nl_forward_kernel``,
+    every weight in shared memory) where that layout fits, else
+    ``"streamed"`` (``nl_forward_streamed_kernel``). Raises ``ValueError``
+    with the reason for dims that neither variant takes."""
+    ints = (ctypes.c_int * len(dims))(*dims)
+    rows = ctypes.c_int(0)
+    code = library().nl_forward_variant(ints, len(dims), ctypes.byref(rows))
+    if code < 0:
+        raise ValueError(f"the forward kernel does not take dims {list(dims)}: {_REFUSALS[code]}")
+    return FORWARD_VARIANTS[code], rows.value, smem_bytes("nl_forward", dims)
 
 
 def smem_bytes(kernel: str, dims) -> int:

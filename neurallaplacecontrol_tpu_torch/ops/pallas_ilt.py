@@ -12,7 +12,8 @@ the JAX module's host code, unchanged. ``repack_head`` lays those operands
 out once more for the card: only the live columns, theta and phi weights
 interleaved, and a compact pair of combine weights in place of the
 selection matrices, in chunks that the kernel's shared memory holds one at
-a time. ``nl_head_fused``
+a time; a hidden width that is not a multiple of 4 gets zero rows up to the
+next one. ``nl_head_fused``
 launches the CUDA kernel ``nl_head_kernel`` (``csrc/nl_kernels.cu``) on that
 repack for a CUDA tensor and computes ``nl_head_plain``, the same function
 in plain PyTorch on ``pack_head_weights``'s operands, for a CPU tensor.
@@ -32,8 +33,10 @@ from .sphere import _PHI_MARGIN
 
 _LANE = 128
 _T_PAD = 32  # terms padded to a divisor of the lane count
-_COL_ALIGN = 4  # head columns padded to 16 bytes, the bulk copy's granule
-_HEAD_CHUNK_COLS = 104  # head columns per chunk (csrc/nl_kernels.cu kHeadChunkCols)
+_COL_ALIGN = 4  # head columns (and its input rows) padded to 16 bytes, the bulk copy's granule
+# floats of one head chunk in shared memory: 104 columns at Hx = 128 (csrc/nl_kernels.cu
+# kHeadStageFloats); a wider Hx takes fewer columns a chunk
+_HEAD_STAGE_FLOATS = 104 * (4 + 2 * 128)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -98,19 +101,23 @@ def pack_head_weights(w, b, state_dim: int, terms: int, t: float):
     return w_theta, w_phi, b_theta, b_phi, s_re, s_im
 
 
-def head_chunks(state_dim: int, terms: int) -> tuple[int, int]:
-    """(chunks, columns per chunk) of ``repack_head``'s buffer: the D*terms
-    live columns split evenly into chunks of at most 104, each padded to a
-    multiple of 4."""
+def head_chunks(hx: int, state_dim: int, terms: int) -> tuple[int, int]:
+    """(chunks, columns per chunk) of ``repack_head``'s buffer for a head
+    input of width ``hx``: the D*terms live columns split evenly into chunks
+    of at most ``_HEAD_STAGE_FLOATS`` floats (4 vectors and the [Hx, Mc, 2]
+    weights, Hx padded to a multiple of 4), each padded to a multiple of 4
+    columns; at least 4 columns a chunk."""
+    hx = _round_up(hx, _COL_ALIGN)
+    cap = max(_COL_ALIGN, _HEAD_STAGE_FLOATS // (4 + 2 * hx) // _COL_ALIGN * _COL_ALIGN)
     ncols = state_dim * terms
-    chunks = -(-ncols // _HEAD_CHUNK_COLS)
+    chunks = -(-ncols // cap)
     return chunks, _round_up(-(-ncols // chunks), _COL_ALIGN)
 
 
 def head_size(hx: int, state_dim: int, terms: int) -> int:
     """float32 count of ``repack_head``'s buffer."""
-    chunks, mc = head_chunks(state_dim, terms)
-    return chunks * mc * (4 + 2 * hx)
+    chunks, mc = head_chunks(hx, state_dim, terms)
+    return chunks * mc * (4 + 2 * _round_up(hx, _COL_ALIGN))
 
 
 def repack_head(packed, state_dim: int, terms: int) -> np.ndarray:
@@ -118,7 +125,9 @@ def repack_head(packed, state_dim: int, terms: int) -> np.ndarray:
     over the live columns j = d*terms + t only, in ``head_chunks`` chunks of
     Mc columns each (zero-padded):
 
-        b_theta [Mc] | b_phi [Mc] | c_re [Mc] | c_im [Mc] | W [H, Mc, 2]
+        b_theta [Mc] | b_phi [Mc] | c_re [Mc] | c_im [Mc] | W [Hp, Mc, 2]
+
+    with Hp the input width H rounded up to a multiple of 4 (zero rows).
 
     W interleaves W_theta and W_phi, so one 8-byte load brings both weights
     of a column. c_re/c_im hold the per-term combine weights (with the
@@ -132,11 +141,12 @@ def repack_head(packed, state_dim: int, terms: int) -> np.ndarray:
         raise ValueError(f"terms={terms} does not fit blocks of {Tp} in {N} columns")
     d = np.repeat(np.arange(state_dim), terms)
     live = d * Tp + np.tile(np.arange(terms), state_dim)
-    chunks, mc = head_chunks(state_dim, terms)
-    cols = np.zeros((4 + 2 * w_theta.shape[0], chunks * mc), np.float32)  # a column per row
+    hx = w_theta.shape[0]
+    chunks, mc = head_chunks(hx, state_dim, terms)
+    cols = np.zeros((4 + 2 * _round_up(hx, _COL_ALIGN), chunks * mc), np.float32)  # a column per row
     cols[:4, : live.size] = (b_theta.reshape(-1)[live], b_phi.reshape(-1)[live], s_re[live, d], s_im[live, d])
-    cols[4::2, : live.size] = w_theta[:, live]
-    cols[5::2, : live.size] = w_phi[:, live]
+    cols[4 : 4 + 2 * hx : 2, : live.size] = w_theta[:, live]
+    cols[5 : 5 + 2 * hx : 2, : live.size] = w_phi[:, live]
     parts = []
     for c in range(chunks):
         part = cols[:, c * mc : (c + 1) * mc]

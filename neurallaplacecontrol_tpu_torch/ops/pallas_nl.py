@@ -11,11 +11,14 @@ unchanged), so the forward consumes RAW obs and action buffers:
     theta/phi head + inverse stereographic map + fourier combine
 
 ``repack_nl_forward`` lays those operands out once more for the card, in one
-flat float32 buffer whose sections the kernel copies into shared memory
-(see ``forward_sections``). ``nl_forward_fused`` launches the CUDA kernel
-``nl_forward_kernel`` (``csrc/nl_kernels.cu``) on that repack for CUDA
-tensors and computes ``nl_forward_plain``, the same function in plain
-PyTorch on ``pack_nl_forward``'s operands, for CPU tensors. Both are the
+flat float32 buffer (see ``forward_sections``), after ``pad_nl_forward`` has
+zero-padded a ragged GRU width to a multiple of 8 and a ragged trunk width to
+a multiple of 16. ``nl_forward_fused`` launches the CUDA kernel
+(``csrc/nl_kernels.cu``) on that repack for CUDA tensors: ``nl_forward_kernel``
+with every weight resident in shared memory where the layout fits there, else
+``nl_forward_streamed_kernel``, which streams the same buffer through shared
+memory tile by tile. For CPU tensors it computes ``nl_forward_plain``, the
+same function in plain PyTorch on ``pack_nl_forward``'s operands. Both are the
 implementations of one operator, ``torch.ops.nlc.nl_forward``
 (``nl_forward_op``), so an exported planner step records the kernel as a
 node of its graph.
@@ -173,8 +176,57 @@ def frag_pack(w) -> np.ndarray:
     return padded[rows, cols].reshape(-1)
 
 
+def padded_widths(H: int, hid: int) -> tuple[int, int]:
+    """The GRU width and the trunk width as the kernels lay them out: H up to
+    a multiple of 8 (a warp's group of units), hid up to a multiple of 16 (the
+    MMA's M)."""
+    return _round_up(H, _GROUP), _round_up(hid, MMA_M)
+
+
+def _pad_gates(w, H: int, Hp: int):
+    """[..., 3H] -> [..., 3Hp]: each of the r, z, n blocks zero-padded to Hp."""
+    out = np.zeros(w.shape[:-1] + (3 * Hp,), w.dtype)
+    for g in range(3):
+        out[..., g * Hp : g * Hp + H] = w[..., g * H : (g + 1) * H]
+    return out
+
+
+def _pad_to(w, shape):
+    out = np.zeros(shape, w.dtype)
+    out[tuple(slice(0, k) for k in w.shape)] = w
+    return out
+
+
+def pad_nl_forward(packed):
+    """``pack_nl_forward``'s operands (numpy, any float dtype, kept) with the
+    GRU width padded to a multiple of 8 and the trunk width to a multiple of
+    16 by zeros. The forward is unchanged, exactly: a padded GRU unit has
+    zero weights and biases, so its gates are r = z = 1/2 and n = 0 and it
+    stays at h = 0 from h_0 = 0, and its rows in the next layer, the encoder
+    and the trunk are zero; a padded trunk column is tanh(0) = 0, and its
+    head rows are zero."""
+    (
+        w_ih1, w_hh1, b_ih1, b_hh1, w_ih2, w_hh2, b_ih2, b_hh2,
+        w_enc, b_enc, w1_obs, w1_act, b1, w2, b2,
+    ) = (np.asarray(x) for x in packed[:15])
+    H, hid = w_hh1.shape[0], w2.shape[0]
+    Hp, hidp = padded_widths(H, hid)
+    gates = [_pad_gates(w, H, Hp) for w in (w_ih1, w_hh1, b_ih1, b_hh1, w_ih2, w_hh2, b_ih2, b_hh2)]
+    for i in (1, 4, 5):  # the hidden-state rows
+        gates[i] = _pad_to(gates[i], (Hp, 3 * Hp))
+    head = [np.asarray(x) for x in packed[15:]]
+    head[0], head[1] = (_pad_to(w, (hidp, w.shape[1])) for w in head[:2])
+    return tuple(gates) + (
+        _pad_to(w_enc, (Hp, w_enc.shape[1])), b_enc,
+        _pad_to(w1_obs, (w1_obs.shape[0], hidp)), _pad_to(w1_act, (w1_act.shape[0], hidp)), _pad_to(b1, (1, hidp)),
+        _pad_to(w2, (hidp, hidp)), _pad_to(b2, (1, hidp)),
+    ) + tuple(head)
+
+
 def forward_sections(n: int, in_dim: int, H: int, hid: int, D: int, terms: int) -> dict:
-    """float32 counts of ``repack_nl_forward``'s sections, in buffer order.
+    """float32 counts of ``repack_nl_forward``'s sections, in buffer order,
+    for a model of GRU width H and trunk width hid (padded here as
+    ``padded_widths`` pads them).
 
     - ``small``: b_ih1, b_hh1, b_ih2, b_hh2 [3H each], w_enc [H, 2],
       b_enc [2, padded to 4], W1 = [w1_obs; w1_act] in fragments, b1, b2.
@@ -184,10 +236,13 @@ def forward_sections(n: int, in_dim: int, H: int, hid: int, D: int, terms: int) 
     - ``w2``: the second trunk layer in fragments.
     - ``head``: ``repack_head``'s buffer.
 
-    The kernel copies small+gru1 and gru2 at its start, w2 into gru1's place
-    once the first GRU layer is done, and the head's chunks in turn into
-    gru2's place once the second is.
+    The resident kernel copies small+gru1 and gru2 at its start, w2 into
+    gru1's place once the first GRU layer is done, and the head's chunks in
+    turn into gru2's place once the second is. The streamed kernel reads the
+    same buffer: the biases and the encoder from global memory, every
+    product's weights in tiles of a few k-steps of a few column groups.
     """
+    H, hid = padded_widths(H, hid)
     kx = _round_up(in_dim, MMA_K)
     k1 = _round_up(n + _LATENT, MMA_K)
     return {
@@ -221,16 +276,17 @@ def _gru_tiles(w_ih, w_hh) -> np.ndarray:
 
 
 def repack_nl_forward(packed, state_dim: int, in_dim: int, terms: int) -> np.ndarray:
-    """``pack_nl_forward``'s operands -> the forward kernel's flat float32
-    buffer (sections as ``forward_sections`` lists them). Host numpy, once
-    per controller."""
+    """``pack_nl_forward``'s operands -> the forward kernels' flat float32
+    buffer (sections as ``forward_sections`` lists them), at the widths
+    ``pad_nl_forward`` pads them to. Host numpy, once per controller."""
+    packed = pad_nl_forward([_host(p) for p in packed])
     (
         w_ih1, w_hh1, b_ih1, b_hh1, w_ih2, w_hh2, b_ih2, b_hh2,
         w_enc, b_enc, w1_obs, w1_act, b1, w2, b2,
-    ) = (_host(p) for p in packed[:15])
+    ) = packed[:15]
     H, hid = w_hh1.shape[0], w2.shape[0]
-    if w_ih1.shape[0] != in_dim or H % _GROUP or hid % MMA_M or w_enc.shape[1] != _LATENT:
-        raise ValueError(f"unsupported shapes: w_ih1 {w_ih1.shape}, H={H}, hid={hid}, w_enc {w_enc.shape}")
+    if w_ih1.shape[0] != in_dim or w_enc.shape[1] != _LATENT:
+        raise ValueError(f"unsupported shapes: w_ih1 {w_ih1.shape}, in_dim={in_dim}, w_enc {w_enc.shape}")
     w1 = np.concatenate([w1_obs, w1_act])
     small = [b_ih1, b_hh1, b_ih2, b_hh2, w_enc, np.pad(b_enc.reshape(-1), (0, 2)),
              frag_pack(w1), b1, b2]
@@ -243,7 +299,9 @@ def repack_nl_forward(packed, state_dim: int, in_dim: int, terms: int) -> np.nda
 
 
 def _nl_forward_cuda(obs, acts_flat, packed, hopper, state_dim: int, in_dim: int, terms: int):
-    """The forward kernel's launch: the operator's CUDA implementation."""
+    """The forward kernel's launch: the operator's CUDA implementation. The
+    kernel library picks the variant from the dims (``nl_cuda.forward_plan``);
+    dims that neither variant takes raise before anything is launched."""
     if hopper is None:
         raise ValueError("the forward kernel reads the repacked weights: pass hopper=repack_nl_forward(...)")
     B, n = obs.shape
@@ -251,13 +309,15 @@ def _nl_forward_cuda(obs, acts_flat, packed, hopper, state_dim: int, in_dim: int
         raise ValueError(f"acts_flat {tuple(acts_flat.shape)} does not match obs rows {B} x in_dim {in_dim}")
     A = acts_flat.shape[1] // in_dim
     H, hid = packed[1].shape[0], packed[13].shape[0]
+    dims = (B, n, A, in_dim, H, hid, state_dim, terms, hopper.numel())
+    variant = nl_cuda.forward_plan(dims)[0]
     out = torch.empty((B, state_dim), dtype=torch.float32, device=obs.device)
-    nl_cuda.launch(
-        "nl_forward_launch", (obs, acts_flat, hopper, out),
-        (B, n, A, in_dim, H, hid, state_dim, terms, hopper.numel()),
-    )
+    nl_cuda.launch("nl_forward_launch", (obs, acts_flat, hopper, out), dims)
     nl_forward_fused.launches += 1
     nl_forward_fused.rows += B
+    if variant == "streamed":
+        nl_forward_fused.streamed_launches += 1
+        nl_forward_fused.streamed_rows += B
     return out
 
 
@@ -307,3 +367,5 @@ def nl_forward_fused(obs, acts_flat, packed, state_dim: int, in_dim: int, *, ter
 
 nl_forward_fused.launches = 0  # kernel launches since the last reset, the exported program's included
 nl_forward_fused.rows = 0  # batch rows over those launches
+nl_forward_fused.streamed_launches = 0  # of those launches, the streamed variant's
+nl_forward_fused.streamed_rows = 0

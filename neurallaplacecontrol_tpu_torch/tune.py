@@ -16,9 +16,11 @@ multi-device sharding. Two entry points:
   JSON-serializable trial log.
 
 What ``recommend`` rests on (NVIDIA H100 80GB HBM3, 700 W; ``PERF.md`` §6,
-``chip_smoke.py`` phases ``kernels`` and ``precision``): the forward kernel
-takes 0.0253 ms a launch against 0.2399 ms for the plain forward at 1,000
-rows, and 0.45 against 1.11 ms at 20,000 rows, both timed in CUDA graphs;
+``chip_smoke.py`` phases ``kernels``, ``widths`` and ``precision``): the
+forward kernel takes 0.0253 ms a launch against 0.2399 ms for the plain
+forward at 1,000 rows, and 0.45 against 1.11 ms at 20,000 rows, both timed
+in CUDA graphs; above width 128 it runs the streamed variant, which beats
+the plain forward at 1,000 rows up to width 160 only (``KERNEL_MAX_WIDTH``);
 one plan through the kernel takes 10-22 ms at K=1,000 and 60-61 ms at
 65,536, against 72-161 and 82-153 ms on the plain route in bfloat16 or
 float32 (``scripts/bench_int8_torch.py --mode perf``, phase ``precision``).
@@ -62,15 +64,21 @@ class Recommendation:
         return "\n".join(f"{k}: {v}" for k, v in sorted(self.rationale.items()))
 
 
-def kernel_takes(config: Config) -> bool:
-    """Whether the fused forward kernel takes ``config``'s NL model (the
-    fourier ILT, widths as ``models.nl.check_kernel_widths`` allows)."""
-    from .models.nl import check_kernel_widths
+# the widest nl_hidden_units at which the card measured the forward kernel faster than the plain
+# f32 forward at 1,000 rows (K=1,000); widths between 128 and 160 stream fewer weights than 160
+# against a plain forward that takes the same time (launch-bound at 1,000 rows)
+KERNEL_MAX_WIDTH = 160
+WIDE_RATIONALE = (
+    "the streamed forward kernel beats the plain f32 forward at 1,000 rows up to nl_hidden_units=160 "
+    "(0.1744 against 0.2717 ms) and not past it (256: 0.3172 against 0.3020 ms, a tie; 512: 1.1702 "
+    "against 0.4810; 1,024: 4.3204 against 0.8937; NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase "
+    "widths, PERF.md section 6)"
+)
 
-    try:
-        check_kernel_widths(config.nl_hidden_units // 2, config.nl_hidden_units)
-    except ValueError:
-        return False
+
+def kernel_takes(config: Config) -> bool:
+    """Whether the fused forward kernel takes ``config``'s NL model: the
+    fourier ILT, at any width."""
     return config.nl_ilt_algorithm == "fourier"
 
 
@@ -87,17 +95,17 @@ def recommend(base: Config = Config(), *, roll_outs: Optional[int] = None, n_dev
         overrides["nl_compute_dtype"] = "float32"
     rationale["nl_compute_dtype"] = BF16_RATIONALE
 
-    if kernel_takes(base):
+    width = base.nl_hidden_units
+    if kernel_takes(base) and width <= KERNEL_MAX_WIDTH:
         if not base.fused_nl_planner:
             overrides["fused_nl_planner"] = True
-        rationale["fused_nl_planner"] = FUSED_RATIONALE
+        rationale["fused_nl_planner"] = FUSED_RATIONALE if width <= 128 else f"on: {WIDE_RATIONALE}"
         rationale["nl_planner_precompute"] = (
             "as the base config: unmeasured on the card, and the fused planner takes precedence over it")
     else:
-        rationale["fused_nl_planner"] = (
-            "as the base config: the kernel does not take its NL model (the kernel takes the fourier ILT "
-            f"and nl_hidden_units a multiple of 16 up to 128; this config has {base.nl_ilt_algorithm} at "
-            f"{base.nl_hidden_units})")
+        why = (f"nl_hidden_units={width}: {WIDE_RATIONALE}" if kernel_takes(base) else
+               f"the kernel takes the fourier ILT only, and this config has {base.nl_ilt_algorithm}")
+        rationale["fused_nl_planner"] = f"as the base config: {why}"
         rationale["nl_planner_precompute"] = "as the base config: unmeasured on the card"
 
     rationale["shard_rollouts"] = (

@@ -12,6 +12,7 @@ XLA path at 1e-2, but a kernel with __sinf/__cosf in place of sinf/cosf
 passes 1e-2 and fails 1e-3.
 """
 
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -300,19 +301,63 @@ def test_nl_every_ilt_on_card_matches_cpu_f64(algorithm, cuda_device):
         np.testing.assert_allclose(got.numpy(), exp.numpy(), rtol=rtol, atol=rtol * float(exp.abs().max()))
 
 
+WIDTHS = [24, 100, 160, 256, 512, 1024, 2048]  # ragged, resident, and streamed past shared memory
+WIDTH_ROWS = [1, 999, 1001, 20000]
+
+
 @pytest.mark.cuda
-def test_fused_planner_refuses_bad_widths_on_card(cuda_device):
-    """Widths the forward kernel cannot take raise before anything is packed
-    or launched; the plain forward is never used in its place."""
-    before = tnl.nl_forward_fused.launches
-    for hidden in (24, 160):
-        model = make_model("nl", "oderl-pendulum", 3, 1, 2.0, Config(nl_hidden_units=hidden), device=cuda_device)
-        with pytest.raises(ValueError, match="fused NL forward takes"):
-            model.make_fused_planner_apply(model.init(torch.Generator().manual_seed(0)), DT)
+@pytest.mark.parametrize("width", WIDTHS)
+def test_fused_planner_refuses_bad_widths_on_card(width, cuda_device):
+    """Every width the JAX kernel takes runs the forward kernel on the card
+    (widths it refused before: ragged ones padded, wide ones through the
+    streamed variant, 2048 the widest here), at ragged and seed-batch rows,
+    on the port's seeded init: within 1e-5 of the f64 forward in units of
+    the fourier terms, and 1e-3 of the f32 plain forward where f32 resolves
+    the outputs; a launch on the counter at every width, the streamed
+    variant's past 128. Another ILT than fourier still raises."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    n, m, high = ENV_DIMS["oderl-cartpole"]
+    cfg = Config(nl_hidden_units=width)
+    model = make_model("nl", "oderl-cartpole", n, m, high, cfg, device=cuda_device)
+    fused = model.make_fused_planner_apply(model.init(torch.Generator(device=cuda_device).manual_seed(width)), DT)
+    for rows in WIDTH_ROWS:
+        rng = np.random.default_rng(rows)
+        obs = torch.tensor(rng.standard_normal((rows, n)), dtype=torch.float32, device=cuda_device)
+        acts = torch.tensor(rng.uniform(-high, high, (rows, 4 * m)), dtype=torch.float32, device=cuda_device)
+        before = (tnl.nl_forward_fused.launches, tnl.nl_forward_fused.streamed_launches)
+        got = fused(None, obs, acts.reshape(rows, 4, m), None)
+        torch.cuda.synchronize()
+        assert tnl.nl_forward_fused.launches == before[0] + 1
+        assert tnl.nl_forward_fused.streamed_launches == before[1] + int(width > 128)
+        assert got.shape == (rows, n) and bool(torch.isfinite(got).all())
+        e = chip_smoke.forward_errors(got, obs, acts, fused.packed, n, m)
+        assert e["kernel_cond"] < chip_smoke.WIDTH_COND_LIMIT
+        if e["plain_vs_plain64"] < chip_smoke.WIDTH_RESOLVED:  # f32 resolves the outputs
+            assert e["kernel_vs_plain"] < TOL
     model = make_model("nl", "oderl-pendulum", 3, 1, 2.0, Config(nl_ilt_algorithm="cme"), device=cuda_device)
     with pytest.raises(ValueError, match="fourier-only"):
         model.make_fused_planner_apply(model.init(torch.Generator().manual_seed(0)), DT)
-    assert tnl.nl_forward_fused.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hx", [100, 512])
+def test_head_kernel_at_wide_inputs(hx, cuda_device):
+    """The head kernel at input widths other than 128 (its chunks narrowed to
+    the stage at 512) against its plain version at 1,000 rows."""
+    D, terms = 5, 17
+    rng = np.random.default_rng(hx)
+    w = rng.standard_normal((hx, 2 * D * terms)) / np.sqrt(hx)
+    b = 0.1 * rng.standard_normal(2 * D * terms)
+    packed = tilt.to_device(tilt.pack_head_weights(w, b, D, terms, 0.125), cuda_device)
+    hopper = torch.as_tensor(tilt.repack_head(packed, D, terms), device=cuda_device)
+    x = torch.tensor(np.tanh(rng.standard_normal((B, hx))), dtype=torch.float32, device=cuda_device)
+    before = tilt.nl_head_fused.launches
+    got = tilt.nl_head_fused(x, packed, D, terms=terms, hopper=hopper)
+    torch.cuda.synchronize()
+    assert tilt.nl_head_fused.launches == before + 1
+    assert rel_err(got, tilt.nl_head_plain(x, packed, D)) < TOL
 
 
 def family(name, device, dtype=torch.float32):
@@ -494,25 +539,30 @@ def test_k_sharded_plan_in_a_one_rank_nccl_group(cuda_device):
         dist.destroy_process_group()
 
 
-def fused_controller(device, K=B, T=40):
+def fused_controller(device, K=B, T=40, width=128):
+    """The fused cartpole-d1 controller: on the trained checkpoint at width
+    128, on the port's seeded init at another width."""
     env = "oderl-cartpole"
     n, m, high = ENV_DIMS[env]
-    cfg = Config(fused_nl_planner=True)
+    cfg = Config(fused_nl_planner=True, nl_hidden_units=width)
     model = make_model("nl", env, n, m, high, cfg, device=device)
-    return make_controller("nl", env, 1, cfg, model_apply=model.apply, params=trained(env, device), roll_outs=K,
+    params = trained(env, device) if width == 128 else model.init(torch.Generator(device=device).manual_seed(width))
+    return make_controller("nl", env, 1, cfg, model_apply=model.apply, params=params, roll_outs=K,
                            time_steps=T, device=device)
 
 
 @pytest.mark.cuda
-def test_exported_fused_step_equals_eager_step(cuda_device, tmp_path):
+@pytest.mark.parametrize("width", [128, 512])
+def test_exported_fused_step_equals_eager_step(width, cuda_device, tmp_path):
     """The exported fused controller (cartpole d1, K=1000, T=40), loaded back,
     against ``Controller.step`` over 5 ticks on the same noise: actions and U
     within |got - exp| / (1 + |exp|) <= 1e-6 (the same kernel on the same
     operands, so 0 is expected); the program launches the kernel T times a
-    tick, on the launch counter."""
+    tick, on the launch counter. At width 512 the kernel is the streamed
+    variant."""
     from neurallaplacecontrol_tpu_torch import serving
 
-    ctrl = fused_controller(cuda_device)
+    ctrl = fused_controller(cuda_device, width=width)
     path = tmp_path / "c.pt2"
     serving.export_controller(ctrl, path=str(path))
     step = serving.load_controller_step(path)
@@ -522,10 +572,11 @@ def test_exported_fused_step_equals_eager_step(cuda_device, tmp_path):
         obs = torch.randn(5, generator=g, device=cuda_device)
         noise = torch.randn((B, 40, 1), generator=g, device=cuda_device)
         a1, s1 = ctrl.step(s1, obs, noise=noise)
-        before = tnl.nl_forward_fused.launches
+        before = (tnl.nl_forward_fused.launches, tnl.nl_forward_fused.streamed_launches)
         a2, s2 = step(s2, obs, noise=noise)
         torch.cuda.synchronize()
-        assert tnl.nl_forward_fused.launches - before == 40
+        assert tnl.nl_forward_fused.launches - before[0] == 40
+        assert tnl.nl_forward_fused.streamed_launches - before[1] == (40 if width > 128 else 0)
         assert rel_err(a2, a1) <= 1e-6 and rel_err(s2.U, s1.U) <= 1e-6
 
 

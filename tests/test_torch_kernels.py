@@ -228,8 +228,10 @@ def gru_untiles(flat, kin, H):
 
 def unpack_head(buf, hx, D, terms):
     """``repack_head``'s buffer -> b_theta, b_phi, c_re, c_im [Mp] and
-    w_theta, w_phi [hx, Mp], Mp = chunks * Mc, the chunks side by side."""
-    chunks, mc = tilt.head_chunks(D, terms)
+    w_theta, w_phi [hxp, Mp], Mp = chunks * Mc, the chunks side by side, hxp
+    the input width padded to a multiple of 4."""
+    chunks, mc = tilt.head_chunks(hx, D, terms)
+    hx = tilt._round_up(hx, 4)
     per = tilt._host(buf).reshape(chunks, (4 + 2 * hx) * mc)
     vecs = np.concatenate([c[: 4 * mc].reshape(4, mc) for c in per], axis=1)
     w = np.concatenate([c[4 * mc :].reshape(hx, mc, 2) for c in per], axis=1)
@@ -238,8 +240,10 @@ def unpack_head(buf, hx, D, terms):
 
 
 def unpack_nl_forward(buf, n, in_dim, H, hid, D, terms):
-    """``repack_nl_forward``'s buffer -> its dense parts, by name."""
+    """``repack_nl_forward``'s buffer -> its dense parts, by name, at the padded
+    widths (``pallas_nl.padded_widths``) of a model of widths H and hid."""
     sec = tnl.forward_sections(n, in_dim, H, hid, D, terms)
+    H, hid = tnl.padded_widths(H, hid)
     small, gru1, gru2, w2, head = np.split(tilt._host(buf).reshape(-1), np.cumsum(list(sec.values()))[:-1])
     latent = tnl._LATENT
     k1 = tilt._round_up(n + latent, tnl.MMA_K)
@@ -270,10 +274,12 @@ def forward_repacked_plain(obs, acts_flat, buf, dims, matmul=torch.matmul):
     """The forward as the kernel computes it, on ``repack_nl_forward``'s buffer:
     the r/z gates over [x; h] in one product, the encoder in f32, the trunk's
     first layer over [obs; latent], the head over its live columns.
-    ``dims`` = (n, in_dim, H, hid, D, terms); ``matmul`` stands for the
-    products the kernel runs on the tensor cores."""
+    ``dims`` = (n, in_dim, H, hid, D, terms), the model's widths, which the
+    buffer holds padded; ``matmul`` stands for the products the kernel runs
+    on the tensor cores."""
     n, in_dim, H, hid, D, terms = dims
     p = {k: torch.as_tensor(v) for k, v in unpack_nl_forward(buf, *dims).items()}
+    H = tnl.padded_widths(H, hid)[0]
     B = obs.shape[0]
     A = acts_flat.shape[1] // in_dim
 
@@ -333,37 +339,46 @@ def fused_cpu(env, cfg_kw=None):
     return tmodel.make_fused_planner_apply(params, DT)
 
 
+WIDTHS = (24, 100, 160, 256, 512)  # nl_hidden_units past the width-128 cases: ragged, and past shared memory
+
+
 @pytest.mark.parametrize(
     "env,cfg_kw,terms",
     [("oderl-pendulum", {}, 17), ("oderl-cartpole", {}, 17), ("oderl-acrobot", {}, 17),
-     ("oderl-cartpole", {"encode_obs_time": True}, 17), ("oderl-acrobot", {}, 32)],
-    ids=["pendulum", "cartpole", "acrobot", "encode_obs_time", "acrobot_terms32"],
+     ("oderl-cartpole", {"encode_obs_time": True}, 17), ("oderl-acrobot", {}, 32)]
+    + [("oderl-cartpole", {"nl_hidden_units": w}, 17) for w in WIDTHS],
+    ids=["pendulum", "cartpole", "acrobot", "encode_obs_time", "acrobot_terms32"] + [f"width{w}" for w in WIDTHS],
 )
 def test_hopper_repack_loses_nothing(env, cfg_kw, terms):
     """Unpacking the kernel's buffer gives back every live entry of
-    pack_nl_forward's operands, and the entries it drops are zero padding.
-    At terms=32 every column of the padded blocks is live, and the head
-    (192 columns on acrobot) is laid out in two chunks."""
+    pack_nl_forward's operands, zero-padded to the kernel's widths, and the
+    entries it drops are zero padding. At terms=32 every column of the padded
+    blocks is live, and the head (192 columns on acrobot) is laid out in two
+    chunks; a wide head takes more chunks, each within the stage."""
     n, m, _ = ENV_DIMS[env]
     in_dim = m + int(cfg_kw.get("encode_obs_time", False))
     fused = fused_cpu(env, cfg_kw)
     p = [t.numpy() for t in fused.packed]
     H, hid = p[1].shape[0], p[13].shape[0]
+    Hp, hidp = tnl.padded_widths(H, hid)
     buf = fused.hopper if terms == 17 else tnl.repack_nl_forward(p, n, in_dim, terms)
-    assert tilt.head_chunks(n, terms)[0] == (1 if terms == 17 else 2)
+    chunks, mc = tilt.head_chunks(hid, n, terms)
+    if hid == 128:
+        assert chunks == (1 if terms == 17 else 2)
+    assert mc % 4 == 0 and (mc * (4 + 2 * hidp) <= tilt._HEAD_STAGE_FLOATS or mc == 4)
     u = unpack_nl_forward(buf, n, in_dim, H, hid, n, terms)
+    padded = tnl.pad_nl_forward(p)
     names = ["w_ih1", "w_hh1", "b_ih1", "b_hh1", "w_ih2", "w_hh2", "b_ih2", "b_hh2",
              "w_enc", "b_enc", "w1_obs", "w1_act", "b1", "w2", "b2"]
     for i, name in enumerate(names):
-        np.testing.assert_array_equal(u[name], p[i].reshape(u[name].shape), err_msg=name)
-    h = unpack_head(u["head"], hid, n, terms)
+        np.testing.assert_array_equal(u[name], padded[i].reshape(u[name].shape), err_msg=name)
+    h = unpack_head(u["head"], hidp, n, terms)
     Tp = p[15].shape[1] // n
     d = np.repeat(np.arange(n), terms)
     live = d * Tp + np.tile(np.arange(terms), n)
-    assert tilt.head_chunks(n, terms)[1] % 4 == 0
     for got, full in ((h["w_theta"], p[15]), (h["w_phi"], p[16])):
-        np.testing.assert_array_equal(got[:, : n * terms], full[:, live])
-        assert not got[:, n * terms :].any()
+        np.testing.assert_array_equal(got[:hid, : n * terms], full[:, live])
+        assert not got[hid:].any() and not got[:, n * terms :].any()
         assert not np.delete(full, live, axis=1).any()
     for got, full in ((h["b_theta"], p[17]), (h["b_phi"], p[18])):
         np.testing.assert_array_equal(got[: n * terms], full.reshape(-1)[live])
@@ -374,25 +389,67 @@ def test_hopper_repack_loses_nothing(env, cfg_kw, terms):
         assert not dropped.any()
 
 
-@pytest.mark.parametrize("env", sorted(ENV_DIMS))
-def test_repacked_plain_matches_jax_pallas_kernel(env):
+def test_zero_padding_is_exact():
+    """pad_nl_forward keeps every operand's entries and adds zeros, and at f64
+    the plain forward on the padded weights lies within 1e-12 of the forward
+    on the unpadded ones, at ragged GRU and trunk widths (100: GRU 50 -> 56,
+    trunk 100 -> 112; 24: 12 -> 16, 24 -> 32)."""
+    env = "oderl-cartpole"
+    n, m, high = ENV_DIMS[env]
+    for width in (24, 100):
+        jmodel, tmodel = models(env, {"nl_hidden_units": width})
+        params = jax.tree_util.tree_map(lambda x: torch.tensor(np.asarray(x)), jmodel.init(jax.random.PRNGKey(1)))
+        packed = tuple(x.double().numpy() for x in tmodel.make_fused_planner_apply(params, DT).packed)
+        padded = tnl.pad_nl_forward(packed)
+        H, Hp = width // 2, tilt._round_up(width // 2, 8)
+        assert padded[1].shape == (Hp, 3 * Hp) and padded[13].shape == (tilt._round_up(width, 16),) * 2
+        for i, (got, exp) in enumerate(zip(padded, packed)):
+            assert got.dtype == np.float64
+            live = np.concatenate([got[..., g * Hp : g * Hp + H] for g in range(3)], -1) if i < 8 else got
+            np.testing.assert_array_equal(live[tuple(slice(0, k) for k in exp.shape)], exp, err_msg=str(i))
+            assert np.abs(got).sum() == np.abs(exp).sum()  # the rest is zero
+        rng = np.random.default_rng(width)
+        obs = torch.tensor(rng.standard_normal((64, n)))
+        acts = torch.tensor(rng.uniform(-high, high, (64, 4 * m)))
+        exp = tnl.nl_forward_plain(obs, acts, tuple(map(torch.tensor, packed)), n, m)
+        got = tnl.nl_forward_plain(obs, acts, tuple(map(torch.tensor, padded)), n, m)
+        assert float((got - exp).abs().max()) <= 1e-12 * (1.0 + float(exp.abs().max()))
+
+
+@pytest.mark.parametrize(
+    "env,width", [(env, 128) for env in sorted(ENV_DIMS)] + [("oderl-cartpole", w) for w in WIDTHS],
+    ids=sorted(ENV_DIMS) + [f"width{w}" for w in WIDTHS],
+)
+def test_repacked_plain_matches_jax_pallas_kernel(env, width):
     """The forward as the kernel computes it (r/z over [x; h] in one product,
     the head over its live columns, the compact combine), on the kernel's
-    buffer, vs the JAX fused kernel in interpret mode and vs nl_forward_plain."""
+    buffer, vs the JAX fused kernel in interpret mode and vs nl_forward_plain;
+    and the port's fused apply vs the JAX kernel: on the trained weights at
+    width 128, on JAX's init at the other widths (padded in the buffer where
+    ragged)."""
     n, m, _ = ENV_DIMS[env]
-    tparams = trained(env)
-    jmodel, _ = models(env)
-    obs, abuf = draw(env, 96)
-    ts = np.full((96, 1), DT, np.float32)
+    B = 96 if width == 128 else 16
+    obs, abuf = draw(env, B)
+    ts = np.full((B, 1), DT, np.float32)
+    if width == 128:
+        tparams = trained(env)
+        jmodel, _ = models(env)
+        fused = fused_cpu(env)
+    else:
+        jmodel, tmodel = models(env, {"nl_hidden_units": width})
+        jparams = jmodel.init(jax.random.PRNGKey(0))
+        tparams = jax.tree_util.tree_map(lambda x: torch.tensor(np.asarray(x)), jparams)
+        fused = tmodel.make_fused_planner_apply(tparams, DT)
     with pltpu.force_tpu_interpret_mode():
         exp = np.asarray(jmodel.make_fused_planner_apply(jax_tree(tparams), DT)(None, obs, abuf, ts))
-    fused = fused_cpu(env)
-    acts = torch.tensor(abuf.reshape(96, -1))
-    got = forward_repacked_plain(torch.tensor(obs), acts, fused.hopper, (n, m, 64, 128, n, 17))
-    assert got.shape == (96, n) and got.dtype == torch.float32
+    acts = torch.tensor(abuf.reshape(B, -1))
+    H, hid = fused.packed[1].shape[0], fused.packed[13].shape[0]
+    got = forward_repacked_plain(torch.tensor(obs), acts, fused.hopper, (n, m, H, hid, n, 17))
+    assert got.shape == (B, n) and got.dtype == torch.float32
     assert rel_err(got, exp) < TOL
     plain = tnl.nl_forward_plain(torch.tensor(obs), acts, fused.packed, n, m)
     assert rel_err(got, plain) < KERNEL_TOL
+    assert rel_err(fused(None, torch.tensor(obs), torch.tensor(abuf), torch.tensor(ts)), exp) < TOL
 
 
 @pytest.mark.parametrize("env", sorted(ENV_DIMS))
@@ -453,19 +510,32 @@ def test_split_tf32_on_early_weights():
     assert e["kernel_vs_plain64"] <= 1.5 * e["plain_vs_plain64"]
 
 
-@pytest.mark.parametrize("env,terms", [(env, 17) for env in sorted(ENV_DIMS)] + [("oderl-cartpole", 32)])
-def test_repacked_head_matches_plain(env, terms):
+@pytest.mark.parametrize(
+    "env,terms,hx",
+    [(env, 17, 128) for env in sorted(ENV_DIMS)] + [("oderl-cartpole", 32, 128)]
+    + [("oderl-cartpole", 17, w) for w in WIDTHS + (101,)],
+    ids=[f"{env}-17" for env in sorted(ENV_DIMS)] + ["oderl-cartpole-32"] + [f"hx{w}" for w in WIDTHS + (101,)],
+)
+def test_repacked_head_matches_plain(env, terms, hx):
     """The head on repack_head's buffer (live columns, compact combine, in
     chunks) vs nl_head_plain on pack_head_weights's operands. At terms=32
     the fourier sum runs over the blocks' zero-padded terms as well, and the
-    head's 160 columns lie in two chunks."""
+    head's 160 columns lie in two chunks. At other input widths Hx (seeded
+    weights) the chunks narrow to fit the stage, and a ragged Hx (101) gets
+    zero rows up to a multiple of 4."""
     n = ENV_DIMS[env][0]
-    head = trained(env)["laplace_rep"][-1]
-    packed = tilt.to_device(tilt.pack_head_weights(head["w"], head["b"], n, 17, 0.125), "cpu")
+    if hx == 128:
+        head = trained(env)["laplace_rep"][-1]
+        w, b = head["w"], head["b"]
+    else:
+        rng = np.random.default_rng(hx)
+        w = rng.standard_normal((hx, 2 * n * 17)).astype(np.float32) / np.sqrt(hx)
+        b = (0.1 * rng.standard_normal(2 * n * 17)).astype(np.float32)
+    packed = tilt.to_device(tilt.pack_head_weights(w, b, n, 17, 0.125), "cpu")
     buf = tilt.repack_head(packed, n, terms)
-    assert buf.size == tilt.head_size(128, n, terms)
-    x = torch.tensor(np.tanh(np.random.default_rng(1).standard_normal((200, 128))), dtype=torch.float32)
-    got = head_repacked_plain(x, buf, n, terms)
+    assert buf.size == tilt.head_size(hx, n, terms)
+    x = torch.tensor(np.tanh(np.random.default_rng(1).standard_normal((200, hx))), dtype=torch.float32)
+    got = head_repacked_plain(torch.nn.functional.pad(x, (0, tilt._round_up(hx, 4) - hx)), buf, n, terms)
     assert rel_err(got, tilt.nl_head_plain(x, packed, n)) < KERNEL_TOL
 
 
@@ -509,3 +579,43 @@ def test_forward_errors_scale_to_the_fourier_terms(weights):
     shifted = (exp64 + 1e-3 * size[:, :3]).float()
     s = chip_smoke.forward_errors(shifted, obs, acts, packed, 3, 1)
     assert abs(s["kernel_cond"] - 1e-3) < 1e-5 and s["kernel_vs_plain"] > 1.0
+
+
+@pytest.mark.parametrize("width", [160, 512])
+def test_widen_nl_embeds_the_tracked_checkpoint(width):
+    """chip_smoke.widen_nl, the weights on which phase widths holds the
+    streamed kernel to 1e-3: a tree of the width's shape with the tracked
+    cartpole checkpoint in the leading GRU units of each gate block and the
+    leading trunk columns. Its new units move the forward by more than ten
+    times KERNEL_TOL, and the f32 plain forward stays within KERNEL_TOL of
+    the f64 one."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    from neurallaplacecontrol_tpu_torch.models.common import tree_leaves
+
+    n, m, high = ENV_DIMS["oderl-cartpole"]
+    params = trained("oderl-cartpole")
+    wide = chip_smoke.widen_nl(params, width, seed=width)
+    model = torch_make_model("nl", "oderl-cartpole", n, m, high, TConfig(nl_hidden_units=width), device="cpu")
+    assert [x.shape for x in tree_leaves(wide)] == [
+        x.shape for x in tree_leaves(model.init(torch.Generator().manual_seed(0)))]
+    H, Hn = 64, width // 2
+    for old, new in zip(params["encoder"]["gru"], wide["encoder"]["gru"]):
+        for gate in range(3):
+            assert torch.equal(new["w_hh"][:H, gate * Hn:gate * Hn + H], old["w_hh"][:, gate * H:(gate + 1) * H])
+            assert torch.equal(new["b_ih"][gate * Hn:gate * Hn + H], old["b_ih"][gate * H:(gate + 1) * H])
+    assert torch.equal(wide["laplace_rep"][1]["w"][:128, :128], params["laplace_rep"][1]["w"])
+
+    obs, acts = (torch.as_tensor(x) for x in draw("oderl-cartpole", 500))
+    acts = acts.reshape(500, -1)
+    packed = model.make_fused_planner_apply(wide, DT).packed
+    narrow = torch_make_model("nl", "oderl-cartpole", n, m, high, TConfig(), device="cpu")
+    packed128 = narrow.make_fused_planner_apply(params, DT).packed
+
+    def f64(p):
+        return tnl.nl_forward_plain(obs.double(), acts.double(), tuple(x.double() for x in p), n, m)
+
+    exp = f64(packed)
+    assert rel_err(exp, f64(packed128)) > 10 * KERNEL_TOL
+    assert rel_err(tnl.nl_forward_plain(obs, acts, packed, n, m), exp) < KERNEL_TOL

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from neurallaplacecontrol_tpu.config import Config as JConfig
 from neurallaplacecontrol_tpu.models import make_model as jax_make_model
@@ -128,8 +129,9 @@ def test_norm_stats_match_jax(env):
 def test_unported_models_raise():
     """What was refused before reference-weight import and bf16 were ported
     now builds (``latent_ode_ref``; NL with ``nl_compute_dtype="bfloat16"``,
-    whose tree is the f32 model's); an unknown name or compute dtype raises,
-    and so do the fused forward's refusals below."""
+    whose tree is the f32 model's), and so does the fused forward at the
+    widths it refused (24, 160); an unknown name or compute dtype raises,
+    and so does the fused forward for another ILT than fourier."""
     lor = torch_make_model("latent_ode_ref", "oderl-pendulum", 3, 1, 2.0, device="cpu")
     assert lor.name == "latent_ode_ref" and lor.latents == 5 and lor.rec_dims == 20
     bf16 = torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, TConfig(nl_compute_dtype="bfloat16"), device="cpu")
@@ -141,17 +143,28 @@ def test_unported_models_raise():
         torch_make_model("latent_ode_refs", "oderl-pendulum", 3, 1, 2.0, device="cpu")
     with pytest.raises(ValueError, match="nl_compute_dtype"):
         torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, TConfig(nl_compute_dtype="float16"), device="cpu")
-    # the fused planner forward takes the fourier ILT and the kernel's widths only
+    # the fused planner forward takes the fourier ILT only
     model = torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, TConfig(nl_ilt_algorithm="dehoog"),
                              device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="fourier-only"):
         model.make_fused_planner_apply(params, 0.05)
-    for hidden in (24, 160):  # GRU 12 (not a multiple of 8); GRU 80 (above 64)
+    # at any width: GRU 12 (padded to 16) and GRU 80 (past the resident kernel's 64) agree with
+    # JAX's fused kernel in interpret mode on JAX's init, at tests/test_torch_kernels.py's 1e-2
+    obs, abuf, ts = (x.astype(np.float32) for x in inputs("oderl-pendulum", B=16, ts=0.05))
+    for hidden in (24, 160):
+        jmodel = jax_make_model("nl", "oderl-pendulum", 3, 1, 2.0, JConfig(nl_hidden_units=hidden),
+                                dtype=jnp.float32)
+        jparams = jmodel.init(jax.random.PRNGKey(0))
+        with pltpu.force_tpu_interpret_mode():
+            exp = np.asarray(jmodel.make_fused_planner_apply(jparams, 0.05)(None, obs, abuf, ts), np.float64)
         model = torch_make_model("nl", "oderl-pendulum", 3, 1, 2.0, TConfig(nl_hidden_units=hidden),
                                  device="cpu")
-        with pytest.raises(ValueError, match="fused NL forward takes"):
-            model.make_fused_planner_apply(model.init(torch.Generator().manual_seed(0)), 0.05)
+        fused = model.make_fused_planner_apply(from_jax_params(jax.tree_util.tree_map(np.asarray, jparams),
+                                                               device="cpu"), 0.05)
+        got = fused(None, *(torch.tensor(x) for x in (obs, abuf, ts))).double().numpy()
+        assert got.shape == (16, 3)
+        assert float((np.abs(got - exp) / (1.0 + np.abs(exp))).max()) < 1e-2
 
 
 @pytest.mark.parametrize("hidden", [16, 48, 128])

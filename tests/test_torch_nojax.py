@@ -4,6 +4,7 @@ the CPU on their own, and the port's sources keep the repo's hygiene rules."""
 
 import ast
 import io
+import os
 import subprocess
 import sys
 import textwrap
@@ -334,3 +335,14 @@ def test_port_source_hygiene(path):
         assert "\t" not in line, f"{path}:{i}: tab character"
     assert text.endswith("\n") and not text.endswith("\n\n"), f"{path}: final newline"
     assert "breakpoint(" not in text and "import pdb" not in text
+
+
+@pytest.mark.parametrize("args", [[], ["--phase", "widths"]], ids=["whole", "one_phase"])
+def test_chip_smoke_fails_without_cuda(args):
+    """chip_smoke.py, whole or one phase, exits non-zero and prints no result
+    line where torch sees no CUDA device."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    run = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), *args], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode != 0
+    assert "CUDA is not available" in run.stderr and '"ok"' not in run.stdout

@@ -92,6 +92,22 @@ def test_fused_controller_tracks_unfused_on_cpu():
         np.testing.assert_allclose(s2.U.numpy(), s1.U.numpy(), atol=1e-3)
 
 
+def test_fused_controller_tracks_unfused_at_a_wide_ragged_width():
+    """At nl_hidden_units=160 (GRU 80, past the resident kernel's 64), on the
+    port's seeded init: the fused planner's first plan gives the unfused
+    controller's actions to 1e-3 (f32, the same noise)."""
+    cfg = TConfig(nl_hidden_units=160)
+    model = torch_make_model("nl", ENV, 5, 1, 3.0, cfg, dtype=torch.float32, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    ctrls = [tserving.make_controller("nl", ENV, DELAY, c, model_apply=model.apply, params=params, roll_outs=K,
+                                      time_steps=T, dtype=torch.float32, device="cpu")
+             for c in (cfg, cfg.replace(fused_nl_planner=True))]
+    obs = torch.tensor([0.1, -0.2, -0.99, 0.1, 0.3])
+    (a1, s1), (a2, s2) = (c.step(c.reset(3), obs) for c in ctrls)
+    assert abs(float(a1[0]) - float(a2[0])) < 1e-3
+    np.testing.assert_allclose(s2.U.numpy(), s1.U.numpy(), atol=1e-3)
+
+
 def test_reset_is_seeded():
     ctrl = torch_controller()
     a = ctrl.reset(11)

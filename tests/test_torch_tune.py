@@ -53,12 +53,19 @@ def test_recommend_carries_no_tpu_threshold():
 
 
 def test_recommend_leaves_what_the_kernel_does_not_take():
-    """A width or an ILT the kernel does not take leaves fused_nl_planner at
-    the base config, and says why."""
-    for cfg in (Config(nl_hidden_units=256), Config(nl_ilt_algorithm="dehoog")):
+    """An ILT the kernel does not take and widths past the widest where the
+    card measured the kernel faster than the plain f32 forward at K=1,000
+    (256, 384) leave fused_nl_planner at the base config, and say why; a wide
+    width up to it (160) turns the kernel on."""
+    for cfg in (Config(nl_hidden_units=256), Config(nl_ilt_algorithm="dehoog"), Config(nl_hidden_units=384)):
         rec = tune.recommend(cfg)
         assert rec.config.fused_nl_planner is False
         assert rec.rationale["fused_nl_planner"].startswith("as the base config")
+    assert tune.KERNEL_MAX_WIDTH == 160
+    assert "nl_hidden_units=384: the streamed forward kernel" in tune.recommend(
+        Config(nl_hidden_units=384)).rationale["fused_nl_planner"]
+    rec = tune.recommend(Config(nl_hidden_units=160))
+    assert rec.config.fused_nl_planner is True and "0.1744 against 0.2717 ms" in rec.rationale["fused_nl_planner"]
     rec = tune.recommend(Config(nl_planner_precompute=True, nl_hidden_units=256))
     assert rec.config.nl_planner_precompute is True
 
