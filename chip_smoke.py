@@ -76,9 +76,10 @@ FLOP count), ``scripts/eval_bigk_torch.py`` at K=16,384,
 ``scripts/heldout_parity_torch.py`` on the tracked checkpoints and
 ``scripts/make_readme_table_torch.py`` on phase ``driver``'s records. Phase
 ``widths`` (after ``entry``) runs the forward kernel at nl_hidden_units 24 to
-1,024 on cartpole at 1,000 and 20,000 rows against its plain version (the
-resident kernel up to 128, its weight-streaming variant past it) on a seeded
-init and, past 128, on the tracked checkpoint widened to each width; the head
+2,048 on cartpole at 1,000 and 20,000 rows and 4,096 at 1,000 rows against its
+plain version (the resident kernel up to 128, past it the streamed variant, a
+chain of stage kernels tiled over rows and columns) on a seeded init and, past
+128, on the tracked checkpoint widened to each width; the head
 kernel at a 512-wide input; and the driver at nl_hidden_units 512 on cartpole
 d1: 30 s of training warm-started from the widened tracked checkpoint, 10
 seeds through the streamed kernel and through the plain route on the same
@@ -151,6 +152,7 @@ from neurallaplacecontrol_tpu_torch.models.common import tree_leaves, tree_unfla
 from neurallaplacecontrol_tpu_torch.oderl.dynamics import OderlDraws
 from neurallaplacecontrol_tpu_torch.training.train import make_adam, make_optimizer, make_train_segment_fn, median
 from neurallaplacecontrol_tpu_torch.training.train_latent_ode import build_history_windows, make_latent_ode_segment_fn
+from neurallaplacecontrol_tpu_torch.utils.device import card
 from neurallaplacecontrol_tpu_torch.utils.checkpoint import (
     from_jax_params,
     load_pytree,
@@ -366,11 +368,10 @@ def phase(name: str):
 
 
 def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them, from ``utils.device.card``."""
+    c = card(torch.device("cuda", 0))
+    return f"{c['device']}, {c['power_limit_w']:.2f} W"
 
 
 def rel_err(got: torch.Tensor, exp: torch.Tensor) -> float:
@@ -736,10 +737,9 @@ def run_eval(device, smi: str) -> dict:
     launches = {"nl_forward": fwd.launches, "nl_head": pallas_ilt.nl_head_fused.launches,
                 "nl_forward_streamed": fwd.streamed_launches}
     rows_per_launch = fwd.rows / max(1, launches["nl_forward"])
-    # the variant the kernel library plans at the evaluation's dims, and its rows per CTA
+    # the variant the kernel library plans at the evaluation's dims, and its tile
     fused = model.make_fused_planner_apply(params, cfg.dt)
-    plan = dict(zip(("variant", "rows_per_cta", "smem_bytes"), nl_cuda.forward_plan(
-        forward_dims(SEED_ROWS, fused, env.spec, cfg.nl_s_recon_terms))))
+    plan = dict(nl_cuda.forward_plan(forward_dims(SEED_ROWS, fused, env.spec, cfg.nl_s_recon_terms)))
 
     out = {"env": MAIN_ENV, "delay": DELAY, "K": K, "T": T, "steps": EVAL_STEPS, "seeds": len(EVAL_SEEDS),
            "launches": launches, "forward_rows_per_launch": rows_per_launch, "forward_plan": plan, "card": smi}
@@ -2607,8 +2607,12 @@ def run_entry(device, smi: str, tmp: str, results_path) -> dict:
     return out
 
 
-WIDTHS = (24, 100, 128, 160, 256, 512, 1024)  # nl_hidden_units of phase widths' kernel checks
-WIDTH_ROWS = (K, SEED_ROWS)
+# nl_hidden_units of phase widths' kernel checks; 200's GRU width (100, padded to 104) leaves
+# the last m-tile of 16 columns half live
+WIDTHS = (24, 100, 128, 160, 200, 256, 512, 1024, 2048, 4096)
+WIDTH_ROWS = (K, SEED_ROWS)  # checked and timed
+WIDTH_MAX_ROWS = {4096: K}  # widths timed at fewer rows: 4,096 at 1,000 only
+WIDTH_RAGGED_ROWS = (1, 999, 1001)  # checked only: row tiles cut short
 WIDTH_COND_LIMIT = 1e-5  # forward_errors' kernel_cond, as on phase train's early weights
 # the f32 plain forward's rel_err to the f64 one below which f32 resolves the seeded init's
 # outputs, and the kernel is held to the plain forward by KERNEL_TOL as well
@@ -2708,17 +2712,21 @@ def forward_dims(rows: int, fused, spec, terms: int) -> tuple:
             fused.hopper.numel())
 
 
-def width_forward_checks(device, width: int, tracked) -> list:
+def width_forward_checks(device, width: int, tracked, stages=None) -> list:
     """The forward kernel at ``width`` on cartpole against its plain version
-    at 1,000 and 20,000 rows, on two sets of weights. On the port's init
-    drawn from a seed (``weights: "seeded"``): the term-scaled f64 error
-    (``WIDTH_COND_LIMIT``), ``KERNEL_TOL`` where f32 resolves the outputs,
-    graph and eager ms of both, the bounds at the model's real widths. Past
-    128, on the tracked checkpoint widened to ``width`` (``widen_nl``,
-    ``weights: "widened"``), whose outputs f32 resolves: the errors, held by
-    ``run_widths`` to ``KERNEL_TOL`` as phase ``kernels`` holds the tracked
-    weights. Each record names the variant that ran, its rows per CTA and
-    shared memory."""
+    at the rows of ``WIDTH_RAGGED_ROWS`` and ``WIDTH_ROWS``, on two sets of
+    weights. On the port's init drawn from a seed (``weights: "seeded"``):
+    the term-scaled f64 error, and where f32 resolves the outputs the error
+    to the plain forward; at ``WIDTH_ROWS``, graph ms of kernel and plain in
+    turns (plain, kernel, kernel, plain; each the faster of its two), eager
+    ms, the bounds at the model's real widths, and with ``stages`` (a
+    function of the kernel's call) its result. Past 128, on the tracked
+    checkpoint widened to ``width`` (``widen_nl``, ``weights: "widened"``),
+    whose outputs f32 resolves: the errors. ``width_failures`` holds them to
+    their limits. Each record names the variant that ran, its tile (rows by
+    columns of a GRU stage's CTA), its device launches per forward and its
+    largest shared memory. 4,096 is timed at 1,000 rows only
+    (``WIDTH_MAX_ROWS``)."""
     spec = make_env(MAIN_ENV).spec
     n, in_dim, A = spec.n_obs, spec.m, port.Config().action_buffer_size
     cfg = port.Config(nl_hidden_units=width)
@@ -2727,11 +2735,12 @@ def width_forward_checks(device, width: int, tracked) -> list:
     weights = {"seeded": model.init(torch.Generator(device=device).manual_seed(width))}
     if width > 128:
         weights["widened"] = widen_nl(tracked, width, seed=width)
+    timed = [r for r in WIDTH_ROWS if r <= WIDTH_MAX_ROWS.get(width, r)]
     recs = []
     for name, params in weights.items():
         fused = model.make_fused_planner_apply(params, cfg.dt)
         packed = fused.packed
-        for rows in WIDTH_ROWS:
+        for rows in WIDTH_RAGGED_ROWS + tuple(timed):
             rng = np.random.default_rng(rows + width)
             obs = torch.tensor(rng.standard_normal((rows, n)), dtype=torch.float32, device=device)
             acts = torch.tensor(rng.uniform(-spec.action_high, spec.action_high, (rows, A * in_dim)),
@@ -2741,21 +2750,47 @@ def width_forward_checks(device, width: int, tracked) -> list:
             plain = partial(pallas_nl.nl_forward_plain, obs, acts, packed, n, in_dim)
             got = kernel()
             torch.cuda.synchronize()
-            variant, cta_rows, smem = nl_cuda.forward_plan(forward_dims(rows, fused, spec, terms))
-            rec = {"width": width, "weights": name, "B": rows, "variant": variant, "rows_per_cta": cta_rows,
-                   "smem_bytes": smem, "finite": bool(torch.isfinite(got).all()) and got.shape == (rows, n),
+            plan = nl_cuda.forward_plan(forward_dims(rows, fused, spec, terms))
+            rec = {"width": width, "weights": name, "B": rows, "variant": plan["variant"], "tile": plan["tile"],
+                   "launches_per_forward": plan["launches"], "smem_bytes": plan["smem_bytes"],
+                   "finite": bool(torch.isfinite(got).all()) and got.shape == (rows, n),
                    **forward_errors(got, obs, acts, packed, n, in_dim)}
-            if name == "seeded":  # the times do not depend on the weights
+            if name == "seeded":
                 rec["resolved"] = rec["plain_vs_plain64"] < WIDTH_RESOLVED
+            if name == "seeded" and rows in timed:  # the times do not depend on the weights
                 reps = TIMED_LAUNCHES if rows <= K else 10
-                rec["ms"], rec["plain_ms"] = graph_ms(kernel, reps), graph_ms(plain, reps)
+                rec["turns_ms"] = [graph_ms(f, reps) for f in (plain, kernel, kernel, plain)]
+                rec["ms"], rec["plain_ms"] = min(rec["turns_ms"][1:3]), min(rec["turns_ms"][0], rec["turns_ms"][3])
                 rec["eager_ms"], rec["plain_eager_ms"] = time_ms(kernel, reps), time_ms(plain, reps)
                 rec.update(bounds(*forward_cost(rows, n, A, in_dim, packed[1].shape[0], packed[13].shape[0], n,
                                                 terms, packed)))
                 rec["share_of_bound_tc"] = rec["bound_tc_ms"] / rec["ms"]
+                if stages is not None:
+                    rec["stages"] = stages(kernel)
             print(f"widths forward {width} {name} B={rows}: " + json.dumps(rec), flush=True)
             recs.append(rec)
     return recs
+
+
+def width_failures(checks: list) -> list:
+    """What fails among ``width_forward_checks``' records: output not finite
+    or of the wrong shape; on the seeded init a term-scaled error at or
+    past ``WIDTH_COND_LIMIT``; an error to the plain forward at or past
+    ``KERNEL_TOL`` on the widened weights, and on the seeded init where f32
+    resolves the outputs; another variant than the resident one up to 128
+    and the streamed one past it."""
+    failures = []
+    for r in checks:
+        where = f"width {r['width']} ({r['weights']}) at B={r['B']}"
+        if not r["finite"]:
+            failures.append(f"{where}: non-finite output or wrong shape")
+        if r["weights"] == "seeded" and not r["kernel_cond"] < WIDTH_COND_LIMIT:
+            failures.append(f"{where}: term-scaled error {r['kernel_cond']:.3e} >= {WIDTH_COND_LIMIT}")
+        if (r["weights"] == "widened" or r["resolved"]) and not r["kernel_vs_plain"] < KERNEL_TOL:
+            failures.append(f"{where}: relative error {r['kernel_vs_plain']:.3e} >= {KERNEL_TOL}")
+        if (r["variant"] == "resident") != (r["width"] <= 128):
+            failures.append(f"{where}: the {r['variant']} variant ran")
+    return failures
 
 
 def width_head_check(device) -> dict:
@@ -2848,8 +2883,7 @@ def wide_driver_cell(device, tmp: str, tracked) -> dict:
         [y.square().sum() for y in tree_leaves(start)]).sum().sqrt())
     fused = model.make_fused_planner_apply(params, cfg.dt)
     rows = WIDE_SEEDS * K
-    out["forward_plan"] = dict(zip(("variant", "rows_per_cta", "smem_bytes"),
-                                   nl_cuda.forward_plan(forward_dims(rows, fused, spec, terms))))
+    out["forward_plan"] = dict(nl_cuda.forward_plan(forward_dims(rows, fused, spec, terms)))
     rng = np.random.default_rng(WIDE)
     obs = torch.tensor(rng.standard_normal((rows, spec.n_obs)), dtype=torch.float32, device=device)
     acts = torch.tensor(rng.uniform(-spec.action_high, spec.action_high, (rows, 4 * spec.m)), dtype=torch.float32,
@@ -2906,17 +2940,10 @@ def run_widths(device, smi: str, tmp: str) -> dict:
     t0 = time.perf_counter()
     checks = [rec for width in WIDTHS for rec in width_forward_checks(device, width, tracked)]
     seconds["forward_checks"] = time.perf_counter() - t0
-    for r in checks:
-        where = f"width {r['width']} ({r['weights']}) at B={r['B']}"
-        if not r["finite"]:
-            failures.append(f"{where}: non-finite output or wrong shape")
-        if r["weights"] == "seeded" and not r["kernel_cond"] < WIDTH_COND_LIMIT:
-            failures.append(f"{where}: term-scaled error {r['kernel_cond']:.3e} >= {WIDTH_COND_LIMIT}")
-        if (r["weights"] == "widened" or r["resolved"]) and not r["kernel_vs_plain"] < KERNEL_TOL:
-            failures.append(f"{where}: relative error {r['kernel_vs_plain']:.3e} >= {KERNEL_TOL}")
-        if (r["variant"] == "resident") != (r["width"] <= 128):
-            failures.append(f"{where}: the {r['variant']} variant ran")
+    failures += width_failures(checks)
+    t0 = time.perf_counter()
     head = width_head_check(device)
+    seconds["head"] = time.perf_counter() - t0
     if not head["max_rel_err"] < KERNEL_TOL:
         failures.append(f"head at Hx={WIDE_HEAD_HX}: relative error {head['max_rel_err']:.3e} >= {KERNEL_TOL}")
     t0 = time.perf_counter()
@@ -2939,10 +2966,10 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
     trained. The head is timed at 1,000 rows, the shape of its check.
     ``variants`` gives the launches of each variant: the resident kernel's
     on the main path at width 128 (the evaluation's launches less its
-    streamed ones, with the rows per CTA that ``main_plan``, the kernel
-    library's plan at the evaluation's dims, gives), the streamed one's in
-    phase widths' driver cell; ``widths`` phase widths' checks and its wide
-    head."""
+    streamed ones, with the tile and device launches per forward that
+    ``main_plan``, the kernel library's plan at the evaluation's dims,
+    gives), the streamed one's in phase widths' driver cell; ``widths``
+    phase widths' checks at ``WIDTH_ROWS`` and its wide head."""
     replaces = {
         "nl_forward": "neurallaplacecontrol_tpu/ops/pallas_nl.py:158",
         "nl_head": "neurallaplacecontrol_tpu/ops/pallas_ilt.py:113",
@@ -2985,17 +3012,21 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
             wl = widths["driver"]["launches"]
             out[-1]["variants"] = {
                 "resident": {"launches": launches["eval"][name] - launches["eval"]["nl_forward_streamed"],
-                             "rows": SEED_ROWS, "rows_per_cta": main_plan["rows_per_cta"],
+                             "rows": SEED_ROWS, "tile": main_plan["tile"],
+                             "launches_per_forward": main_plan["launches"],
                              "source": "nl_kernels.cu::nl_forward_kernel", "phase": "eval"},
                 "streamed": {"launches": wl["streamed"], "rows": wl["streamed_rows"] // max(1, wl["streamed"]),
-                             "rows_per_cta": widths["driver"]["forward_plan"]["rows_per_cta"],
-                             "source": "nl_kernels.cu::nl_forward_streamed_kernel", "phase": "widths"},
+                             "tile": widths["driver"]["forward_plan"]["tile"],
+                             "launches_per_forward": widths["driver"]["forward_plan"]["launches"],
+                             "source": "nl_kernels.cu::nl_wide_gemm_kernel and the nl_wide_* stage kernels",
+                             "phase": "widths"},
             }
-            out[-1]["widths"] = [{k: r[k] for k in ("width", "weights", "B", "variant", "rows_per_cta", "smem_bytes",
+            out[-1]["widths"] = [{k: r[k] for k in ("width", "weights", "B", "variant", "tile",
+                                                    "launches_per_forward", "smem_bytes",
                                                     "kernel_cond", "kernel_vs_plain", "kernel_vs_plain64", "resolved",
                                                     "ms", "eager_ms", "plain_ms", "plain_eager_ms", "bound_ms",
                                                     "bound_tc_ms", "share_of_bound_tc") if k in r}
-                                 for r in widths["checks"]]
+                                 for r in widths["checks"] if r["B"] in WIDTH_ROWS]
             out[-1]["shard"] = {"launches": launches["shard"], "rows": [
                 {k: r[k] for k in ("B", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")
                  if k in r} for r in shard_rows]}

@@ -5,9 +5,11 @@
 // It runs a 2-layer GRU over the buffer newest to oldest, the encoder head, the two tanh
 // trunk layers and the theta/phi head with the fourier ILT combine.
 //
-// nl_forward_streamed_kernel computes the same function for the widths whose weights do not
-// fit in shared memory (see "The streamed variant" below); forward_plan picks one of the two
-// from the dims, and nl_forward_launch launches it.
+// Past width 128, and wherever its weights and activations do not fit in shared memory (a wide
+// head, a long action buffer), the same function runs as a chain of stage kernels (nl_wide_*,
+// see "The wide variant" below), the variant named "streamed", on a buffer in its own layout;
+// forward_plan picks the variant from the dims and the buffer's layout, and nl_forward_launch
+// launches it.
 //
 // nl_head_kernel replaces neurallaplacecontrol_tpu/ops/pallas_ilt.py::_nl_head_kernel:
 // hidden [B, Hx] -> state difference [B, D]. Its math is head_tile, the device function
@@ -54,39 +56,55 @@
 // Numerics: accurate tanhf/sincosf/expf (no fast-math) and the per-hemisphere radius, since
 // the ILT tail amplifies error near phi ~ pi/2 (pallas_nl.py:46-60).
 //
-// The streamed variant. The resident design holds every weight of a CTA in shared memory,
-// which ends at H = 64 (8 warps of 8 GRU units a layer) and ~227 KB: at width 256 the weights
-// alone take 1.04 MB, at 1024 14.4 MB. nl_forward_streamed_kernel keeps them in global memory
-// (in the 50 MB L2 up to width 1024; at 2048 their 56 MB spill to HBM) and passes
-// them through a ring of kStages shared-memory stages: a tile is the next few k-steps of a few
-// column groups (GRU unit groups, trunk column tiles, head chunks) of one product, brought by
-// cp.async.bulk copies completing on the stage's mbarrier; the warps run split-TF32 mma.sync
-// (mma3) on the tile that has landed while the next ones stream in, and one thread refills a
-// stage once every warp is done with it (__syncthreads). The buffer is the resident kernel's;
-// the biases and the encoder are read from global memory. The activations stay in shared
-// memory, unsplit (each warp splits its B fragments as it loads them): the action buffer, a
-// rotation of three GRU states (layer 1 writes its new state where the old layer-2 state was),
-// [obs; latent], the trunk's two layers, the head's per-term contributions. The GRU runs layer
-// after layer, step after step (no wavefront); a warp owns one (column group, 8-row n-tile)
-// pair of a tile, so its accumulators do not grow with the rows; the encoder gives each warp a
-// row at a time; the head keeps f32 on the CUDA cores as in head_tile.
+// The wide variant. The resident design holds every weight of a CTA in shared memory, which
+// ends at H = 64 (8 warps of 8 GRU units a layer) and ~227 KB: at width 256 the weights alone
+// take 1.04 MB, at 1024 14.4 MB. Past width 128 (and below it where the resident layout does
+// not fit at the dims: the host packs the wide layout there) the forward runs as a chain of
+// stage kernels that nl_forward_launch puts on the caller's stream back to back: a prep kernel
+// that splits the action buffer, then per GRU step (newest action first) layer 1 and layer 2,
+// then trunk layer 1 (with the encoder), trunk layer 2 and the head: 2 A + 4 launches, one
+// forward. The activations between stages live in scratch device memory the caller allocates
+// (nl_forward_plan gives its size), stored split (hi and lo planes, written once by the
+// epilogue of the stage that computes them) in blocks that a bulk copy brings whole (plane_at).
 //
-// Rows per CTA. Each CTA reads every weight once per GRU step: at width 512 (cartpole), 2.38 MB
-// of GRU weights a step, 9.5 MB over A = 4, 11.0 MB with the trunk and the head. A CTA of R
-// rows moves those bytes for 5.43 MFLOP a row, 0.49 R FLOP per byte of L2 traffic. At 8 rows
-// (the resident kernel's) B = 20,000 would take 2,500 CTAs and 27 GB of L2 reads, ~5 ms at
-// ~5.5 TB/s against 1.62 ms for the launch's FLOPs at the f32 rate (0.69 ms split TF32). So the
-// rows per CTA are as many as shared memory holds, up to 64, with the trunk's two activations
-// (2 R (hid + 4) floats) the largest part: R = 64 at width 256, 32 at 512, 16 at 1024, 8 at
-// 2048. At 512 and B = 20,000 that is 625 CTAs and 6.9 GB, ~1.25 ms of L2 reads: below the
-// f32-rate FLOP time, not below the split-TF32 one; a cluster multicasting each tile to its
-// CTAs would divide the reads by its size (a later PR's work, as are wgmma and TMA
-// descriptors). Where B / R would leave SMs idle (B = 1,000), R drops to the least that fits.
-// The widest width the variant takes is where 8 rows of the trunk's activations and one tile
-// of each product no longer fit: nl_hidden_units ~2,900 (forward_plan refuses wider).
+// Each product runs as one GEMM stage (nl_wide_gemm_kernel): a CTA owns a tile of 64 output
+// columns (4 m-tiles of 16; for the GRU 64 hidden units, each with its r, z and candidate
+// columns) by 32, 64 or 128 batch rows, the N side. The PR 15 kernel owned a few rows and
+// every column, so it read every weight once per 8-64 rows (0.49 R FLOP per byte of L2);
+// here each weight is read once per row tile and each activation once per column tile, and
+// the grid is (column tiles x row tiles), so B = 1,000 still fills the SMs. (A GRU tile takes
+// 32 rows, below the 64 that reuse each weight more, where 64-row tiles would leave more than a
+// quarter of the SMs idle: at 1,000 rows, widths up to 768; wide_plan gives the measurement.)
+// One producer warp keeps a ring of 4 stages full: each stage is 4 k-steps of the tile's
+// weights and of its rows' activations, brought by cp.async.bulk onto the stage's "full"
+// mbarrier; the 8 consumer warps free a stage through its "empty" mbarrier (no __syncthreads
+// per tile).
+// Consumer warp w owns m-tile w % 4 for the rows of its warpgroup (w / 4), 16 or 32 rows
+// for the GRU, up to 64 for the trunk. The products run in split TF32 on mma.sync.m16n8k8
+// (mma_split): the weights are split in registers as they are loaded, once per k-step for
+// all the warp's n-tiles, the activations come split. The GRU's K loop runs over x's
+// k-steps, then h's: on x's the candidate's accumulators gather its input half, on h's its
+// hidden half, so no product multiplies a zero half; the epilogue forms the gates and
+// h' = n + z (h - n) in registers. The trunk's epilogue is tanh + bias; the encoder runs in
+// f32 in trunk layer 1's prologue, which takes all of its (few) k-steps per row tile. The
+// head keeps f32 on the CUDA cores as head_tile does (split TF32 missed 1e-3 there), a CTA
+// per row tile over every live column, so the sum over a row's terms stays in the CTA.
+// (wgmma with A from registers, m64nNk8 over the same fragments and a B descriptor on the same
+// split planes, agreed with this to 1e-5 and ran the stages 12-33% slower on an H100: ptxas
+// serialized it for want of registers for the three gates' split products; PERF.md, PR 16.)
+//
+// Bound. At width 512 (cartpole, H = 256) a row costs 5.43 MFLOP, 95% of it in the GRU; at
+// B = 20,000 that is 0.66 ms with every product three times at 495 TFLOP/s (bound_tc). At 64
+// rows a tile the GRU's weights are read 313 times a step from L2 (3 GB over A = 4 steps)
+// and its activations 4 times (its 4 column tiles): ~1 ms of L2 traffic at ~5.5 TB/s,
+// the larger part of the time. Only offsets that overflow int limit the width
+// (forward_plan).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -577,88 +595,52 @@ nl_head_kernel(const float* __restrict__ x, const float* __restrict__ buf,
   head_tile(s_x, ldx, h, s_head, bar, buf, contrib, out, row0, B);
 }
 
-// ---- the weight-streaming forward ----
+// ---- the wide forward: a chain of stage kernels ----
 
-constexpr int kStages = 3;             // shared-memory stages of the weight ring
-static_assert(kStages * 2 <= kBarFloats, "the ring's mbarriers sit in the first kBarFloats floats");
-constexpr int kMaxStageFloats = 8192;  // 32 KB a stage at most
-constexpr int kTargetCtas = 132;       // an H100 SXM's SMs: rows per CTA shrink to fill them
-constexpr int kStreamRows[4] = {64, 32, 16, 8};
+constexpr int kWideWarps = 8;                        // consumer warps: two warpgroups
+constexpr int kWideThreads = 32 * (kWideWarps + 1);  // and one producer warp
+constexpr int kWideStages = 4;                       // shared-memory stages of the ring
+constexpr int kWideK = 4;                            // k-steps of 8 a stage
+constexpr int kColMt = 4;                            // m-tiles of 16 output columns a CTA
+constexpr int kRowPad = 128;                         // scratch rows: B up to a multiple of this
+constexpr int kPlane = 128;                          // floats of one (k-step, 8 rows) block
+constexpr int kTrunk1Rows = 16;                      // rows a CTA of trunk layer 1
+constexpr int kSmallThreads = 256;                   // the prep, trunk-1 and head kernels
+constexpr int kHeadK = 128;                          // head inputs a pass through shared memory
+constexpr int kTargetCtas = 132;                     // an H100 SXM's SMs
+static_assert(kWideWarps == 2 * kColMt, "two warpgroups of one warp per m-tile");
 
-// One product of the forward as the streamed kernel walks it: `groups` column groups of the
-// weight buffer, each one or two contiguous runs of [ks][kf] floats (part 1 at `part1` within
-// the group). A tile is the next kc k-steps of gs groups (a panel); each panel is walked
-// `repeat` times. In a stage, group i of the tile lies at i kc (kf0 + kf1), its part 1 kc kf0
-// further.
-struct StreamGemm {
-  int src, group_stride, part1, kf0, kf1, ks, kc, groups, gs, repeat;
-  __host__ __device__ int chunks() const { return (ks + kc - 1) / kc; }
-  __host__ __device__ int panels() const { return (groups + gs - 1) / gs * repeat; }
-  __host__ __device__ int tiles() const { return panels() * chunks(); }
-  __host__ __device__ int group_floats() const { return kc * (kf0 + kf1); }
-};
+// Split planes: an activation [K][rows] that the tensor cores read, K a multiple of 8, is
+// stored split in blocks of one k-step by 8 rows: block (kt, rg) at (kt bp8 + rg) kPlane
+// floats holds hi [2 k-halves][8 rows][4], then lo the same. A row tile's blocks of one k-step
+// are contiguous (one bulk copy), and the B operand of mma.m16n8k8 at (k = t and t + 4, row
+// g) is floats 4 g + t and + 32 of a block: 32 consecutive floats a warp.
+__device__ __forceinline__ size_t plane_at(int k, int row, int bp8) {
+  return (static_cast<size_t>(k >> 3) * bp8 + (row >> 3)) * kPlane + ((k & 7) >> 2) * 32 +
+         (row & 7) * 4 + (k & 3);
+}
 
-enum { kGru1, kGru2, kTrunk1, kTrunk2, kHead, kGemms };
+__device__ __forceinline__ void put_plane(float* X, size_t at, float v) {
+  uint32_t hi, lo;
+  split(v, hi, lo);
+  X[at] = __uint_as_float(hi);
+  X[at + 64] = __uint_as_float(lo);
+}
 
-struct StreamLayout {
-  int n, A, in_dim, H, hid, rows;       // H and hid padded
-  HeadDims head;
-  int kx, k1, ldx, ldh, ldz, ldhid, ldc;
-  int b_gru2, o_wenc, o_benc, o_b1, o_b2, o_head;  // float offsets in the buffer
-  int passes;                           // head passes over a chunk's (column, 4-row) pairs
-  StreamGemm g[kGemms];
-  int stage, total_tiles;
-  int o_stage, o_z, o_act, total;       // shared-memory offsets (floats)
-};
+__device__ __forceinline__ void mbar_init_count(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
 
-// The streamed layout for `rows` rows a CTA, or false if it does not fit in shared memory.
-bool stream_layout(const ForwardLayout& F, int rows, StreamLayout& S) {
-  const int H = F.H, hid = F.hid;
-  const int nt = rows / kRows;
-  const int gs = kWarps / nt;  // a warp per (group, n-tile) pair
-  S.n = F.n; S.A = F.A; S.in_dim = F.in_dim; S.H = H; S.hid = hid; S.rows = rows;
-  S.head = F.head;
-  S.kx = F.kx; S.k1 = F.k1;
-  S.ldx = F.kx + 4; S.ldh = H + 4; S.ldz = F.k1 + 4; S.ldhid = hid + 4; S.ldc = F.head.cols() + 4;
-  const int o_w1 = 14 * H + 4;
-  S.b_gru2 = 6 * H; S.o_wenc = 12 * H; S.o_benc = 14 * H;
-  S.o_b1 = o_w1 + F.k1 * hid; S.o_b2 = S.o_b1 + hid;
-  S.o_head = F.small + F.gru1 + F.gru2 + F.w2;
-  const int mc = F.head.mc;
-  S.passes = (mc * (rows / kHeadRows) + kThreads - 1) / kThreads;
-  const int ks1 = F.kx / 8 + H / 8, ks2 = 2 * H / 8;
-  S.g[kGru1] = StreamGemm{F.small, ks1 * 192, ks1 * 128, 128, 64, ks1, 0, H / kGroup, gs, 1};
-  S.g[kGru2] = StreamGemm{F.small + F.gru1, ks2 * 192, ks2 * 128, 128, 64, ks2, 0, H / kGroup, gs, 1};
-  S.g[kTrunk1] = StreamGemm{o_w1, F.k1 / 8 * 128, 0, 128, 0, F.k1 / 8, 0, hid / 16, gs, 1};
-  S.g[kTrunk2] = StreamGemm{F.small + F.gru1 + F.gru2, hid / 8 * 128, 0, 128, 0, hid / 8, 0, hid / 16, gs, 1};
-  S.g[kHead] = StreamGemm{S.o_head + 4 * mc, F.head.chunk(), 0, 2 * mc, 0, F.head.Hx, 0,
-                          F.head.chunks, 1, S.passes};
-  const int z = rows * S.ldz;
-  const int gru_act = F.A * rows * S.ldx + 3 * rows * S.ldh;
-  const int trunk_act = 2 * rows * S.ldhid + rows * S.ldc;
-  const int act = gru_act > trunk_act ? gru_act : trunk_act;
-  const long long avail = kSmemBudget / 4 - kBarFloats - z - act;
-  if (avail <= 0) return false;
-  int budget = static_cast<int>(avail / kStages);
-  if (budget > kMaxStageFloats) budget = kMaxStageFloats;
-  S.stage = 0;
-  for (int i = 0; i < kGemms; ++i) {
-    StreamGemm& G = S.g[i];
-    const int per_k = G.gs * (G.kf0 + G.kf1);
-    int kc = budget / per_k;
-    if (i == kHead) kc = kc / kHeadRows * kHeadRows;  // the head reads 4 rows of k at a time
-    if (kc > G.ks) kc = G.ks;
-    if (kc < (i == kHead ? kHeadRows : 1)) return false;
-    G.kc = kc;
-    if (G.gs * G.group_floats() > S.stage) S.stage = G.gs * G.group_floats();
-  }
-  S.total_tiles = F.A * (S.g[kGru1].tiles() + S.g[kGru2].tiles()) + S.g[kTrunk1].tiles() +
-                  S.g[kTrunk2].tiles() + S.g[kHead].tiles();
-  S.o_stage = kBarFloats;
-  S.o_z = S.o_stage + kStages * S.stage;
-  S.o_act = S.o_z + z;
-  S.total = S.o_act + act;
-  return true;
+// mbar_wait with the spin inside the asm, so that the compiler sees no divergent exit.
+__device__ __forceinline__ void mbar_spin(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
@@ -674,325 +656,511 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t
       : "memory");
 }
 
-// Starts the copies of tile t of the whole forward (in the order the kernel consumes them:
-// per GRU step layer 1 then layer 2, then the trunk's two layers, then the head) into `dst`,
-// completing on `bar`. One thread calls it.
-__device__ void stream_issue(const StreamLayout& L, const float* buf, int t, float* dst,
-                             uint64_t* bar) {
-  const int per_step = L.g[kGru1].tiles() + L.g[kGru2].tiles();
-  int i;
-  if (t < L.A * per_step) {
-    t %= per_step;
-    i = t < L.g[kGru1].tiles() ? kGru1 : kGru2;
-    if (i == kGru2) t -= L.g[kGru1].tiles();
-  } else {
-    t -= L.A * per_step;
-    i = kTrunk1;
-    while (t >= L.g[i].tiles()) t -= L.g[i++].tiles();
-  }
-  const StreamGemm& G = L.g[i];
-  const int chunks = G.chunks();
-  const int panel = t / chunks;
-  const int k0 = (t % chunks) * G.kc;
-  const int kn = min(G.kc, G.ks - k0);
-  const int g0 = panel / G.repeat * G.gs;
-  const int ng = min(G.gs, G.groups - g0);
-  mbar_expect(bar, 4u * ng * kn * (G.kf0 + G.kf1));
-  for (int j = 0; j < ng; ++j) {
-    const float* src = buf + G.src + (g0 + j) * G.group_stride;
-    float* d = dst + j * G.group_floats();
-    bulk_copy(d, src + k0 * G.kf0, 4u * kn * G.kf0, bar);
-    if (G.kf1) bulk_copy(d + G.kc * G.kf0, src + G.part1 + k0 * G.kf1, 4u * kn * G.kf1, bar);
-  }
+__device__ __forceinline__ void split4(const float4& a, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split(a.x, hi[0], lo[0]);
+  split(a.y, hi[1], lo[1]);
+  split(a.z, hi[2], lo[2]);
+  split(a.w, hi[3], lo[3]);
 }
 
-// The ring of weight stages. Every thread walks the same tiles in the same order: acquire()
-// waits for the next tile, release() frees its stage once every thread is done with it and
-// refills it with the tile kStages further on.
-struct Ring {
-  const StreamLayout* L;
-  const float* buf;
-  float* stages;
-  uint64_t* bars;
-  int next;
-  __device__ const float* acquire() const {
-    const int s = next % kStages;
-    mbar_wait(bars + s, (next / kStages) & 1);
-    return stages + s * L->stage;
-  }
-  __device__ void release() {
-    __syncthreads();
-    const int s = next % kStages;
-    if (threadIdx.x == 0 && next + kStages < L->total_tiles) {
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      stream_issue(*L, buf, next + kStages, stages + s * L->stage, bars + s);
-    }
-    ++next;
-  }
+// One k-step of a 16 x 8 tile in split TF32, as mma3 forms it: the two small products summed
+// in the tensor core (sm), the large one formed apart and added in f32 (hh).
+__device__ __forceinline__ void mma_split(float (&hh)[4], float (&sm)[4], const uint32_t (&ahi)[4],
+                                          const uint32_t (&alo)[4], const uint32_t (&b)[4]) {
+  mma_tf32(sm, alo, b[0], b[1]);
+  mma_tf32(sm, ahi, b[2], b[3]);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, ahi, b[0], b[1]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) hh[j] += t[j];
+}
+
+// The B operand at an 8-row block of split planes: hi (k = t, t + 4), then lo.
+__device__ __forceinline__ void load_b_plane(uint32_t (&b)[4], const float* blk) {
+  b[0] = __float_as_uint(blk[0]);
+  b[1] = __float_as_uint(blk[32]);
+  b[2] = __float_as_uint(blk[64]);
+  b[3] = __float_as_uint(blk[96]);
+}
+
+// One GEMM stage: out = epilogue(W^T [x; h]) for a tile of 4 m-tiles by the CTA's rows.
+struct GemmArgs {
+  const float* w;     // [mtiles][ks][G][128]: per m-tile, per k-step, the G gates' fragments
+  const float* x;     // split planes of the x part (ksx k-steps)
+  const float* h;     // split planes of the h part (ksh k-steps; null: a zero state)
+  const float* bias;  // GRU: b_ih [3 cols] | b_hh [3 cols]; dense: b [cols]
+  float* out;         // GRU: the new state's split planes; dense: [rows][cols] in f32
+  int ks, ksx, ksh, mtiles, cols, B, bp8;
 };
 
-// The B operand from unsplit activations X (row stride ld) at columns k0..k0+7, split here.
-__device__ __forceinline__ BFrag load_b_split(const float* X, int ld, int k0, int lane) {
-  const float* x = X + (lane >> 2) * ld + k0 + (lane & 3);
-  BFrag b;
-  split(x[0], b.hi[0], b.lo[0]);
-  split(x[4], b.hi[1], b.lo[1]);
-  return b;
-}
+template <int G, int NT>
+struct WideTile {
+  static constexpr int kRows = 2 * 8 * NT;  // two warpgroups of NT 8-row n-tiles each
+  static constexpr int kWFloats = kColMt * kWideK * G * 128;
+  static constexpr int kStageFloats = kWFloats + kWideK * (kRows / 8) * kPlane;
+  static constexpr int kSmemBytes = 16 * kWideStages + 4 * kWideStages * kStageFloats;
+};
 
-// One GRU layer at one step over the CTA's rows: x (kxs k-steps, row stride ldx) and h_in ->
-// h_out, all unsplit with row stride ldh for the states; bias = b_ih [3H] | b_hh [3H] in global
-// memory. Warp w owns unit group (panel gs + w % gs) for n-tile w / gs.
-__device__ void stream_gru(Ring& ring, const StreamGemm& G, const float* __restrict__ bias, int H,
-                           const float* x, int ldx, int kxs, const float* h_in, float* h_out,
-                           int ldh, int warp, int lane) {
-  const int slot = warp % G.gs;
-  const int r0 = warp / G.gs * kRows;
-  const float* xr = x + r0 * ldx;
-  const float* hr = h_in + r0 * ldh;
-  for (int p = 0; p < G.panels(); ++p) {
-    const int group = p * G.gs + slot;
-    Acc rz, nn;
-    for (int c = 0; c < G.chunks(); ++c) {
-      const float* st = ring.acquire();
-      if (group < G.groups) {
-        const int k0 = c * G.kc;
-        const int kn = min(G.kc, G.ks - k0);
-        const float4* a_rz = reinterpret_cast<const float4*>(st + slot * G.group_floats()) + lane;
-        const float2* a_n =
-            reinterpret_cast<const float2*>(st + slot * G.group_floats() + G.kc * 128) + lane;
-        for (int i = 0; i < kn; ++i) {
-          const int kt = k0 + i;
-          const bool in_x = kt < kxs;
-          const BFrag b = in_x ? load_b_split(xr, ldx, kt * 8, lane)
-                               : load_b_split(hr, ldh, (kt - kxs) * 8, lane);
-          const float4 a = a_rz[i * 32];
-          mma3(rz, a.x, a.y, a.z, a.w, b);
-          const float2 v = a_n[i * 32];
-          if (in_x) {
-            mma3(nn, v.x, 0.f, v.y, 0.f, b);
-          } else {
-            mma3(nn, 0.f, v.x, 0.f, v.y, b);
-          }
-        }
-      }
-      ring.release();
-    }
-    if (group < G.groups) {
-      const int u = group * kGroup + (lane >> 2);
-      const float* b_ih = bias;
-      const float* b_hh = bias + 3 * H;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int row = r0 + 2 * (lane & 3) + q;
-        const float r = logisticf(rz.get(q) + __ldg(b_ih + u) + __ldg(b_hh + u));
-        const float z = logisticf(rz.get(2 + q) + __ldg(b_ih + H + u) + __ldg(b_hh + H + u));
-        const float n = tanhf(nn.get(q) + __ldg(b_ih + 2 * H + u) +
-                              r * (nn.get(2 + q) + __ldg(b_hh + 2 * H + u)));
-        h_out[row * ldh + u] = fmaf(z, h_in[row * ldh + u] - n, n);  // n + z (h - n)
-      }
-    }
-  }
-  __syncthreads();  // the next product reads h_out
-}
-
-// out = tanh(x W + b) over the CTA's rows, W streamed in column tiles of 16; b in global memory.
-__device__ void stream_dense(Ring& ring, const StreamGemm& G, const float* __restrict__ bias,
-                             const float* x, int ldx, float* out, int ldo, int warp, int lane) {
-  const int slot = warp % G.gs;
-  const int r0 = warp / G.gs * kRows;
-  const float* xr = x + r0 * ldx;
-  for (int p = 0; p < G.panels(); ++p) {
-    const int mt = p * G.gs + slot;
-    Acc acc;
-    for (int c = 0; c < G.chunks(); ++c) {
-      const float* st = ring.acquire();
-      if (mt < G.groups) {
-        const int k0 = c * G.kc;
-        const int kn = min(G.kc, G.ks - k0);
-        const float4* wf = reinterpret_cast<const float4*>(st + slot * G.group_floats()) + lane;
-        for (int i = 0; i < kn; ++i) {
-          const float4 a = wf[i * 32];
-          mma3(acc, a.x, a.y, a.z, a.w, load_b_split(xr, ldx, (k0 + i) * 8, lane));
-        }
-      }
-      ring.release();
-    }
-    if (mt < G.groups) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = mt * 16 + (lane >> 2) + 8 * (j >> 1);
-        const int r = r0 + 2 * (lane & 3) + (j & 1);
-        out[r * ldo + m] = tanhf(acc.get(j) + __ldg(bias + m));
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// The head over the CTA's rows, as head_tile computes it for 8: x [rows][ldx] (hid2) -> the
-// per-term contributions in contrib, then out. Each (column, 4-row) pair of a chunk is one
-// thread's in one of L.passes passes, its weights streamed k-tile by k-tile.
-__device__ void stream_head(Ring& ring, const StreamLayout& L, const float* __restrict__ buf,
-                            const float* x, float* contrib, float* __restrict__ out, int row0,
-                            int B) {
-  const HeadDims& h = L.head;
-  const StreamGemm& G = L.g[kHead];
-  const int mc = h.mc;
-  const int ncols = h.D * h.terms;
-  const int ldx = L.ldhid;
-  const int pairs = mc * (L.rows / kHeadRows);
-  for (int c = 0; c < h.chunks; ++c) {
-    const float* vec = buf + L.o_head + c * h.chunk();  // b_theta, b_phi, c_re, c_im [mc]
-    for (int pass = 0; pass < L.passes; ++pass) {
-      const int idx = pass * kThreads + threadIdx.x;
-      const bool live = idx < pairs;
-      const int m = idx % mc;
-      const int r0 = idx / mc * kHeadRows;
-      float at[kHeadRows] = {};
-      float ap[kHeadRows] = {};
-      for (int kc = 0; kc < G.chunks(); ++kc) {
-        const float* st = ring.acquire();
-        if (live) {
-          const int k0 = kc * G.kc;
-          const int kn = min(G.kc, G.ks - k0);
-          const float2* w = reinterpret_cast<const float2*>(st);  // [kn][mc] (theta, phi)
-          for (int k = 0; k < kn; k += 4) {
-            float xq[kHeadRows][4];
-#pragma unroll
-            for (int q = 0; q < kHeadRows; ++q) {
-              const float4 v = *reinterpret_cast<const float4*>(x + (r0 + q) * ldx + k0 + k);
-              xq[q][0] = v.x; xq[q][1] = v.y; xq[q][2] = v.z; xq[q][3] = v.w;
-            }
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              const float2 wv = w[(k + kk) * mc + m];
-#pragma unroll
-              for (int q = 0; q < kHeadRows; ++q) {
-                at[q] = fmaf(xq[q][kk], wv.x, at[q]);
-                ap[q] = fmaf(xq[q][kk], wv.y, ap[q]);
-              }
-            }
-          }
-        }
-        ring.release();
-      }
-      const int col = c * mc + m;
-      if (!live || col >= ncols) continue;
-      const float bt = __ldg(vec + m), bp = __ldg(vec + mc + m);
-      const float cre = __ldg(vec + 2 * mc + m), cim = __ldg(vec + 3 * mc + m);
-#pragma unroll
-      for (int q = 0; q < kHeadRows; ++q) {
-        const float theta = tanhf(at[q] + bt) * kPiF;
-        const float phi = fminf(fmaxf(tanhf(ap[q] + bp) * kHalfPiF, kPhiLoF), kPhiHiF);
-        float sin_phi, cos_phi, sin_theta, cos_theta;
-        sincosf(phi, &sin_phi, &cos_phi);
-        sincosf(theta, &sin_theta, &cos_theta);
-        const float radius = phi >= 0.f ? (1.f + sin_phi) / cos_phi : cos_phi / (1.f - sin_phi);
-        contrib[(r0 + q) * L.ldc + col] = radius * cos_theta * cre - radius * sin_theta * cim;
-      }
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < L.rows * h.D; idx += kThreads) {
-    const int r = idx / h.D;
-    const int d = idx % h.D;
-    if (row0 + r >= B) continue;
-    const float* cr = contrib + r * L.ldc + d * h.terms;
-    float acc = 0.f;
-    for (int t = 0; t < h.terms; ++t) acc += cr[t];
-    out[(row0 + r) * h.D + d] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-nl_forward_streamed_kernel(const float* __restrict__ obs, const float* __restrict__ acts,
-                           const float* __restrict__ buf, float* __restrict__ out, int B,
-                           const __grid_constant__ StreamLayout L) {
+// G = 3: a GRU layer at one step (gates r, z, n as gru_gates, h' = n + z (h - n) with h the h
+// part's state, 0 without one), the new state stored split; G = 1: tanh(x W + b) in f32.
+template <int G, int NT>
+__global__ void __launch_bounds__(kWideThreads, 1)
+nl_wide_gemm_kernel(const __grid_constant__ GemmArgs P) {
+  using T = WideTile<G, NT>;
   extern __shared__ __align__(16) float smem[];
-  const int R = L.rows;
-  const int H = L.H;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kWideStages;
+  float* stages = smem + 4 * kWideStages;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);  // uniform in the warp
+  const int lane = threadIdx.x & 31;
+  const int mt0 = blockIdx.x * kColMt;
+  const int row0 = blockIdx.y * T::kRows;
+  const int cx = (P.ksx + kWideK - 1) / kWideK;
+  const int chunks = cx + (P.ksh + kWideK - 1) / kWideK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideStages; ++s) {
+      mbar_init_count(full + s, 1);
+      mbar_init_count(empty + s, kWideWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kWideWarps) {  // the producer: one thread keeps the ring full
+    if (lane == 0) {
+      const int live = min(kColMt, P.mtiles - mt0);
+      for (int c = 0; c < chunks; ++c) {
+        const int s = c % kWideStages;
+        if (c >= kWideStages) mbar_spin(empty + s, (c / kWideStages - 1) & 1);
+        const bool in_x = c < cx;
+        const int k0 = (in_x ? c : c - cx) * kWideK;
+        const int kn = min(kWideK, (in_x ? P.ksx : P.ksh) - k0);
+        const int kw = in_x ? k0 : P.ksx + k0;  // the weights' k-step
+        float* st = stages + s * T::kStageFloats;
+        mbar_expect(full + s, 4u * (live * kn * G * 128 + kn * (T::kRows / 8) * kPlane));
+        for (int m = 0; m < live; ++m) {
+          bulk_copy(st + m * kWideK * G * 128,
+                    P.w + (static_cast<size_t>(mt0 + m) * P.ks + kw) * G * 128, 4u * kn * G * 128,
+                    full + s);
+        }
+        const float* src = in_x ? P.x : P.h;
+        for (int i = 0; i < kn; ++i) {
+          bulk_copy(st + T::kWFloats + i * (T::kRows / 8) * kPlane,
+                    src + (static_cast<size_t>(k0 + i) * P.bp8 + row0 / 8) * kPlane,
+                    4u * (T::kRows / 8) * kPlane, full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / kColMt;
+  const int mt = mt0 + warp % kColMt;
+  const bool live = mt < P.mtiles;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float hh[G][NT][4], sm[G][NT][4], nx[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      nx[j][e] = 0.f;
+#pragma unroll
+      for (int q = 0; q < G; ++q) hh[q][j][e] = sm[q][j][e] = 0.f;
+    }
+  }
+  for (int c = 0; c < chunks; ++c) {
+    if (G == 3 && c == cx) {  // x is done: keep the candidate's input half, start its hidden half
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          nx[j][e] = hh[G - 1][j][e] + sm[G - 1][j][e];
+          hh[G - 1][j][e] = sm[G - 1][j][e] = 0.f;
+        }
+      }
+    }
+    const int s = c % kWideStages;
+    const bool in_x = c < cx;
+    const int kn = min(kWideK, (in_x ? P.ksx : P.ksh) - (in_x ? c : c - cx) * kWideK);
+    mbar_spin(full + s, (c / kWideStages) & 1);
+    const float* st = stages + s * T::kStageFloats;
+    if (live) {
+      const float* wf = st + (warp % kColMt) * kWideK * G * 128 + lane * 4;
+      const float* af = st + T::kWFloats + wg * NT * kPlane + g * 4 + t;
+      for (int i = 0; i < kn; ++i) {
+        uint32_t b[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) load_b_plane(b[j], af + (i * (T::kRows / 8) + j) * kPlane);
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          uint32_t ahi[4], alo[4];
+          split4(*reinterpret_cast<const float4*>(wf + (i * G + q) * 128), ahi, alo);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_split(hh[q][j], sm[q][j], ahi, alo, b[j]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+  if (G == 3 && chunks == cx) {  // no hidden part (the zero state)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        nx[j][e] = hh[G - 1][j][e] + sm[G - 1][j][e];
+        hh[G - 1][j][e] = sm[G - 1][j][e] = 0.f;
+      }
+    }
+  }
+  if (!live) return;
+
+  // lane holds register e of n-tile j at column mt 16 + g + 8 (e / 2), row 8 j + 2 t + e % 2
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = mt * 16 + g + 8 * (e >> 1);
+      const int row = row0 + (wg * NT + j) * 8 + 2 * t + (e & 1);
+      if (col >= P.cols || row >= P.B) continue;
+      if (G == 3) {
+        const float* b_ih = P.bias;
+        const float* b_hh = P.bias + 3 * P.cols;
+        const float r = logisticf(hh[0][j][e] + sm[0][j][e] + __ldg(b_ih + col) + __ldg(b_hh + col));
+        const float z = logisticf(hh[1][j][e] + sm[1][j][e] + __ldg(b_ih + P.cols + col) +
+                                  __ldg(b_hh + P.cols + col));
+        const float n = tanhf(nx[j][e] + __ldg(b_ih + 2 * P.cols + col) +
+                              r * (hh[G - 1][j][e] + sm[G - 1][j][e] + __ldg(b_hh + 2 * P.cols + col)));
+        const size_t at = plane_at(col, row, P.bp8);
+        const float h = P.h ? P.h[at] + P.h[at + 64] : 0.f;
+        put_plane(P.out, at, fmaf(z, h - n, n));  // n + z (h - n)
+      } else {
+        P.out[static_cast<size_t>(row) * P.cols + col] =
+            tanhf(hh[0][j][e] + sm[0][j][e] + __ldg(P.bias + col));
+      }
+    }
+  }
+}
+
+// The offsets and tiles of a wide forward (widths and offsets in floats, H and hid padded).
+struct WidePlan {
+  int B, n, A, in_dim, H, hid;
+  HeadDims head;
+  int kx, k1, bp8;
+  int nt_gru, nt_dense, head_rows;  // n-tiles a warp in the GRU and trunk-2 stages; head rows a CTA
+  long long o_gru1, o_gru2, o_w2, o_head, buf_len;  // weight buffer sections
+  long long s_h, s_hid1, s_hid2, scratch;           // scratch: x planes [A], h planes [4], hid1, hid2
+};
+
+// The split action buffer: A steps of x planes [kx][bp], zero past in_dim and past B.
+__global__ void __launch_bounds__(kSmallThreads)
+nl_wide_prep_kernel(const float* __restrict__ acts, float* __restrict__ xs, int B, int A,
+                    int in_dim, int kx, int bp8) {
+  const size_t per = static_cast<size_t>(kx) * bp8 * 8;  // entries a step
+  const size_t total = per * A;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int s = static_cast<int>(i / per);
+    const size_t rem = i % per;
+    const int row = static_cast<int>(rem / kx);
+    const int k = static_cast<int>(rem % kx);
+    const float v = row < B && k < in_dim ? acts[(static_cast<size_t>(row) * A + s) * in_dim + k] : 0.f;
+    put_plane(xs + s * per * 2, plane_at(k, row, bp8), v);
+  }
+}
+
+// Trunk layer 1 for kTrunk1Rows rows and every column: the encoder H -> 2 in f32 over the last
+// GRU state (its k split between the two halves of the block, each lane a (k-half, k % 4)
+// stripe, met by shuffles), [obs; latent] split into shared memory, then the product over its
+// k1 / 8 k-steps with the weights' fragments read from global memory, tanh + bias, stored split.
+__global__ void __launch_bounds__(kSmallThreads)
+nl_wide_trunk1_kernel(const float* __restrict__ obs, const float* __restrict__ buf,
+                      const float* __restrict__ h2, float* __restrict__ hid1,
+                      const __grid_constant__ WidePlan W) {
+  extern __shared__ __align__(16) float sm1[];
+  float* lat = sm1;      // [2 halves][kTrunk1Rows][2]
+  float* z = sm1 + 64;   // [k1 / 8][2 row blocks][kPlane]
   const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kTrunk1Rows;
+  const int H = W.H;
+  const float* w_enc = buf + 12 * H;
+  {
+    const int q = tid & 127;
+    const int par = tid >> 7;
+    const int rl = (q >> 6) * 8 + ((q >> 3) & 7);
+    const int k4 = q & 7;  // k % 8 of the lane's stripe
+    float a0 = 0.f, a1 = 0.f;
+    if (row0 + rl < W.B) {
+      for (int kt = par; kt < H / 8; kt += 2) {
+        const int k = kt * 8 + k4;
+        const size_t at = plane_at(k, row0 + rl, W.bp8);
+        const float v = h2[at] + h2[at + 64];
+        a0 = fmaf(v, __ldg(w_enc + 2 * k), a0);
+        a1 = fmaf(v, __ldg(w_enc + 2 * k + 1), a1);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      a0 += __shfl_xor_sync(0xffffffffu, a0, off);
+      a1 += __shfl_xor_sync(0xffffffffu, a1, off);
+    }
+    if (k4 == 0) {
+      lat[(par * kTrunk1Rows + rl) * 2] = a0;
+      lat[(par * kTrunk1Rows + rl) * 2 + 1] = a1;
+    }
+  }
+  __syncthreads();
+  const float* b_enc = buf + 14 * H;
+  for (int i = tid; i < kTrunk1Rows * W.k1; i += kSmallThreads) {
+    const int rl = i / W.k1;
+    const int k = i % W.k1;
+    const int row = row0 + rl;
+    float v = 0.f;
+    if (row < W.B && k < W.n) {
+      v = obs[static_cast<size_t>(row) * W.n + k];
+    } else if (row < W.B && k < W.n + kLatent) {
+      const int c = k - W.n;
+      v = lat[rl * 2 + c] + lat[(kTrunk1Rows + rl) * 2 + c] + __ldg(b_enc + c);
+    }
+    put_plane(z, ((k >> 3) * 2 + (rl >> 3)) * kPlane + ((k & 7) >> 2) * 32 + (rl & 7) * 4 + (k & 3), v);
+  }
+  __syncthreads();
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int row0 = blockIdx.x * R;
-  Ring ring{&L, buf, smem + L.o_stage, reinterpret_cast<uint64_t*>(smem), 0};
-  float* z1 = smem + L.o_z;
-  float* xs = smem + L.o_act;  // A steps of [R][ldx]
-  float* hs = xs + L.A * R * L.ldx;  // three GRU states of [R][ldh]
-  const int hb = R * L.ldh;
-
-  if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) mbar_init(ring.bars + i);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int t = 0; t < kStages && t < L.total_tiles; ++t) {
-      stream_issue(L, buf, t, ring.stages + t * L.stage, ring.bars + t);
-    }
-  }
-  const int A_in = L.A * L.in_dim;
-  const int n_xs = L.A * R * L.kx;
-  const int n_z = R * L.k1;
-  for (int idx = tid; idx < n_xs + n_z + 2 * R * H; idx += kThreads) {
-    if (idx < n_xs) {
-      const int k = idx % L.kx;
-      const int r = (idx / L.kx) % R;
-      const int s = idx / (L.kx * R);
-      const bool live = k < L.in_dim && row0 + r < B;
-      xs[(s * R + r) * L.ldx + k] = live ? acts[(row0 + r) * A_in + s * L.in_dim + k] : 0.f;
-    } else if (idx < n_xs + n_z) {
-      const int r = (idx - n_xs) / L.k1;
-      const int k = (idx - n_xs) % L.k1;
-      z1[r * L.ldz + k] = (k < L.n && row0 + r < B) ? obs[(row0 + r) * L.n + k] : 0.f;
-    } else {  // h1 and h2 start at zero (states 0 and 1)
-      const int i = idx - n_xs - n_z;
-      hs[(i / (R * H)) * hb + (i % (R * H)) / H * L.ldh + i % H] = 0.f;
-    }
-  }
-  __syncthreads();
-
-  // newest action first (w_nl.py:27); each layer writes its new state over the free one
-  int h1 = 0, h2 = 1, spare = 2;
-  for (int s = 0; s < L.A; ++s) {
-    stream_gru(ring, L.g[kGru1], buf, H, xs + (L.A - 1 - s) * R * L.ldx, L.ldx, L.kx / 8,
-               hs + h1 * hb, hs + spare * hb, L.ldh, warp, lane);
-    int t = h1; h1 = spare; spare = t;
-    stream_gru(ring, L.g[kGru2], buf + L.b_gru2, H, hs + h1 * hb, L.ldh, H / 8, hs + h2 * hb,
-               hs + spare * hb, L.ldh, warp, lane);
-    t = h2; h2 = spare; spare = t;
-  }
-
-  // encoder H -> 2 in f32: a warp a row, its lanes split k into 16 parts for each column
-  const float* h2s = hs + h2 * hb;
-  for (int r = warp; r < R; r += kWarps) {
-    const int col = lane & 1;
-    float v = 0.f;
-    for (int k = lane >> 1; k < H; k += 16) {
-      v = fmaf(h2s[r * L.ldh + k], __ldg(buf + L.o_wenc + k * kLatent + col), v);
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float* w1 = buf + 14 * H + 4;
+  const float* b1 = w1 + W.k1 * W.hid;
+  const int ks = W.k1 / 8;
+  for (int mt = warp; mt < W.hid / 16; mt += kSmallThreads / 32) {
+    float hh[2][4] = {}, sm[2][4] = {};
+    for (int kt = 0; kt < ks; ++kt) {
+      uint32_t ahi[4], alo[4];
+      split4(__ldg(reinterpret_cast<const float4*>(w1 + (mt * ks + kt) * 128) + lane), ahi, alo);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t b[4];
+        load_b_plane(b, z + (kt * 2 + j) * kPlane + g * 4 + t);
+        mma_split(hh[j], sm[j], ahi, alo, b);
+      }
     }
 #pragma unroll
-    for (int off = 2; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane < kLatent) z1[r * L.ldz + L.n + col] = v + __ldg(buf + L.o_benc + col);
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = mt * 16 + g + 8 * (e >> 1);
+        const int row = row0 + j * 8 + 2 * t + (e & 1);
+        if (row < W.B) put_plane(hid1, plane_at(col, row, W.bp8), tanhf(hh[j][e] + sm[j][e] + __ldg(b1 + col)));
+      }
+    }
+  }
+}
+
+// The head over W.head_rows rows and every live column (so a row's sum over its terms stays
+// in the CTA): each thread one column for kHeadRows rows at a time, its theta/phi weights read
+// from the repack_head buffer in global memory, the rows' inputs through shared memory kHeadK
+// columns at a time, summed in k order in f32 on the CUDA cores as head_tile sums them; then
+// the sphere map, the per-term contributions and their sum.
+__global__ void __launch_bounds__(kSmallThreads)
+nl_wide_head_kernel(const float* __restrict__ x, const float* __restrict__ buf,
+                    float* __restrict__ out, const __grid_constant__ WidePlan W) {
+  extern __shared__ __align__(16) float hs[];
+  const HeadDims& h = W.head;
+  const int R = W.head_rows;
+  const int ncols = h.D * h.terms;
+  const int ldx = kHeadK + 4;
+  const int ldc = ncols + 4;
+  float* xs = hs;                 // [R][ldx]
+  float* contrib = hs + R * ldx;  // [R][ldc]
+  const float* head = buf + W.o_head;
+  const int row0 = blockIdx.x * R;
+  const int pairs = ncols * (R / kHeadRows);
+  for (int p0 = 0; p0 < pairs; p0 += kSmallThreads) {
+    const int idx = p0 + threadIdx.x;
+    const bool live = idx < pairs;
+    const int col = idx % ncols;
+    const int r0 = idx / ncols * kHeadRows;
+    const int m = col % h.mc;
+    const float* chunk = head + static_cast<size_t>(col / h.mc) * h.chunk();
+    const float2* w = reinterpret_cast<const float2*>(chunk + 4 * h.mc) + m;  // [Hx][mc]
+    float at[kHeadRows] = {};
+    float ap[kHeadRows] = {};
+    for (int k0 = 0; k0 < W.hid; k0 += kHeadK) {
+      const int kn = min(kHeadK, W.hid - k0);
+      __syncthreads();
+      for (int i = threadIdx.x; i < R * kn; i += kSmallThreads) {
+        const int r = i / kn;
+        const int k = i % kn;
+        xs[r * ldx + k] = row0 + r < W.B ? x[static_cast<size_t>(row0 + r) * W.hid + k0 + k] : 0.f;
+      }
+      __syncthreads();
+      if (live) {
+        for (int k = 0; k < kn; ++k) {
+          const float2 wv = __ldg(w + static_cast<size_t>(k0 + k) * h.mc);
+#pragma unroll
+          for (int q = 0; q < kHeadRows; ++q) {
+            const float xv = xs[(r0 + q) * ldx + k];
+            at[q] = fmaf(xv, wv.x, at[q]);
+            ap[q] = fmaf(xv, wv.y, ap[q]);
+          }
+        }
+      }
+    }
+    if (!live) continue;
+    const float bt = __ldg(chunk + m), bp = __ldg(chunk + h.mc + m);
+    const float cre = __ldg(chunk + 2 * h.mc + m), cim = __ldg(chunk + 3 * h.mc + m);
+#pragma unroll
+    for (int q = 0; q < kHeadRows; ++q) {
+      const float theta = tanhf(at[q] + bt) * kPiF;
+      const float phi = fminf(fmaxf(tanhf(ap[q] + bp) * kHalfPiF, kPhiLoF), kPhiHiF);
+      float sin_phi, cos_phi, sin_theta, cos_theta;
+      sincosf(phi, &sin_phi, &cos_phi);
+      sincosf(theta, &sin_theta, &cos_theta);
+      const float radius = phi >= 0.f ? (1.f + sin_phi) / cos_phi : cos_phi / (1.f - sin_phi);
+      contrib[(r0 + q) * ldc + col] = radius * cos_theta * cre - radius * sin_theta * cim;
+    }
   }
   __syncthreads();
+  for (int idx = threadIdx.x; idx < R * h.D; idx += kSmallThreads) {
+    const int r = idx / h.D;
+    const int d = idx % h.D;
+    if (row0 + r >= W.B) continue;
+    const float* c = contrib + r * ldc + d * h.terms;
+    float acc = 0.f;
+    for (int tt = 0; tt < h.terms; ++tt) acc += c[tt];
+    out[static_cast<size_t>(row0 + r) * h.D + d] = acc;
+  }
+}
 
-  float* hid1 = smem + L.o_act;  // over the GRU's activations, done with
-  float* hid2 = hid1 + R * L.ldhid;
-  stream_dense(ring, L.g[kTrunk1], buf + L.o_b1, z1, L.ldz, hid1, L.ldhid, warp, lane);
-  stream_dense(ring, L.g[kTrunk2], buf + L.o_b2, hid1, L.ldhid, hid2, L.ldhid, warp, lane);
-  stream_head(ring, L, buf, hid2, hid2 + R * L.ldhid, out, row0, B);
+long long wide_gru_floats(int kx, int H) { return 3LL * round_up(H, 16) * (kx + H); }
+
+// Zero floats that end the wide layout's buffer, so that its length tells it from the resident
+// layout's at every width: the two GRU orders have one length where H is a multiple of 16.
+constexpr int kWideTag = 4;
+
+WidePlan wide_plan(int B, int n, int A, int in_dim, int H, int hid, int D, int terms) {
+  WidePlan W;
+  W.B = B; W.n = n; W.A = A; W.in_dim = in_dim; W.H = H; W.hid = hid;
+  W.head = head_dims(hid, D, terms);
+  W.kx = round_up(in_dim, 8);
+  W.k1 = round_up(n + kLatent, 8);
+  W.o_gru1 = 12LL * H + kLatent * H + 4 + static_cast<long long>(W.k1) * hid + 2LL * hid;
+  W.o_gru2 = W.o_gru1 + wide_gru_floats(W.kx, H);
+  W.o_w2 = W.o_gru2 + wide_gru_floats(H, H);
+  W.o_head = W.o_w2 + static_cast<long long>(hid) * hid;
+  W.buf_len = W.o_head + static_cast<long long>(W.head.chunks) * W.head.chunk() + kWideTag;
+  const long long bp = round_up(B > 0 ? B : 1, kRowPad);
+  W.bp8 = static_cast<int>(bp / 8);
+  W.s_h = 2LL * A * W.kx * bp;
+  W.s_hid1 = W.s_h + 8LL * H * bp;
+  W.s_hid2 = W.s_hid1 + 2LL * hid * bp;
+  W.scratch = W.s_hid2 + static_cast<long long>(hid) * bp;
+  // the most rows a tile while (column tiles x row tiles) fills the SMs, else the fewest. The
+  // GRU stage takes 64 rows where that grid covers three quarters of the SMs: at 1,000 rows on
+  // an H100, 32-row tiles ran 28% and 20% faster at widths 256 and 512 (64-row grids of 32 and
+  // 64 CTAs), 64-row tiles 17% faster at 1,024 (128 CTAs; PERF.md, PR 16)
+  const long long gru_cols = (round_up(H, 16) / 16 + kColMt - 1) / kColMt;
+  const long long dense_cols = (hid / 16 + kColMt - 1) / kColMt;
+  W.nt_gru = 4 * gru_cols * ((B + 63) / 64) >= 3 * kTargetCtas ? 4 : 2;
+  W.nt_dense = dense_cols * ((B + 127) / 128) >= kTargetCtas ? 8
+               : dense_cols * ((B + 63) / 64) >= kTargetCtas ? 4 : 2;
+  W.head_rows = (B + 31) / 32 >= kTargetCtas ? 32 : 8;
+  return W;
+}
+
+long long wide_gemm_smem(int G, int nt) {
+  if (G == 3) return nt == 4 ? WideTile<3, 4>::kSmemBytes : WideTile<3, 2>::kSmemBytes;
+  return nt == 8 ? WideTile<1, 8>::kSmemBytes
+         : nt == 4 ? WideTile<1, 4>::kSmemBytes : WideTile<1, 2>::kSmemBytes;
+}
+
+long long wide_trunk1_smem(const WidePlan& W) { return 4LL * (64 + W.k1 / 8 * 2 * kPlane); }
+
+long long wide_head_smem(const WidePlan& W) {
+  return 4LL * W.head_rows * (kHeadK + 4 + W.head.D * W.head.terms + 4);
+}
+
+long long wide_smem(const WidePlan& W) {
+  long long m = wide_gemm_smem(3, W.nt_gru);
+  m = std::max(m, wide_gemm_smem(1, W.nt_dense));
+  m = std::max(m, wide_trunk1_smem(W));
+  return std::max(m, wide_head_smem(W));
+}
+
+template <int G, int NT>
+void launch_gemm(const GemmArgs& P, cudaStream_t st) {
+  using T = WideTile<G, NT>;
+  const dim3 grid((P.mtiles + kColMt - 1) / kColMt, (P.B + T::kRows - 1) / T::kRows);
+  nl_wide_gemm_kernel<G, NT><<<grid, kWideThreads, T::kSmemBytes, st>>>(P);
+}
+
+void launch_gru(const GemmArgs& P, int nt, cudaStream_t st) {
+  if (nt == 4) {
+    launch_gemm<3, 4>(P, st);
+  } else {
+    launch_gemm<3, 2>(P, st);
+  }
+}
+
+void launch_dense(const GemmArgs& P, int nt, cudaStream_t st) {
+  if (nt == 8) {
+    launch_gemm<1, 8>(P, st);
+  } else if (nt == 4) {
+    launch_gemm<1, 4>(P, st);
+  } else {
+    launch_gemm<1, 2>(P, st);
+  }
+}
+
+// The wide forward's 2 A + 4 launches on `st`: p = obs, acts, buf, out, scratch.
+int wide_launch(const float* const* p, const WidePlan& W, cudaStream_t st) {
+  const float* buf = p[2];
+  float* scratch = const_cast<float*>(p[4]);
+  const int B = W.B, H = W.H, hid = W.hid;
+  const long long bp = 8LL * W.bp8;
+  const long long xb = 2LL * W.kx * bp;  // one step's x planes
+  const long long hb = 2LL * H * bp;     // one state's planes: h1 at 0, 1; h2 at 2, 3
+  float* hs = scratch + W.s_h;
+  const long long prep = static_cast<long long>(W.A) * W.kx * bp;
+  nl_wide_prep_kernel<<<static_cast<int>(std::min<long long>((prep + kSmallThreads - 1) / kSmallThreads,
+                                                             8 * kTargetCtas)),
+                        kSmallThreads, 0, st>>>(p[1], scratch, B, W.A, W.in_dim, W.kx, W.bp8);
+  const int mt_h = round_up(H, 16) / 16;
+  for (int s = 0; s < W.A; ++s) {  // newest action first (w_nl.py:27)
+    const int src = W.A - 1 - s;
+    const float* h1 = s ? hs + (s & 1) * hb : nullptr;
+    const float* h2 = s ? hs + (2 + (s & 1)) * hb : nullptr;
+    float* h1_new = hs + ((s + 1) & 1) * hb;
+    launch_gru(GemmArgs{buf + W.o_gru1, scratch + src * xb, h1, buf, h1_new, W.kx / 8 + H / 8, W.kx / 8,
+                        s ? H / 8 : 0, mt_h, H, B, W.bp8}, W.nt_gru, st);
+    launch_gru(GemmArgs{buf + W.o_gru2, h1_new, h2, buf + 6 * H, hs + (2 + ((s + 1) & 1)) * hb, 2 * H / 8,
+                        H / 8, s ? H / 8 : 0, mt_h, H, B, W.bp8}, W.nt_gru, st);
+  }
+  nl_wide_trunk1_kernel<<<(B + kTrunk1Rows - 1) / kTrunk1Rows, kSmallThreads, wide_trunk1_smem(W), st>>>(
+      p[0], buf, hs + (2 + (W.A & 1)) * hb, scratch + W.s_hid1, W);
+  const float* b2 = buf + 14 * H + 4 + W.k1 * hid + hid;
+  launch_dense(GemmArgs{buf + W.o_w2, scratch + W.s_hid1, nullptr, b2, scratch + W.s_hid2, hid / 8, hid / 8, 0,
+                        hid / 16, hid, B, W.bp8}, W.nt_dense, st);
+  nl_wide_head_kernel<<<(B + W.head_rows - 1) / W.head_rows, kSmallThreads, wide_head_smem(W), st>>>(
+      scratch + W.s_hid2, buf, const_cast<float*>(p[3]), W);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int g_smem_limit = 0;  // bytes of dynamic shared memory a block may use, set by nl_init
 
 int grid_for(int B, int rows) { return (B + rows - 1) / rows; }
 
-enum { kResident = 0, kStreamed = 1, kBadDims = -1, kTooWide = -2 };
+enum { kResident = 0, kStreamed = 1, kBadDims = -1, kNoFit = -2, kTooBig = -3 };
 
 // dims of a forward launch: B, n, A, in_dim, H, hid, D, terms, buf_len (floats), with H and
-// hid the model's widths. Returns the variant (kResident where every weight fits in shared
-// memory with H <= 64, the resident kernel's layout, else kStreamed) and fills its layout, or
-// kBadDims / kTooWide.
-int forward_plan(const int* dims, int n_dims, ForwardLayout& L, StreamLayout& S) {
+// hid the model's widths. The buffer's length says its layout (ops/pallas_nl.py wide_layout
+// picks it on the host): the resident one, which exists up to H = 64 (8 warps of 8 GRU units a
+// layer), gives kResident where it fits in shared memory at these dims and kNoFit where it does
+// not (a buffer packed for fewer action steps); the wide one gives kStreamed (a chain of stage
+// kernels) at any width, or kTooBig where an offset would overflow int. Malformed dims or a
+// length of neither layout give kBadDims.
+int forward_plan(const int* dims, int n_dims, ForwardLayout& L, WidePlan& W) {
   if (n_dims != 9) return kBadDims;
   const int B = dims[0], n = dims[1], A = dims[2], in_dim = dims[3];
   const int H = round_up(dims[4], kGroup), hid = round_up(dims[5], 16);
@@ -1000,24 +1168,20 @@ int forward_plan(const int* dims, int n_dims, ForwardLayout& L, StreamLayout& S)
   if (B < 0 || n <= 0 || A <= 0 || in_dim <= 0 || H <= 0 || hid <= 0 || D <= 0 || terms <= 0) {
     return kBadDims;
   }
-  L = forward_layout(n, A, in_dim, H, hid, D, terms);
-  if (L.small + L.gru1 + L.gru2 + L.w2 + L.head.size() != buf_len) return kBadDims;  // another layout
-  if (H / kGroup <= kWarps / 2 && 4LL * L.total <= kSmemBudget) return kResident;
-  // the most rows that fit while B / rows fills the SMs, else the fewest that fit
-  bool fits = false;
-  for (int rows : kStreamRows) {  // most first
-    StreamLayout T;
-    if (!stream_layout(L, rows, T)) continue;
-    S = T;
-    fits = true;
-    if (grid_for(B, rows) >= kTargetCtas) break;
+  if (H <= kGroup * kWarps / 2) {
+    L = forward_layout(n, A, in_dim, H, hid, D, terms);
+    if (L.small + L.gru1 + L.gru2 + L.w2 + L.head.size() == buf_len) {
+      return 4LL * L.total <= kSmemBudget ? kResident : kNoFit;
+    }
   }
-  return fits ? kStreamed : kTooWide;
+  W = wide_plan(B, n, A, in_dim, H, hid, D, terms);
+  if (W.buf_len > INT_MAX || W.scratch > INT_MAX || 2LL * H * 8 * W.bp8 > INT_MAX) return kTooBig;
+  return W.buf_len == buf_len ? kStreamed : kBadDims;
 }
 
-long long plan_smem(int variant, const ForwardLayout& L, const StreamLayout& S) {
+long long plan_smem(int variant, const ForwardLayout& L, const WidePlan& W) {
   if (variant == kResident) return 4LL * L.total;
-  if (variant == kStreamed) return 4LL * S.total;
+  if (variant == kStreamed) return wide_smem(W);
   return -1;
 }
 
@@ -1050,8 +1214,14 @@ int nl_init() {
     err = cudaDeviceGetAttribute(&g_smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   const void* kernels[] = {reinterpret_cast<const void*>(nl_forward_kernel),
-                           reinterpret_cast<const void*>(nl_forward_streamed_kernel),
-                           reinterpret_cast<const void*>(nl_head_kernel)};
+                           reinterpret_cast<const void*>(nl_head_kernel),
+                           reinterpret_cast<const void*>(nl_wide_gemm_kernel<3, 2>),
+                           reinterpret_cast<const void*>(nl_wide_gemm_kernel<3, 4>),
+                           reinterpret_cast<const void*>(nl_wide_gemm_kernel<1, 2>),
+                           reinterpret_cast<const void*>(nl_wide_gemm_kernel<1, 4>),
+                           reinterpret_cast<const void*>(nl_wide_gemm_kernel<1, 8>),
+                           reinterpret_cast<const void*>(nl_wide_trunk1_kernel),
+                           reinterpret_cast<const void*>(nl_wide_head_kernel)};
   for (const void* k : kernels) {
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_limit);
@@ -1060,23 +1230,39 @@ int nl_init() {
   return static_cast<int>(err);
 }
 
-// The variant a forward launch with these dims runs: 0 resident, 1 streamed (and its batch
-// rows per CTA in *rows), -1 for malformed dims or a buffer of another length, -2 for widths
-// that neither variant's shared memory holds.
-int nl_forward_variant(const int* dims, int n_dims, int* rows) {
+// The plan of a forward launch with these dims, in info[0..7]: rows and columns of a GRU tile
+// (0 columns: all), rows of a trunk-2 tile, rows of a head tile, device launches per forward,
+// the largest dynamic shared memory of a launch (bytes), the scratch it needs (floats). Returns
+// the variant: 0 resident, 1 streamed (the wide chain), or -1 for malformed dims or a buffer of
+// neither layout's length, -2 for a buffer in the resident layout that does not fit in shared
+// memory at these dims, -3 where an offset would overflow int.
+int nl_forward_plan(const int* dims, int n_dims, long long* info) {
   ForwardLayout L;
-  StreamLayout S;
-  const int v = forward_plan(dims, n_dims, L, S);
-  *rows = v == kResident ? kRows : v == kStreamed ? S.rows : 0;
+  WidePlan W;
+  const int v = forward_plan(dims, n_dims, L, W);
+  for (int i = 0; i < 8; ++i) info[i] = 0;
+  if (v == kResident) {
+    info[0] = kRows;
+    info[4] = 1;
+    info[5] = 4LL * L.total;
+  } else if (v == kStreamed) {
+    info[0] = 16LL * W.nt_gru;
+    info[1] = kColMt * 16;
+    info[2] = 16LL * W.nt_dense;
+    info[3] = W.head_rows;
+    info[4] = 2LL * W.A + 4;
+    info[5] = wide_smem(W);
+    info[6] = W.scratch;
+  }
   return v;
 }
 
 // The dynamic shared memory, in bytes, of a launch with these dims (as the launchers take
-// them), or -1 if the launcher refuses them.
+// them; the largest of the chain's), or -1 if the launcher refuses them.
 long long nl_forward_smem_bytes(const int* dims, int n_dims) {
   ForwardLayout L;
-  StreamLayout S;
-  return plan_smem(forward_plan(dims, n_dims, L, S), L, S);
+  WidePlan W;
+  return plan_smem(forward_plan(dims, n_dims, L, W), L, W);
 }
 
 long long nl_head_smem_bytes(const int* dims, int n_dims) {
@@ -1084,28 +1270,25 @@ long long nl_head_smem_bytes(const int* dims, int n_dims) {
   return head_plan(dims, n_dims, h);
 }
 
-// ptrs: obs [B, n], acts [B, A*in_dim], buf (repack_nl_forward), out [B, D].
+// ptrs: obs [B, n], acts [B, A*in_dim], buf (repack_nl_forward), out [B, D], and for the
+// streamed variant scratch (nl_forward_plan's info[6] floats).
 // dims: B, n, A, in_dim, H, hid, D, terms, buf_len (floats).
-// Launches the variant forward_plan picks on `stream`; returns the cudaError_t of the launch
+// Launches the variant forward_plan picks on `stream`; returns the cudaError_t of the launches
 // (0 on success).
 int nl_forward_launch(const void* const* ptrs, int n_ptrs, const int* dims, int n_dims,
                       void* stream) {
   ForwardLayout L;
-  StreamLayout S;
-  const int variant = forward_plan(dims, n_dims, L, S);
-  if (n_ptrs != 4) return static_cast<int>(cudaErrorInvalidValue);
-  if (const int err = check_smem(plan_smem(variant, L, S))) return err;
+  WidePlan W;
+  const int variant = forward_plan(dims, n_dims, L, W);
+  if (n_ptrs != (variant == kStreamed ? 5 : 4)) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = check_smem(plan_smem(variant, L, W))) return err;
   const int B = dims[0];
   if (B == 0) return 0;
   const float* const* p = reinterpret_cast<const float* const*>(ptrs);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant == kResident) {
-    nl_forward_kernel<<<grid_for(B, kRows), kThreads, 4LL * L.total, st>>>(
-        p[0], p[1], p[2], const_cast<float*>(p[3]), B, L);
-  } else {
-    nl_forward_streamed_kernel<<<grid_for(B, S.rows), kThreads, 4LL * S.total, st>>>(
-        p[0], p[1], p[2], const_cast<float*>(p[3]), B, S);
-  }
+  if (variant == kStreamed) return wide_launch(p, W, st);
+  nl_forward_kernel<<<grid_for(B, kRows), kThreads, 4LL * L.total, st>>>(
+      p[0], p[1], p[2], const_cast<float*>(p[3]), B, L);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,7 +38,7 @@ import torch
 from ..config import snap_cme_terms
 from ..ops.ilt import effective_terms, laplace_reconstruct
 from ..ops.pallas_ilt import to_device
-from ..ops.pallas_nl import nl_forward_fused, pack_nl_forward, repack_nl_forward
+from ..ops.pallas_nl import ACTION_STEPS, nl_forward_fused, pack_nl_forward, repack_nl_forward
 from ..utils.device import resolve_device
 from .base import DynamicsModel, NormStats
 from .common import gru_apply, gru_init, linear_apply, linear_init, mlp_apply_tanh, mlp_init, tree_leaves, tree_map
@@ -173,7 +173,7 @@ def make_nl_model(
         p_action = _encode_actions(params, action_buffer, obs.dtype)
         return _decode(params, obs, p_action, ts)
 
-    def make_fused_planner_apply(params, t: float):
+    def make_fused_planner_apply(params, t: float, actions: int = ACTION_STEPS):
         """Planner-specialized forward through the fused kernel (ops.pallas_nl).
 
         Valid when every query shares one horizon ``t`` (the planner's ts_pred
@@ -182,9 +182,10 @@ def make_nl_model(
         and action buffers; the returned function ignores its params and ts
         arguments (re-specialize after a parameter update).
 
-        Any width: ``repack_nl_forward`` zero-pads ragged ones, and the kernel
-        library streams the weights of those that do not fit in shared
-        memory. Raises ``ValueError`` for another ILT than fourier; it never
+        Any width: ``repack_nl_forward`` zero-pads ragged ones, and packs the
+        wide layout, which the kernel library streams, for dims whose
+        weights do not fit in shared memory over ``actions`` action steps
+        (the planner's action buffer). Raises ``ValueError`` for another ILT than fourier; it never
         falls back to the plain forward.
         """
         if ilt_algorithm != "fourier":
@@ -199,7 +200,8 @@ def make_nl_model(
         )
         packed = to_device(host, device)
         # the kernel's own layout, built once here; the CPU path never reads it
-        hopper = torch.as_tensor(repack_nl_forward(host, state_dim, gru_in, s_recon_terms), device=device)
+        hopper = torch.as_tensor(repack_nl_forward(host, state_dim, gru_in, s_recon_terms, actions),
+                                 device=device)
 
         def apply_fused(p_ignored, obs, action_buffer, ts):
             del p_ignored, ts  # fixed at specialization time

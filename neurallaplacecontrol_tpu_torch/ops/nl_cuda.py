@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 import torch
@@ -102,8 +103,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
         fn.restype = ctypes.c_longlong
-    lib.nl_forward_variant.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lib.nl_forward_variant.restype = ctypes.c_int
+    lib.nl_forward_plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    lib.nl_forward_plan.restype = ctypes.c_int
     lib.nl_error_string.argtypes = [ctypes.c_int]
     lib.nl_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,25 +152,33 @@ def launch(name: str, tensors, dims) -> None:
 FORWARD_VARIANTS = ("resident", "streamed")
 _REFUSALS = {
     -1: "the dims are malformed or the buffer's length is not the layout's",
-    -2: "the streamed variant's shared memory does not hold 8 rows of the trunk's two activations "
-        "and one tile of each product at these widths",
+    -2: "the buffer is in the resident layout, which needs more shared memory than a block has at these "
+        "dims; repack_nl_forward(..., actions=A) packs the wide layout where that is so",
+    -3: "an offset of the weight buffer or of the scratch would overflow a 32-bit int",
 }
 
 
 @functools.lru_cache(maxsize=256)
-def forward_plan(dims: tuple) -> tuple[str, int, int]:
-    """(variant, batch rows per CTA, dynamic shared memory in bytes) of a
-    forward launch with these ``dims`` (as ``nl_forward_launch`` takes them),
-    as the kernel library plans it: ``"resident"`` (``nl_forward_kernel``,
-    every weight in shared memory) where that layout fits, else
-    ``"streamed"`` (``nl_forward_streamed_kernel``). Raises ``ValueError``
+def forward_plan(dims: tuple) -> types.MappingProxyType:
+    """The kernel library's plan of a forward launch with these ``dims`` (as
+    ``nl_forward_launch`` takes them), read-only: ``variant``,
+    ``"resident"`` (``nl_forward_kernel``, every weight in shared memory, up
+    to width 128) or ``"streamed"`` (the chain of stage kernels past it);
+    ``tile``, the GRU stage's CTA tile as batch rows by output columns (the
+    resident kernel's 8 rows by every column, 0); ``trunk_rows`` and
+    ``head_rows``, the streamed chain's rows a CTA of trunk layer 2 and of
+    the head; ``launches``, device launches per forward (1, or 2 A + 4);
+    ``smem_bytes``, the largest dynamic shared memory of a launch;
+    ``scratch_floats``, the scratch the chain needs. Raises ``ValueError``
     with the reason for dims that neither variant takes."""
     ints = (ctypes.c_int * len(dims))(*dims)
-    rows = ctypes.c_int(0)
-    code = library().nl_forward_variant(ints, len(dims), ctypes.byref(rows))
+    info = (ctypes.c_longlong * 8)()
+    code = library().nl_forward_plan(ints, len(dims), info)
     if code < 0:
         raise ValueError(f"the forward kernel does not take dims {list(dims)}: {_REFUSALS[code]}")
-    return FORWARD_VARIANTS[code], rows.value, smem_bytes("nl_forward", dims)
+    return types.MappingProxyType({
+        "variant": FORWARD_VARIANTS[code], "tile": (info[0], info[1]), "trunk_rows": info[2],
+        "head_rows": info[3], "launches": info[4], "smem_bytes": info[5], "scratch_floats": info[6]})
 
 
 def smem_bytes(kernel: str, dims) -> int:

@@ -13,11 +13,11 @@ unchanged), so the forward consumes RAW obs and action buffers:
 ``repack_nl_forward`` lays those operands out once more for the card, in one
 flat float32 buffer (see ``forward_sections``), after ``pad_nl_forward`` has
 zero-padded a ragged GRU width to a multiple of 8 and a ragged trunk width to
-a multiple of 16. ``nl_forward_fused`` launches the CUDA kernel
+a multiple of 16. ``nl_forward_fused`` launches the CUDA kernels
 (``csrc/nl_kernels.cu``) on that repack for CUDA tensors: ``nl_forward_kernel``
-with every weight resident in shared memory where the layout fits there, else
-``nl_forward_streamed_kernel``, which streams the same buffer through shared
-memory tile by tile. For CPU tensors it computes ``nl_forward_plain``, the
+with every weight resident in shared memory up to width 128 where that layout
+fits, else the chain of stage kernels named "streamed", which tiles each
+product over rows and columns (``wide_layout`` picks the layout). For CPU tensors it computes ``nl_forward_plain``, the
 same function in plain PyTorch on ``pack_nl_forward``'s operands. Both are the
 implementations of one operator, ``torch.ops.nlc.nl_forward``
 (``nl_forward_op``), so an exported planner step records the kernel as a
@@ -36,6 +36,7 @@ from .ilt import fourier_spherical_host
 from .pallas_ilt import (
     _host,
     _round_up,
+    head_chunks,
     head_size,
     nl_head_plain,
     pack_head_weights,
@@ -45,6 +46,13 @@ from .pallas_ilt import (
 MMA_M, MMA_K = 16, 8  # mma.sync.m16n8k8: output columns per tile, inputs per step
 _GROUP = 8  # GRU hidden units per warp: their r/z gates fill one 16-column tile
 _LATENT = 2  # the encoder's action latent
+_ROWS = 8  # the resident kernel's batch rows per CTA (kRows in csrc/nl_kernels.cu)
+_BAR_FLOATS = 8  # its mbarriers' floats at the start of shared memory (kBarFloats)
+_SMEM_BUDGET = 232448  # bytes: an H100 block's opt-in dynamic shared memory (kSmemBudget)
+# zero floats that end the wide layout's buffer, so that its length tells it from the
+# resident layout's at every width (kWideTag)
+_WIDE_TAG = 4
+ACTION_STEPS = 4  # the action buffer's steps a buffer is packed for unless told (Config's default)
 
 
 def gru_gates(gi, gh, h):
@@ -223,39 +231,74 @@ def pad_nl_forward(packed):
     ) + tuple(head)
 
 
-def forward_sections(n: int, in_dim: int, H: int, hid: int, D: int, terms: int) -> dict:
+def resident_bytes(n: int, A: int, in_dim: int, H: int, hid: int, D: int, terms: int) -> int:
+    """Dynamic shared memory of the resident kernel (``nl_forward_kernel``)
+    at these dims, the widths padded as ``padded_widths`` pads them: the
+    total of ``forward_layout`` in csrc/nl_kernels.cu."""
+    H, hid = padded_widths(H, hid)
+    kx, k1 = _round_up(in_dim, MMA_K), _round_up(n + _LATENT, MMA_K)
+    chunks, mc = head_chunks(hid, D, terms)
+    small = 12 * H + _LATENT * H + 4 + k1 * hid + 2 * hid
+    gru1, gru2 = (H // _GROUP) * (kx + H) * 24, (H // _GROUP) * 2 * H * 24
+    acts = 2 * _ROWS * (A * (kx + 4) + 4 * (H + 4) + (k1 + 4) + (hid + 4)) + _ROWS * (hid + 4 + chunks * mc + 4)
+    return 4 * (_BAR_FLOATS + small + max(gru1, hid * hid) + max(gru2, mc * (4 + 2 * hid)) + acts)
+
+
+def wide_layout(n: int, in_dim: int, H: int, hid: int, D: int, terms: int, actions: int = ACTION_STEPS) -> bool:
+    """Whether a model at these dims takes the wide layout (the streamed
+    variant's), for a forward over ``actions`` action steps: past H = 64
+    padded, width 128, where the resident kernel's GRU groups (8 warps of 8
+    units a layer) end, and wherever the resident layout needs more shared
+    memory than a block has (``resident_bytes``; a wide head or a long
+    action buffer). The kernel library's plan makes the same test
+    (``forward_plan`` in ``csrc/nl_kernels.cu``) and tells the layouts
+    apart by the buffer's length."""
+    return (_round_up(H, _GROUP) > 8 * _GROUP
+            or resident_bytes(n, actions, in_dim, H, hid, D, terms) > _SMEM_BUDGET)
+
+
+def forward_sections(n: int, in_dim: int, H: int, hid: int, D: int, terms: int,
+                     actions: int = ACTION_STEPS) -> dict:
     """float32 counts of ``repack_nl_forward``'s sections, in buffer order,
     for a model of GRU width H and trunk width hid (padded here as
-    ``padded_widths`` pads them).
+    ``padded_widths`` pads them), packed for ``actions`` action steps.
 
     - ``small``: b_ih1, b_hh1, b_ih2, b_hh2 [3H each], w_enc [H, 2],
       b_enc [2, padded to 4], W1 = [w1_obs; w1_act] in fragments, b1, b2.
-    - ``gru1`` / ``gru2``: for each group of 8 hidden units, the r/z tile
-      over [x; h] (x = the layer's input, padded to 8) and the candidate's
-      half tiles (x-part of w_ih, h-part of w_hh).
+    - ``gru1`` / ``gru2``: one GRU layer over [x; h] (x = the layer's input,
+      padded to 8). The resident layout (``_gru_tiles``): for each group of
+      8 hidden units, the r/z tile and the candidate's half tiles. The wide
+      layout (``wide_layout``, ``_gru_wide_tiles``): for each m-tile of 16
+      units, each k-step, the r, z and candidate fragments.
     - ``w2``: the second trunk layer in fragments.
     - ``head``: ``repack_head``'s buffer.
+    - ``tag``, in the wide layout only: ``_WIDE_TAG`` zeros.
 
     The resident kernel copies small+gru1 and gru2 at its start, w2 into
     gru1's place once the first GRU layer is done, and the head's chunks in
-    turn into gru2's place once the second is. The streamed kernel reads the
-    same buffer: the biases and the encoder from global memory, every
-    product's weights in tiles of a few k-steps of a few column groups.
+    turn into gru2's place once the second is. The streamed variant's stage
+    kernels read the products' fragments in tiles of 4 m-tiles by 4 k-steps,
+    the biases, the encoder, W1 and the head from global memory.
     """
     H, hid = padded_widths(H, hid)
     kx = _round_up(in_dim, MMA_K)
     k1 = _round_up(n + _LATENT, MMA_K)
+    wide = wide_layout(n, in_dim, H, hid, D, terms, actions)
+    if wide:
+        gru = [3 * _round_up(H, MMA_M) * (k + H) for k in (kx, H)]
+    else:
+        gru = [(H // _GROUP) * (k + H) * 24 for k in (kx, H)]
     return {
         "small": 12 * H + _LATENT * H + 4 + k1 * hid + 2 * hid,
-        "gru1": (H // _GROUP) * (kx + H) * 24,
-        "gru2": (H // _GROUP) * 2 * H * 24,
+        "gru1": gru[0],
+        "gru2": gru[1],
         "w2": hid * hid,
         "head": head_size(hid, D, terms),
-    }
+    } | ({"tag": _WIDE_TAG} if wide else {})
 
 
 def _gru_tiles(w_ih, w_hh) -> np.ndarray:
-    """One GRU layer's weights in the kernel's per-group tile order."""
+    """One GRU layer's weights in the resident kernel's per-group tile order."""
     kin, G = w_ih.shape
     H = G // 3
     kx = _round_up(kin, MMA_K)
@@ -275,10 +318,30 @@ def _gru_tiles(w_ih, w_hh) -> np.ndarray:
     return np.concatenate(out)
 
 
-def repack_nl_forward(packed, state_dim: int, in_dim: int, terms: int) -> np.ndarray:
+def _gru_wide_tiles(w_ih, w_hh) -> np.ndarray:
+    """One GRU layer's weights in the wide order, [H/16 m-tiles][k-steps of
+    [x; h]][r, z, n][32 lanes][4]: each gate's [x; h] x H matrix in
+    fragments, the three side by side per k-step, so that a stage kernel
+    brings a tile's k-steps of all three gates in one copy. The candidate's
+    column is w_ih's on x's k-steps and w_hh's on h's; the kernel sums the
+    two apart. H (a multiple of 8) is padded to 16 by zero columns."""
+    kin, G = w_ih.shape
+    H = G // 3
+    kx = _round_up(kin, MMA_K)
+    cat = np.zeros((kx + H, G), np.float32)
+    cat[:kin] = w_ih
+    cat[kx:] = w_hh
+    mt, ks = _round_up(H, MMA_M) // MMA_M, (kx + H) // MMA_K
+    gates = [frag_pack(cat[:, g * H : (g + 1) * H]).reshape(mt, ks, 1, 128) for g in range(3)]
+    return np.concatenate(gates, axis=2).reshape(-1)
+
+
+def repack_nl_forward(packed, state_dim: int, in_dim: int, terms: int, actions: int = ACTION_STEPS) -> np.ndarray:
     """``pack_nl_forward``'s operands -> the forward kernels' flat float32
-    buffer (sections as ``forward_sections`` lists them), at the widths
-    ``pad_nl_forward`` pads them to. Host numpy, once per controller."""
+    buffer (sections as ``forward_sections`` lists them, the GRU's in the
+    layout ``wide_layout`` picks for ``actions`` action steps), at the
+    widths ``pad_nl_forward`` pads them to. Host numpy, once per
+    controller."""
     packed = pad_nl_forward([_host(p) for p in packed])
     (
         w_ih1, w_hh1, b_ih1, b_hh1, w_ih2, w_hh2, b_ih2, b_hh2,
@@ -288,20 +351,25 @@ def repack_nl_forward(packed, state_dim: int, in_dim: int, terms: int) -> np.nda
     if w_ih1.shape[0] != in_dim or w_enc.shape[1] != _LATENT:
         raise ValueError(f"unsupported shapes: w_ih1 {w_ih1.shape}, in_dim={in_dim}, w_enc {w_enc.shape}")
     w1 = np.concatenate([w1_obs, w1_act])
+    wide = wide_layout(state_dim, in_dim, H, hid, state_dim, terms, actions)
+    tiles = _gru_wide_tiles if wide else _gru_tiles
     small = [b_ih1, b_hh1, b_ih2, b_hh2, w_enc, np.pad(b_enc.reshape(-1), (0, 2)),
              frag_pack(w1), b1, b2]
     buf = np.concatenate(
-        [np.concatenate([x.reshape(-1) for x in small]), _gru_tiles(w_ih1, w_hh1),
-         _gru_tiles(w_ih2, w_hh2), frag_pack(w2), repack_head(packed[15:], state_dim, terms)]
+        [np.concatenate([x.reshape(-1) for x in small]), tiles(w_ih1, w_hh1),
+         tiles(w_ih2, w_hh2), frag_pack(w2), repack_head(packed[15:], state_dim, terms),
+         np.zeros(_WIDE_TAG if wide else 0, np.float32)]
     )
-    assert buf.size == sum(forward_sections(state_dim, in_dim, H, hid, state_dim, terms).values())
+    assert buf.size == sum(forward_sections(state_dim, in_dim, H, hid, state_dim, terms, actions).values())
     return buf
 
 
 def _nl_forward_cuda(obs, acts_flat, packed, hopper, state_dim: int, in_dim: int, terms: int):
     """The forward kernel's launch: the operator's CUDA implementation. The
     kernel library picks the variant from the dims (``nl_cuda.forward_plan``);
-    dims that neither variant takes raise before anything is launched."""
+    dims that neither variant takes raise before anything is launched. The
+    streamed variant's chain keeps its activations in scratch allocated
+    here, on the caching allocator."""
     if hopper is None:
         raise ValueError("the forward kernel reads the repacked weights: pass hopper=repack_nl_forward(...)")
     B, n = obs.shape
@@ -310,12 +378,15 @@ def _nl_forward_cuda(obs, acts_flat, packed, hopper, state_dim: int, in_dim: int
     A = acts_flat.shape[1] // in_dim
     H, hid = packed[1].shape[0], packed[13].shape[0]
     dims = (B, n, A, in_dim, H, hid, state_dim, terms, hopper.numel())
-    variant = nl_cuda.forward_plan(dims)[0]
+    plan = nl_cuda.forward_plan(dims)
     out = torch.empty((B, state_dim), dtype=torch.float32, device=obs.device)
-    nl_cuda.launch("nl_forward_launch", (obs, acts_flat, hopper, out), dims)
+    operands = (obs, acts_flat, hopper, out)
+    if plan["variant"] == "streamed":
+        operands += (torch.empty(plan["scratch_floats"], dtype=torch.float32, device=obs.device),)
+    nl_cuda.launch("nl_forward_launch", operands, dims)
     nl_forward_fused.launches += 1
     nl_forward_fused.rows += B
-    if variant == "streamed":
+    if plan["variant"] == "streamed":
         nl_forward_fused.streamed_launches += 1
         nl_forward_fused.streamed_rows += B
     return out
@@ -350,8 +421,8 @@ def nl_forward_fused(obs, acts_flat, packed, state_dim: int, in_dim: int, *, ter
     ``terms`` is the count of live fourier terms in each padded head block
     (see ``pallas_ilt.nl_head_fused``). On CPU tensors this computes
     ``nl_forward_plain`` on ``packed``. On CUDA tensors the kernel reads
-    ``hopper``, ``repack_nl_forward(packed, state_dim, in_dim, terms)`` as a
-    tensor on the same device.
+    ``hopper``, ``repack_nl_forward(packed, state_dim, in_dim, terms, A)``
+    as a tensor on the same device.
 
     Under tracing (``torch.export``) this is a call of the operator
     ``nl_forward_op``. Eager calls run the operator's implementation for
@@ -365,7 +436,7 @@ def nl_forward_fused(obs, acts_flat, packed, state_dim: int, in_dim: int, *, ter
     return impl(obs, acts_flat, packed, hopper, state_dim, in_dim, terms)
 
 
-nl_forward_fused.launches = 0  # kernel launches since the last reset, the exported program's included
+nl_forward_fused.launches = 0  # forwards launched since the last reset, the exported program's included
 nl_forward_fused.rows = 0  # batch rows over those launches
-nl_forward_fused.streamed_launches = 0  # of those launches, the streamed variant's
+nl_forward_fused.streamed_launches = 0  # of those, the streamed variant's (2 A + 4 device launches each)
 nl_forward_fused.streamed_rows = 0

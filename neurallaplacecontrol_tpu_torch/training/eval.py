@@ -116,7 +116,7 @@ def build_planner(
             raise ValueError("the fused NL planner runs in float32")
         model = make_model("nl", env_name, spec.n_obs, spec.m, spec.action_high, config,
                            dtype=torch.float32, device=device)
-        model_apply = model.make_fused_planner_apply(params, dt)
+        model_apply = model.make_fused_planner_apply(params, dt, config.action_buffer_size)
     elif model_name == "nl" and config.nl_planner_precompute:
         # the reverse-GRU window encoding out of the horizon loop: the model
         # rebuilt from config reaches the encoder/decoder split, and all K x T

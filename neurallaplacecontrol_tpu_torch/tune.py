@@ -19,8 +19,9 @@ What ``recommend`` rests on (NVIDIA H100 80GB HBM3, 700 W; ``PERF.md`` §6,
 ``chip_smoke.py`` phases ``kernels``, ``widths`` and ``precision``): the
 forward kernel takes 0.0253 ms a launch against 0.2399 ms for the plain
 forward at 1,000 rows, and 0.45 against 1.11 ms at 20,000 rows, both timed
-in CUDA graphs; above width 128 it runs the streamed variant, which beats
-the plain forward at 1,000 rows up to width 160 only (``KERNEL_MAX_WIDTH``);
+in CUDA graphs; above width 128 it runs the streamed variant (a chain of
+stage kernels tiled over rows and columns), which beats the plain forward at
+1,000 rows at every width measured, up to 4,096 (``KERNEL_MAX_WIDTH``);
 one plan through the kernel takes 10-22 ms at K=1,000 and 60-61 ms at
 65,536, against 72-161 and 82-153 ms on the plain route in bfloat16 or
 float32 (``scripts/bench_int8_torch.py --mode perf``, phase ``precision``).
@@ -64,15 +65,17 @@ class Recommendation:
         return "\n".join(f"{k}: {v}" for k, v in sorted(self.rationale.items()))
 
 
-# the widest nl_hidden_units at which the card measured the forward kernel faster than the plain
-# f32 forward at 1,000 rows (K=1,000); widths between 128 and 160 stream fewer weights than 160
-# against a plain forward that takes the same time (launch-bound at 1,000 rows)
-KERNEL_MAX_WIDTH = 160
+# the widest nl_hidden_units at which the card measured the forward kernel against the plain f32
+# forward at 1,000 rows (K=1,000): faster by more than 10% at every width measured (24 to 4,096),
+# so on up to it; past it unmeasured, so as the base config
+KERNEL_MAX_WIDTH = 4096
 WIDE_RATIONALE = (
-    "the streamed forward kernel beats the plain f32 forward at 1,000 rows up to nl_hidden_units=160 "
-    "(0.1744 against 0.2717 ms) and not past it (256: 0.3172 against 0.3020 ms, a tie; 512: 1.1702 "
-    "against 0.4810; 1,024: 4.3204 against 0.8937; NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase "
-    "widths, PERF.md section 6)"
+    "the streamed forward kernel beats the plain f32 forward at 1,000 rows at every width measured up "
+    "to nl_hidden_units=4,096 (160: 0.0965 against 0.2708 ms; 200: 0.1084 against 0.2905; 256: 0.1208 "
+    "against 0.3045; 512: 0.2037 against 0.4890; 1,024: 0.5142 against 0.8992 with 64-row GRU tiles; "
+    "2,048: 1.6102 against 2.6665; 4,096: 5.5284 against 8.0485; NVIDIA H100 80GB HBM3, 700 W; "
+    "chip_smoke.py phase widths and scripts/port_wide_check.py, PERF.md section 6) and is unmeasured "
+    "past it"
 )
 
 

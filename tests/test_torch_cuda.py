@@ -301,8 +301,11 @@ def test_nl_every_ilt_on_card_matches_cpu_f64(algorithm, cuda_device):
         np.testing.assert_allclose(got.numpy(), exp.numpy(), rtol=rtol, atol=rtol * float(exp.abs().max()))
 
 
-WIDTHS = [24, 100, 160, 256, 512, 1024, 2048]  # ragged, resident, and streamed past shared memory
+# ragged, resident, and streamed past shared memory; 200's GRU width (100, padded to 104) leaves
+# the last m-tile of 16 columns half live
+WIDTHS = [24, 100, 160, 200, 256, 512, 1024, 2048, 3072, 4096]
 WIDTH_ROWS = [1, 999, 1001, 20000]
+WIDTH_MAX_ROWS = {3072: 1001, 4096: 1001}  # past the old refusal: rows 1, 999 and 1,001
 
 
 @pytest.mark.cuda
@@ -310,11 +313,15 @@ WIDTH_ROWS = [1, 999, 1001, 20000]
 def test_fused_planner_refuses_bad_widths_on_card(width, cuda_device):
     """Every width the JAX kernel takes runs the forward kernel on the card
     (widths it refused before: ragged ones padded, wide ones through the
-    streamed variant, 2048 the widest here), at ragged and seed-batch rows,
-    on the port's seeded init: within 1e-5 of the f64 forward in units of
-    the fourier terms, and 1e-3 of the f32 plain forward where f32 resolves
-    the outputs; a launch on the counter at every width, the streamed
-    variant's past 128. Another ILT than fourier still raises."""
+    streamed variant, 3,072 and 4,096 past the width the PR 15 kernel
+    refused), at ragged and seed-batch rows, on the port's seeded init:
+    within 1e-5 of the f64 forward in units of the fourier terms, and 1e-3
+    of the f32 plain forward where f32 resolves the outputs; a launch on the
+    counter at every width, the streamed variant's past 128; the layout the
+    host packed (``pallas_nl.wide_layout``, the mirror of the library's
+    test) is the one the library's plan reads, and below 128 the library's
+    shared memory is the mirror's ``resident_bytes``. Another ILT than
+    fourier still raises."""
     sys.path.insert(0, str(REPO))
     import chip_smoke
 
@@ -322,7 +329,15 @@ def test_fused_planner_refuses_bad_widths_on_card(width, cuda_device):
     cfg = Config(nl_hidden_units=width)
     model = make_model("nl", "oderl-cartpole", n, m, high, cfg, device=cuda_device)
     fused = model.make_fused_planner_apply(model.init(torch.Generator(device=cuda_device).manual_seed(width)), DT)
-    for rows in WIDTH_ROWS:
+    H, hid = fused.packed[1].shape[0], fused.packed[13].shape[0]
+    for rows in (r for r in WIDTH_ROWS if r <= WIDTH_MAX_ROWS.get(width, r)):
+        dims = (rows, n, 4, m, H, hid, n, 17, fused.hopper.numel())
+        plan = nl_cuda.forward_plan(dims)
+        assert plan["variant"] == ("streamed" if tnl.wide_layout(n, m, H, hid, n, 17) else "resident") == (
+            "streamed" if width > 128 else "resident")
+        assert plan["launches"] == (2 * 4 + 4 if width > 128 else 1)
+        if width <= 128:
+            assert plan["smem_bytes"] == tnl.resident_bytes(n, 4, m, H, hid, n, 17)
         rng = np.random.default_rng(rows)
         obs = torch.tensor(rng.standard_normal((rows, n)), dtype=torch.float32, device=cuda_device)
         acts = torch.tensor(rng.uniform(-high, high, (rows, 4 * m)), dtype=torch.float32, device=cuda_device)
@@ -339,6 +354,47 @@ def test_fused_planner_refuses_bad_widths_on_card(width, cuda_device):
     model = make_model("nl", "oderl-pendulum", 3, 1, 2.0, Config(nl_ilt_algorithm="cme"), device=cuda_device)
     with pytest.raises(ValueError, match="fourier-only"):
         model.make_fused_planner_apply(model.init(torch.Generator().manual_seed(0)), DT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terms,actions", [(104, 4), (17, 40)], ids=["terms104", "actions40"])
+def test_fused_planner_wide_layout_at_width_128_on_card(terms, actions, cuda_device):
+    """At width 128, a head of 104 terms or an action buffer of 40 steps
+    puts the resident layout past a block's shared memory: the host packs
+    the wide layout (``pallas_nl.wide_layout``), the library plans the
+    streamed chain on it (and its resident-layout buffer, packed for 4 steps,
+    is refused at 40), and the chain matches the plain forward at rows 1,
+    999, 1,001 and 20,000 on the port's seeded init: within 1e-5 of the f64
+    forward in units of the fourier terms, and 1e-3 of the f32 plain forward
+    where f32 resolves the outputs."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    n, m, high = ENV_DIMS["oderl-cartpole"]
+    model = make_model("nl", "oderl-cartpole", n, m, high, Config(nl_s_recon_terms=terms), device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(terms))
+    fused = model.make_fused_planner_apply(params, DT, actions)
+    H, hid = fused.packed[1].shape[0], fused.packed[13].shape[0]
+    assert (H, hid) == (64, 128) and tnl.wide_layout(n, m, H, hid, n, terms, actions)
+    if actions != 4:
+        short = model.make_fused_planner_apply(params, DT)
+        with pytest.raises(ValueError, match="resident layout"):
+            nl_cuda.forward_plan((B, n, actions, m, H, hid, n, terms, short.hopper.numel()))
+    for rows in (1, 999, 1001, 20000):
+        plan = nl_cuda.forward_plan((rows, n, actions, m, H, hid, n, terms, fused.hopper.numel()))
+        assert plan["variant"] == "streamed" and plan["launches"] == 2 * actions + 4
+        rng = np.random.default_rng(rows)
+        obs = torch.tensor(rng.standard_normal((rows, n)), dtype=torch.float32, device=cuda_device)
+        acts = torch.tensor(rng.uniform(-high, high, (rows, actions * m)), dtype=torch.float32, device=cuda_device)
+        before = tnl.nl_forward_fused.streamed_launches
+        got = fused(None, obs, acts.reshape(rows, actions, m), None)
+        torch.cuda.synchronize()
+        assert tnl.nl_forward_fused.streamed_launches == before + 1
+        assert got.shape == (rows, n) and bool(torch.isfinite(got).all())
+        e = chip_smoke.forward_errors(got, obs, acts, fused.packed, n, m)
+        assert e["kernel_cond"] < chip_smoke.WIDTH_COND_LIMIT
+        if e["plain_vs_plain64"] < chip_smoke.WIDTH_RESOLVED:  # f32 resolves the outputs
+            assert e["kernel_vs_plain"] < TOL
 
 
 @pytest.mark.cuda

@@ -226,6 +226,20 @@ def gru_untiles(flat, kin, H):
     return cat[:kin], cat[kx:]
 
 
+def gru_wide_untiles(flat, kin, H):
+    """Inverse of ``pallas_nl._gru_wide_tiles``: (w_ih [kin, 3H], w_hh [H, 3H]);
+    the m-tiles' padding past H is zero."""
+    kx = tilt._round_up(kin, tnl.MMA_K)
+    ks, mt = (kx + H) // tnl.MMA_K, tilt._round_up(H, tnl.MMA_M) // tnl.MMA_M
+    tiles = np.asarray(flat).reshape(mt, ks, 3, 128)
+    cat = np.zeros((kx + H, 3 * H), np.float32)
+    for g in range(3):
+        full = frag_unpack(tiles[:, :, g].reshape(-1), kx + H, mt * tnl.MMA_M)
+        assert not full[:, H:].any() and not full[kin:kx].any()
+        cat[:, g * H : (g + 1) * H] = full[:, :H]
+    return cat[:kin], cat[kx:]
+
+
 def unpack_head(buf, hx, D, terms):
     """``repack_head``'s buffer -> b_theta, b_phi, c_re, c_im [Mp] and
     w_theta, w_phi [hxp, Mp], Mp = chunks * Mc, the chunks side by side, hxp
@@ -239,12 +253,17 @@ def unpack_head(buf, hx, D, terms):
             "w_theta": w[..., 0], "w_phi": w[..., 1]}
 
 
-def unpack_nl_forward(buf, n, in_dim, H, hid, D, terms):
-    """``repack_nl_forward``'s buffer -> its dense parts, by name, at the padded
-    widths (``pallas_nl.padded_widths``) of a model of widths H and hid."""
-    sec = tnl.forward_sections(n, in_dim, H, hid, D, terms)
+def unpack_nl_forward(buf, n, in_dim, H, hid, D, terms, actions=tnl.ACTION_STEPS):
+    """``repack_nl_forward``'s buffer (packed for ``actions`` action steps)
+    -> its dense parts, by name, at the padded widths
+    (``pallas_nl.padded_widths``) of a model of widths H and hid. The wide
+    layout's tag is zero."""
+    sec = tnl.forward_sections(n, in_dim, H, hid, D, terms, actions)
+    wide = tnl.wide_layout(n, in_dim, H, hid, D, terms, actions)
     H, hid = tnl.padded_widths(H, hid)
-    small, gru1, gru2, w2, head = np.split(tilt._host(buf).reshape(-1), np.cumsum(list(sec.values()))[:-1])
+    parts = dict(zip(sec, np.split(tilt._host(buf).reshape(-1), np.cumsum(list(sec.values()))[:-1])))
+    assert ("tag" in parts) == wide and not parts.get("tag", np.zeros(1)).any()
+    small, gru1, gru2, w2, head = (parts[k] for k in ("small", "gru1", "gru2", "w2", "head"))
     latent = tnl._LATENT
     k1 = tilt._round_up(n + latent, tnl.MMA_K)
     sizes = [3 * H] * 4 + [latent * H, 4, k1 * hid, hid, hid]
@@ -254,8 +273,9 @@ def unpack_nl_forward(buf, n, in_dim, H, hid, D, terms):
     out["b_enc"] = out["b_enc"][:latent]
     w1 = frag_unpack(out.pop("w1"), n + latent, hid)
     out["w1_obs"], out["w1_act"] = w1[:n], w1[n:]
-    out["w_ih1"], out["w_hh1"] = gru_untiles(gru1, in_dim, H)
-    out["w_ih2"], out["w_hh2"] = gru_untiles(gru2, H, H)
+    untiles = gru_wide_untiles if wide else gru_untiles
+    out["w_ih1"], out["w_hh1"] = untiles(gru1, in_dim, H)
+    out["w_ih2"], out["w_hh2"] = untiles(gru2, H, H)
     out["w2"] = frag_unpack(w2, hid, hid)
     out["head"] = head
     return out
@@ -263,8 +283,8 @@ def unpack_nl_forward(buf, n, in_dim, H, hid, D, terms):
 
 def head_repacked_plain(x, buf, D, terms):
     """The head as the kernels compute it, on ``repack_head``'s buffer: the live
-    columns only and the compact combine weights."""
-    h = {k: torch.as_tensor(v) for k, v in unpack_head(buf, x.shape[1], D, terms).items()}
+    columns only and the compact combine weights, at x's dtype."""
+    h = {k: torch.as_tensor(v).to(x.dtype) for k, v in unpack_head(buf, x.shape[1], D, terms).items()}
     f_re, f_im = tilt._sphere_f(x @ h["w_theta"] + h["b_theta"], x @ h["w_phi"] + h["b_phi"])
     contrib = (f_re * h["c_re"] - f_im * h["c_im"])[:, : D * terms]
     return contrib.reshape(x.shape[0], D, terms).sum(-1)
@@ -340,30 +360,42 @@ def fused_cpu(env, cfg_kw=None):
 
 
 WIDTHS = (24, 100, 160, 256, 512)  # nl_hidden_units past the width-128 cases: ragged, and past shared memory
+WIDE_WIDTHS = (160, 256, 384, 520)  # the wide layout: GRU 80, 128, 192 and a ragged 260 (m-tiles padded)
+# fourier terms whose head takes the resident layout past shared memory at width 128 on cartpole
+WIDE_HEAD_TERMS = 104
 
 
 @pytest.mark.parametrize(
     "env,cfg_kw,terms",
     [("oderl-pendulum", {}, 17), ("oderl-cartpole", {}, 17), ("oderl-acrobot", {}, 17),
      ("oderl-cartpole", {"encode_obs_time": True}, 17), ("oderl-acrobot", {}, 32)]
-    + [("oderl-cartpole", {"nl_hidden_units": w}, 17) for w in WIDTHS],
-    ids=["pendulum", "cartpole", "acrobot", "encode_obs_time", "acrobot_terms32"] + [f"width{w}" for w in WIDTHS],
+    + [("oderl-cartpole", {"nl_hidden_units": w}, 17) for w in sorted(set(WIDTHS + WIDE_WIDTHS))]
+    + [("oderl-cartpole", {"nl_s_recon_terms": WIDE_HEAD_TERMS}, WIDE_HEAD_TERMS)],
+    ids=["pendulum", "cartpole", "acrobot", "encode_obs_time", "acrobot_terms32"]
+    + [f"width{w}" for w in sorted(set(WIDTHS + WIDE_WIDTHS))] + [f"width128_terms{WIDE_HEAD_TERMS}"],
 )
 def test_hopper_repack_loses_nothing(env, cfg_kw, terms):
     """Unpacking the kernel's buffer gives back every live entry of
     pack_nl_forward's operands, zero-padded to the kernel's widths, and the
     entries it drops are zero padding. At terms=32 every column of the padded
     blocks is live, and the head (192 columns on acrobot) is laid out in two
-    chunks; a wide head takes more chunks, each within the stage."""
+    chunks; a wide head takes more chunks, each within the stage. Past width
+    128, and at width 128 where the resident layout does not fit in shared
+    memory (a head of ``WIDE_HEAD_TERMS`` terms), the GRU's sections take
+    the wide layout (``wide_layout``), whose unpacked tiles equal the padded
+    operands as well."""
+    torch.set_num_threads(1)
     n, m, _ = ENV_DIMS[env]
     in_dim = m + int(cfg_kw.get("encode_obs_time", False))
     fused = fused_cpu(env, cfg_kw)
     p = [t.numpy() for t in fused.packed]
     H, hid = p[1].shape[0], p[13].shape[0]
     Hp, hidp = tnl.padded_widths(H, hid)
-    buf = fused.hopper if terms == 17 else tnl.repack_nl_forward(p, n, in_dim, terms)
+    assert tnl.wide_layout(n, in_dim, H, hid, n, terms) == (
+        cfg_kw.get("nl_hidden_units", 128) > 128 or terms == WIDE_HEAD_TERMS)
+    buf = fused.hopper if terms == cfg_kw.get("nl_s_recon_terms", 17) else tnl.repack_nl_forward(p, n, in_dim, terms)
     chunks, mc = tilt.head_chunks(hid, n, terms)
-    if hid == 128:
+    if hid == 128 and terms in (17, 32):
         assert chunks == (1 if terms == 17 else 2)
     assert mc % 4 == 0 and (mc * (4 + 2 * hidp) <= tilt._HEAD_STAGE_FLOATS or mc == 4)
     u = unpack_nl_forward(buf, n, in_dim, H, hid, n, terms)
@@ -417,8 +449,8 @@ def test_zero_padding_is_exact():
 
 
 @pytest.mark.parametrize(
-    "env,width", [(env, 128) for env in sorted(ENV_DIMS)] + [("oderl-cartpole", w) for w in WIDTHS],
-    ids=sorted(ENV_DIMS) + [f"width{w}" for w in WIDTHS],
+    "env,width", [(env, 128) for env in sorted(ENV_DIMS)] + [("oderl-cartpole", w) for w in WIDTHS + (3072,)],
+    ids=sorted(ENV_DIMS) + [f"width{w}" for w in WIDTHS + (3072,)],
 )
 def test_repacked_plain_matches_jax_pallas_kernel(env, width):
     """The forward as the kernel computes it (r/z over [x; h] in one product,
@@ -426,9 +458,10 @@ def test_repacked_plain_matches_jax_pallas_kernel(env, width):
     buffer, vs the JAX fused kernel in interpret mode and vs nl_forward_plain;
     and the port's fused apply vs the JAX kernel: on the trained weights at
     width 128, on JAX's init at the other widths (padded in the buffer where
-    ragged)."""
+    ragged). At 3,072, past the width the PR 15 kernel refused, at 8 rows."""
+    torch.set_num_threads(1)
     n, m, _ = ENV_DIMS[env]
-    B = 96 if width == 128 else 16
+    B = 96 if width == 128 else 8 if width > 1024 else 16
     obs, abuf = draw(env, B)
     ts = np.full((B, 1), DT, np.float32)
     if width == 128:
@@ -508,6 +541,237 @@ def test_split_tf32_on_early_weights():
     e = chip_smoke.forward_errors(got, obs, acts, fused.packed, 3, 1)
     print(f"split {e['kernel_vs_plain64']:.3e}, f32 plain {e['plain_vs_plain64']:.3e}")
     assert e["kernel_vs_plain64"] <= 1.5 * e["plain_vs_plain64"]
+
+
+# ---- the streamed variant's stage kernels, walked tile by tile ----
+
+WIDE_K = 4  # k-steps a ring stage (kWideK)
+WIDE_COLS = 4  # m-tiles of 16 columns a GEMM stage's CTA (kColMt)
+_LANE, _REG = np.meshgrid(np.arange(32), np.arange(4), indexing="ij")
+FRAG_M, FRAG_K = (_LANE >> 2) + 8 * (_REG & 1), (_LANE & 3) + 4 * (_REG >> 1)  # a fragment's (m, k) by lane, register
+
+
+def plane_index(K, bp):
+    """``plane_at`` of csrc/nl_kernels.cu: the hi float of (k, row) in split
+    planes of K x bp; lo lies 64 floats further."""
+    k, r = np.arange(K)[:, None], np.arange(bp)[None, :]
+    return ((k >> 3) * (bp // 8) + (r >> 3)) * 128 + ((k & 7) >> 2) * 32 + (r & 7) * 4 + (k & 3)
+
+
+class WideWalk:
+    """The streamed variant's chain on ``repack_nl_forward``'s wide buffer, as
+    its stage kernels walk it: each GEMM stage over (row tile, column tile of
+    4 m-tiles, chunk of ``WIDE_K`` k-steps), the weights read by the
+    producer's offsets and decoded from their fragments, the activations
+    read from split planes (``plane_index``) and written back split by each
+    epilogue, the GRU's K loop over x's chunks and then h's with the
+    candidate's two halves summed apart. ``split`` (None: f64, no split)
+    splits each chunk's operands as the tensor cores read them (weights
+    split as loaded, activations stored split), the large product summed in
+    f32 apart from the two small ones."""
+
+    def __init__(self, buf, dims, rows, gru_rows, dense_rows, split=None, actions=tnl.ACTION_STEPS):
+        self.n, self.in_dim, H, hid, self.D, self.terms = dims
+        self.H, self.hid = tnl.padded_widths(H, hid)
+        self.sec = tnl.forward_sections(*dims, actions)
+        assert "tag" in self.sec
+        self.off = dict(zip(self.sec, np.cumsum([0] + list(self.sec.values()))))
+        self.split = split
+        self.dtype = torch.float32 if split else torch.float64
+        self.buf = torch.as_tensor(np.asarray(buf)).to(self.dtype)
+        self.B, self.bp = rows, tilt._round_up(max(rows, 1), 128)
+        self.gru_rows, self.dense_rows = gru_rows, dense_rows
+
+    def planes(self, X):
+        """[B, K] -> split planes (zero rows past B)."""
+        K = X.shape[1]
+        idx = torch.as_tensor(plane_index(K, self.bp)[:, : self.B].T.reshape(-1))
+        hi, lo = split_tf32(X) if self.split else (X, torch.zeros_like(X))
+        P = torch.zeros(2 * K * self.bp, dtype=self.dtype)
+        P[idx], P[idx + 64] = hi.reshape(-1), lo.reshape(-1)
+        return P
+
+    def read(self, P, K):
+        """Split planes -> [B, K] as hi + lo."""
+        idx = torch.as_tensor(plane_index(K, self.bp)[:, : self.B].T)
+        return P[idx] + P[idx + 64]
+
+    def tile_weights(self, w0, ks, G, mt0, live, kw, kn):
+        """The producer's copy of a tile (``live`` m-tiles, k-steps kw..kw+kn)
+        decoded: [G][kn 8][live 16], as lane and register lay it out."""
+        out = torch.zeros((G, kn * 8, live * 16), dtype=self.dtype)
+        for m in range(live):
+            at = w0 + ((mt0 + m) * ks + kw) * G * 128
+            frags = self.buf[at : at + kn * G * 128].reshape(kn, G, 32, 4)
+            for i in range(kn):
+                out[:, i * 8 + FRAG_K, m * 16 + FRAG_M] = frags[i]
+        return out
+
+    def tile_acts(self, P, k0, kn, r0, nr):
+        """The producer's copy of rows r0..r0+nr at k-steps k0..k0+kn: (hi, lo) [nr, kn 8]."""
+        hi = torch.zeros((nr, kn * 8), dtype=self.dtype)
+        lo = torch.zeros_like(hi)
+        for i in range(kn):
+            at = ((k0 + i) * (self.bp // 8) + r0 // 8) * 128
+            blk = P[at : at + nr // 8 * 128].reshape(nr // 8, 2, 2, 8, 4)  # [rg][hi/lo][k half][row][k]
+            for pl, dst in ((0, hi), (1, lo)):
+                dst[:, i * 8 : i * 8 + 8] = blk[:, pl].permute(0, 2, 1, 3).reshape(nr, 8)
+        return hi, lo
+
+    def product(self, w, a_hi, a_lo):
+        """acts [nr, k] x tile weights [k, m] for one chunk: (large, small)."""
+        if not self.split:
+            return (a_hi + a_lo) @ w, torch.zeros((a_hi.shape[0], w.shape[1]), dtype=self.dtype)
+        w_hi, w_lo = split_tf32(w)
+        return a_hi @ w_hi, a_lo @ w_hi + a_hi @ w_lo
+
+    def gemm(self, w0, ks, G, mtiles, x, ksx, h, ksh, rows_tile):
+        """One GEMM stage: the pre-activations [G (+1 for the GRU's candidate
+        input half)][B][mtiles 16] its CTAs leave in their accumulators."""
+        cols = mtiles * 16
+        acc = torch.zeros((G + (G == 3), self.bp, cols), dtype=self.dtype)
+        cx = -(-ksx // WIDE_K)
+        chunks = cx + -(-ksh // WIDE_K)
+        for r0 in range(0, self.B, rows_tile):
+            for ct in range(-(-mtiles // WIDE_COLS)):
+                mt0, live = ct * WIDE_COLS, min(WIDE_COLS, mtiles - ct * WIDE_COLS)
+                big = torch.zeros((G, rows_tile, live * 16), dtype=self.dtype)
+                small = torch.zeros_like(big)
+                nx = None
+                for c in range(chunks):
+                    if G == 3 and c == cx:
+                        nx, big[2], small[2] = big[2] + small[2], 0.0, 0.0
+                    in_x = c < cx
+                    k0 = (c if in_x else c - cx) * WIDE_K
+                    kn = min(WIDE_K, (ksx if in_x else ksh) - k0)
+                    w = self.tile_weights(w0, ks, G, mt0, live, k0 if in_x else ksx + k0, kn)
+                    a_hi, a_lo = self.tile_acts(x if in_x else h, k0, kn, r0, rows_tile)
+                    for q in range(G):
+                        b, s = self.product(w[q], a_hi, a_lo)
+                        big[q] += b
+                        small[q] += s
+                if G == 3 and nx is None:
+                    nx, big[2], small[2] = big[2] + small[2], 0.0, 0.0
+                cs = slice(mt0 * 16, (mt0 + live) * 16)
+                acc[:G, r0 : r0 + rows_tile, cs] = big + small
+                if G == 3:
+                    acc[3, r0 : r0 + rows_tile, cs] = nx
+        return acc[:, : self.B]
+
+    def gru(self, layer, x, ksx, h):
+        H = self.H
+        w0 = self.off["gru1" if layer == 1 else "gru2"]
+        mtiles = tilt._round_up(H, 16) // 16
+        acc = self.gemm(w0, ksx + H // 8, 3, mtiles, x, ksx, h, H // 8 if h is not None else 0, self.gru_rows)
+        r_, z_, nh, nx = (a[:, :H] for a in acc)
+        b = self.buf[6 * H * (layer - 1) : 6 * H * layer]
+        b_ih, b_hh = b[: 3 * H], b[3 * H :]
+        r = torch.sigmoid(r_ + b_ih[:H] + b_hh[:H])
+        z = torch.sigmoid(z_ + b_ih[H : 2 * H] + b_hh[H : 2 * H])
+        n = torch.tanh(nx + b_ih[2 * H :] + r * (nh + b_hh[2 * H :]))
+        h_old = self.read(h, H) if h is not None else torch.zeros_like(n)
+        return self.planes(n + z * (h_old - n))
+
+    def __call__(self, obs, acts_flat):
+        H, hid, n = self.H, self.hid, self.n
+        obs, acts_flat = obs.to(self.dtype), acts_flat.to(self.dtype)
+        A = acts_flat.shape[1] // self.in_dim
+        kx = tilt._round_up(self.in_dim, 8)
+        k1 = tilt._round_up(n + 2, 8)
+        xs = [self.planes(torch.nn.functional.pad(acts_flat[:, s * self.in_dim : (s + 1) * self.in_dim],
+                                                  (0, kx - self.in_dim))) for s in range(A)]
+        h1 = h2 = None
+        for step in range(A):  # newest action first
+            h1 = self.gru(1, xs[A - 1 - step], kx // 8, h1)
+            h2 = self.gru(2, h1, H // 8, h2)
+        small = self.buf[: self.sec["small"]]
+        w_enc, b_enc = small[12 * H : 14 * H].reshape(H, 2), small[14 * H : 14 * H + 2]
+        latent = self.read(h2, H) @ w_enc + b_enc  # f32 on the CUDA cores
+        z1 = torch.nn.functional.pad(torch.cat([obs, latent], 1), (0, k1 - n - 2))
+        w1 = self.tile_weights(14 * H + 4, k1 // 8, 1, 0, hid // 16, 0, k1 // 8)[0]
+        b1 = small[14 * H + 4 + k1 * hid : 14 * H + 4 + k1 * hid + hid]
+        b2 = small[14 * H + 4 + k1 * hid + hid :]
+        hi, lo = split_tf32(z1) if self.split else (z1, torch.zeros_like(z1))
+        big, sm = self.product(w1, hi, lo)
+        hid1 = self.planes(torch.tanh(big + sm + b1))
+        hid2 = torch.tanh(self.gemm(self.off["w2"], hid // 8, 1, hid // 16, hid1, hid // 8, None, 0,
+                                    self.dense_rows)[0] + b2)
+        return head_repacked_plain(hid2, self.buf[self.off["head"] : self.off["tag"]], self.D, self.terms)
+
+
+def wide_params(width, seed=0):
+    """The port's init at ``width`` on cartpole, drawn from a seed."""
+    n, m, high = ENV_DIMS["oderl-cartpole"]
+    model = torch_make_model("nl", "oderl-cartpole", n, m, high, TConfig(nl_hidden_units=width), device="cpu")
+    return model, model.init(torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("width", WIDE_WIDTHS)
+def test_wide_stage_walk_matches_plain(width):
+    """The stage kernels' tile walk (``WideWalk``) on the wide buffer equals
+    nl_forward_plain to 1e-12 at f64, at B = 1, 63 and 129 and each row tile
+    the plan may take (32/64 rows in the GRU, 32/64/128 in trunk layer 2,
+    ragged B in every tile); and with the split-TF32 products emulated, on
+    the tracked cartpole checkpoint widened to the width
+    (``chip_smoke.widen_nl``), within KERNEL_TOL of the f32 plain forward."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    torch.set_num_threads(1)
+    n, m, high = ENV_DIMS["oderl-cartpole"]
+    model, params = wide_params(width)
+    fused = model.make_fused_planner_apply(params, DT)
+    H, hid = fused.packed[1].shape[0], fused.packed[13].shape[0]
+    dims = (n, m, H, hid, n, 17)
+    assert tnl.wide_layout(*dims)
+    p64 = tuple(x.double() for x in fused.packed)
+    for B, gru_rows, dense_rows in ((1, 32, 32), (63, 64, 128), (129, 32, 64)):
+        rng = np.random.default_rng(B + width)
+        obs = torch.tensor(rng.standard_normal((B, n)))
+        acts = torch.tensor(rng.uniform(-high, high, (B, 4 * m)))
+        got = WideWalk(fused.hopper, dims, B, gru_rows, dense_rows)(obs, acts)
+        exp = tnl.nl_forward_plain(obs, acts, p64, n, m)
+        assert got.dtype == torch.float64 and got.shape == (B, n)
+        assert float((got - exp).abs().max()) <= 1e-12 * (1.0 + float(exp.abs().max())), (B, gru_rows)
+
+    wide = model.make_fused_planner_apply(chip_smoke.widen_nl(trained("oderl-cartpole"), width, seed=width), DT)
+    obs, acts = (torch.as_tensor(x) for x in draw("oderl-cartpole", 129))
+    acts = acts.reshape(129, -1)
+    got = WideWalk(wide.hopper, dims, 129, 64, 128, split=split_tf32)(obs, acts)
+    assert got.dtype == torch.float32
+    assert rel_err(got, tnl.nl_forward_plain(obs, acts, wide.packed, n, m)) < KERNEL_TOL
+
+
+@pytest.mark.parametrize("terms,actions", [(WIDE_HEAD_TERMS, 4), (17, 40)], ids=[f"terms{WIDE_HEAD_TERMS}", "actions40"])
+def test_wide_layout_where_resident_does_not_fit(terms, actions):
+    """At width 128, where the resident kernel's GRU groups still reach, a
+    head of ``WIDE_HEAD_TERMS`` terms or an action buffer of 40 steps needs
+    more shared memory than a block has (``resident_bytes``), so the host
+    packs the wide layout for the streamed variant (at 17 terms and 4 steps
+    it packs the resident one): the buffer unpacks to the padded operands,
+    and the stage kernels' walk on it equals nl_forward_plain to 1e-12 at
+    f64 over ``actions`` steps, at B = 1 and 63."""
+    torch.set_num_threads(1)
+    n, m, high = ENV_DIMS["oderl-cartpole"]
+    model = torch_make_model("nl", "oderl-cartpole", n, m, high, TConfig(nl_s_recon_terms=terms), device="cpu")
+    fused = model.make_fused_planner_apply(model.init(torch.Generator().manual_seed(terms)), DT, actions)
+    H, hid = fused.packed[1].shape[0], fused.packed[13].shape[0]
+    dims = (n, m, H, hid, n, terms)
+    assert (H, hid) == (64, 128) and not tnl.wide_layout(n, m, H, hid, n, 17, 4)
+    assert tnl.resident_bytes(n, actions, m, H, hid, n, terms) > tnl._SMEM_BUDGET
+    assert tnl.wide_layout(*dims, actions) and fused.hopper.numel() == sum(tnl.forward_sections(*dims, actions).values())
+    u = unpack_nl_forward(fused.hopper, *dims, actions=actions)
+    padded = tnl.pad_nl_forward([t.numpy() for t in fused.packed])
+    for i, name in enumerate(["w_ih1", "w_hh1", "b_ih1", "b_hh1", "w_ih2", "w_hh2", "b_ih2", "b_hh2"]):
+        np.testing.assert_array_equal(u[name], padded[i].reshape(u[name].shape), err_msg=name)
+    p64 = tuple(x.double() for x in fused.packed)
+    for B in (1, 63):
+        rng = np.random.default_rng(B + actions)
+        obs = torch.tensor(rng.standard_normal((B, n)))
+        acts = torch.tensor(rng.uniform(-high, high, (B, actions * m)))
+        got = WideWalk(fused.hopper, dims, B, 32, 32, actions=actions)(obs, acts)
+        exp = tnl.nl_forward_plain(obs, acts, p64, n, m)
+        assert float((got - exp).abs().max()) <= 1e-12 * (1.0 + float(exp.abs().max())), B
 
 
 @pytest.mark.parametrize(

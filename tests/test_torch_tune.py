@@ -54,18 +54,21 @@ def test_recommend_carries_no_tpu_threshold():
 
 def test_recommend_leaves_what_the_kernel_does_not_take():
     """An ILT the kernel does not take and widths past the widest where the
-    card measured the kernel faster than the plain f32 forward at K=1,000
-    (256, 384) leave fused_nl_planner at the base config, and say why; a wide
-    width up to it (160) turns the kernel on."""
-    for cfg in (Config(nl_hidden_units=256), Config(nl_ilt_algorithm="dehoog"), Config(nl_hidden_units=384)):
+    card measured the kernel against the plain f32 forward at K=1,000
+    (8,192, past 4,096) leave fused_nl_planner at the base config, and say
+    why; every wide width up to it (160 to 4,096, where the card measured
+    the streamed kernel faster) turns the kernel on, citing the times."""
+    for cfg in (Config(nl_hidden_units=8192), Config(nl_ilt_algorithm="dehoog")):
         rec = tune.recommend(cfg)
         assert rec.config.fused_nl_planner is False
         assert rec.rationale["fused_nl_planner"].startswith("as the base config")
-    assert tune.KERNEL_MAX_WIDTH == 160
-    assert "nl_hidden_units=384: the streamed forward kernel" in tune.recommend(
-        Config(nl_hidden_units=384)).rationale["fused_nl_planner"]
-    rec = tune.recommend(Config(nl_hidden_units=160))
-    assert rec.config.fused_nl_planner is True and "0.1744 against 0.2717 ms" in rec.rationale["fused_nl_planner"]
+    assert tune.KERNEL_MAX_WIDTH == 4096
+    assert "nl_hidden_units=8192: the streamed forward kernel" in tune.recommend(
+        Config(nl_hidden_units=8192)).rationale["fused_nl_planner"]
+    for width in (160, 256, 384, 512, 1024, 4096):
+        rec = tune.recommend(Config(nl_hidden_units=width))
+        assert rec.config.fused_nl_planner is True
+        assert "512: 0.2037 against 0.4890" in rec.rationale["fused_nl_planner"]
     rec = tune.recommend(Config(nl_planner_precompute=True, nl_hidden_units=256))
     assert rec.config.nl_planner_precompute is True
 
