@@ -258,20 +258,115 @@ def test_driver_ensemble_excludes_flagship_by_default(tmp_path, monkeypatch):
     assert all(not r["errored"] for r in read(tmp_path))
 
 
+TABLE_CELLS = [(e, d) for e in ("oderl-pendulum", "oderl-cartpole", "oderl-acrobot") for d in range(4)]
+
+
 def test_chip_smoke_nl_reference_is_pinned_to_the_loaded_checkpoint(tmp_path, monkeypatch):
-    """chip_smoke.py holds the grid's NL cells to the JAX package's run
-    recorded in artifacts/port/jax_eval_driver_d1.json: that run's
-    checkpoints are the tracked files the grid loads (path and sha256), and
-    a reference made on other weights is refused rather than compared."""
+    """chip_smoke.py holds the table's NL cells to the JAX package's run
+    recorded in artifacts/port/jax_eval_table.json: for each of the 12 cells
+    that run's checkpoint is the tracked file the table loads (path and
+    sha256) and its encode_obs_time is the table's (on only at pendulum d0,
+    whose checkpoint takes the age channel); a reference made on other
+    weights, or under the other flag, is refused rather than compared."""
     import chip_smoke
 
-    for env in chip_smoke.DRIVER_ENVS:
-        assert chip_smoke.jax_cell_returns(env, 1, "nl").shape == (20,)
-    ref = json.loads(chip_smoke.JAX_DRIVER_REFERENCE.read_text())
-    ref["cells"]["oderl-pendulum/nl"]["checkpoint"]["sha256"] = "0" * 64
+    for env, delay in TABLE_CELLS:
+        age = (env, delay) == chip_smoke.AGE_CHANNEL_CELL
+        assert chip_smoke.nl_config(env, delay).encode_obs_time == age
+        assert chip_smoke.jax_cell_returns(env, delay, "nl", encode_obs_time=age).shape == (20,)
+        with pytest.raises(RuntimeError, match="under encode_obs_time"):
+            chip_smoke.jax_cell_returns(env, delay, "nl", encode_obs_time=not age)
+    ref = json.loads(chip_smoke.JAX_TABLE_REFERENCE.read_text())
+    ref["cells"]["oderl-pendulum/1/nl"]["checkpoint"]["sha256"] = "0" * 64
+    ref["cells"]["oderl-acrobot/3/nl"]["config"]["encode_obs_time"] = True
     moved = tmp_path / "ref.json"
     moved.write_text(json.dumps(ref))
-    monkeypatch.setattr(chip_smoke, "JAX_DRIVER_REFERENCE", moved)
+    monkeypatch.setattr(chip_smoke, "JAX_TABLE_REFERENCE", moved)
     with pytest.raises(RuntimeError, match="the grid loads"):
         chip_smoke.jax_cell_returns("oderl-pendulum", 1, "nl")
+    with pytest.raises(RuntimeError, match="under encode_obs_time=True"):
+        chip_smoke.jax_cell_returns("oderl-acrobot", 3, "nl")
     assert chip_smoke.jax_cell_returns("oderl-acrobot", 1, "nl").shape == (20,)
+
+
+def test_jax_eval_table_reproduces_the_d1_references():
+    """The table's JAX reference re-ran the three d1 cells at HEAD: their
+    returns equal the earlier d1 artifacts' bit for bit, each cell ran on its tracked
+    checkpoint under the Config it records, and pendulum d0 is the one cell
+    under the age channel."""
+    import chip_smoke
+
+    port_dir = chip_smoke.ROOT / "artifacts" / "port"
+    ref = json.loads(chip_smoke.JAX_TABLE_REFERENCE.read_text())
+    assert sorted(ref["cells"]) == sorted(f"{e}/{d}/nl" for e, d in TABLE_CELLS)
+    for key, cell in ref["cells"].items():
+        env, delay, _ = key.split("/")
+        assert len(cell["total_rewards"]) == 20 and cell["delay"] == int(delay)
+        assert cell["config"] == {"saved_models_path": "artifacts/checkpoints/",
+                                  "encode_obs_time": (env, int(delay)) == chip_smoke.AGE_CHANNEL_CELL}
+        assert cell["checkpoint"]["path"].startswith("artifacts/checkpoints/nl_" + env)
+    driver_d1 = json.loads((port_dir / "jax_eval_driver_d1.json").read_text())
+    for env in ("oderl-pendulum", "oderl-acrobot"):
+        old = driver_d1["cells"][f"{env}/nl"]
+        assert ref["cells"][f"{env}/1/nl"]["total_rewards"] == old["total_rewards"]
+        assert ref["cells"][f"{env}/1/nl"]["checkpoint"] == old["checkpoint"]
+    cartpole_d1 = json.loads((port_dir / "jax_eval_cartpole_d1.json").read_text())["policies"]["nl"]
+    assert ref["cells"]["oderl-cartpole/1/nl"]["total_rewards"] == cartpole_d1["total_rewards"]
+
+
+def table_records(chip_smoke, shift=None):
+    """The table's 36 records made of the JAX package's returns, as the
+    driver writes them; ``shift`` = ((env, delay, model), amount) moves one
+    cell's returns."""
+    recorded = {(r["env_name"], r["delay"], r["model_name"]): r["total_rewards"]
+                for r in map(json.loads, chip_smoke.JAX_RESULTS.read_text().splitlines())}
+    recs = []
+    for env, delay in TABLE_CELLS:
+        for model in chip_smoke.TABLE_MODELS:
+            age = model == "nl" and (env, delay) == chip_smoke.AGE_CHANNEL_CELL
+            got = np.asarray(recorded[(env, delay, model)] if model == "random"
+                             else chip_smoke.jax_cell_returns(env, delay, model, encode_obs_time=age), dtype=np.float64)
+            if shift and shift[0] == (env, delay, model):
+                got = got + shift[1]
+            recs.append({"env_name": env, "delay": delay, "model_name": model, "total_rewards": got.tolist(),
+                         "total_reward": float(got.mean()), "episode_elapsed_time": 4.0, "errored": False})
+    return recs
+
+
+def test_chip_smoke_table_gate_refuses_a_shifted_nl_cell():
+    """Phase table's holds: the JAX package's own returns pass every cell;
+    one NL cell's returns moved by twice its 3-sigma limit, an errored or a
+    missing record, and an NL cell's forward launches off 8,040 at 20,000
+    rows each fail, naming the cell."""
+    import chip_smoke
+
+    steps = (chip_smoke.EVAL_STEPS + 1) * chip_smoke.T
+    launches = {c: (steps, steps * chip_smoke.SEED_ROWS) for c in TABLE_CELLS}
+    cells, failures = chip_smoke.table_cells(table_records(chip_smoke), launches)
+    assert failures == [] and len(cells) == 36
+    assert all(c["gap_to_jax"] == 0.0 for k, c in cells.items() if not k.endswith("random"))
+    limit = cells["oderl-cartpole/2/nl"]["limit"]
+    _, failures = chip_smoke.table_cells(
+        table_records(chip_smoke, (("oderl-cartpole", 2, "nl"), 2.0 * limit)), launches)
+    assert len(failures) == 1 and failures[0].startswith("oderl-cartpole d2 nl: mean")
+    recs = table_records(chip_smoke)
+    recs[0] = {**{k: recs[0][k] for k in ("env_name", "delay", "model_name")}, "errored": True}
+    _, failures = chip_smoke.table_cells(recs[:-1], launches)
+    assert len(failures) == 1 and "1 errored" in failures[0] and "acrobot', 3, 'random" in failures[0]
+    _, failures = chip_smoke.table_cells(table_records(chip_smoke),
+                                         {**launches, ("oderl-pendulum", 0): (steps, steps * 1000)})
+    assert failures == [f"oderl-pendulum d0 nl: the forward kernel launched {steps} times over {steps * 1000} rows, "
+                        f"expected {steps} at {chip_smoke.SEED_ROWS}"]
+
+
+def test_chip_smoke_table_calls_cover_the_grid_once():
+    """The table's driver calls run each of the 36 cells once, and only the
+    age-channel checkpoint's NL cell under --encode_obs_time true."""
+    import chip_smoke
+
+    cells = [(e, d, m, extra) for envs, delays, models, extra in chip_smoke.table_calls()
+             for e in envs for d in delays for m in models]
+    assert sorted(c[:3] for c in cells) == sorted((e, d, m) for e, d in TABLE_CELLS
+                                                  for m in chip_smoke.TABLE_MODELS)
+    assert [c[:3] for c in cells if c[3]] == [("oderl-pendulum", 0, "nl")]
+    assert all(c[3] == ("--encode_obs_time", "true") for c in cells if c[3])

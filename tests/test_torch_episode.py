@@ -1,7 +1,7 @@
 """The port's closed-loop episode (training.rollout) against the JAX
 package's ``make_episode_fn`` at f64 on the CPU, with the JAX draws replayed
-(tests/jax_replay_draws.py): the NL planner through the plain forward, the
-oracle at delays 0-2 on all three envs, the random policy, the irregular
+(tests/jax_replay_draws.py): the NL planner through the plain forward at
+delays 0-3 (acrobot's 2-d actions among them), the oracle at delays 0-3, the random policy, the irregular
 ``exp`` grid with the age channel, exploration noise and observation noise.
 
 Tolerance: rtol 1e-10 (and atol 1e-10 on values that pass through zero),
@@ -106,10 +106,16 @@ def assert_records_match(jrec, trec):
         # the goal flips from -2 to +2 after step 3 of 6
         ("oderl-cartpole", 1, "nl", {"change_goal": True}),
         ("oderl-cartpole", 2, "oracle", {"change_goal": True}),
+        # the paper's table off delay 1: no delay, a delay of 2, and acrobot's
+        # 2-d actions at the longest delay
+        ("oderl-cartpole", 0, "nl", {}),
+        ("oderl-pendulum", 2, "nl", {}),
+        ("oderl-acrobot", 3, "nl", {}),
+        ("oderl-cartpole", 3, "oracle", {}),
     ],
     ids=["nl", "oracle_d0_pendulum", "oracle_d1_cartpole", "oracle_d2_acrobot", "random",
          "exp_grid_encode_obs_time", "explore_noise", "observation_noise", "change_goal_nl",
-         "change_goal_oracle"],
+         "change_goal_oracle", "nl_d0_cartpole", "nl_d2_pendulum", "nl_d3_acrobot", "oracle_d3_cartpole"],
 )
 def test_episode_matches_jax_f64(env_name, delay, model, kw):
     (jtot, jrec), (ttot, trec) = run_both(env_name, delay, model, **kw)

@@ -504,6 +504,36 @@ def test_split_tf32_emulation_within_kernel_tol(env):
     assert single > KERNEL_TOL
 
 
+@pytest.mark.parametrize("env,delay", [(e, d) for e in sorted(ENV_DIMS) for d in (0, 2, 3)],
+                         ids=[f"{e.split('-')[1]}_d{d}" for e in sorted(ENV_DIMS) for d in (0, 2, 3)])
+def test_kernel_forward_on_every_table_checkpoint(env, delay):
+    """The paper's table beyond delay 1: on each tracked NL checkpoint (the
+    pendulum d0 one under the age channel, its ages raw), the port's fused
+    apply against the JAX fused kernel in interpret mode (1e-2, as
+    tests/test_pallas_nl.py), and the forward as the kernel computes it on
+    its buffer against nl_forward_plain, in f32 and with the split-TF32
+    products emulated at the main path's K=1000 (the card's 1e-3)."""
+    n, m, _ = ENV_DIMS[env]
+    age = (env, delay) == ("oderl-pendulum", 0)
+    cfg_kw = {"encode_obs_time": True} if age else {}
+    in_dim = m + int(age)
+    tparams = trained(env, delay)
+    assert tparams["encoder"]["gru"][0]["w_ih"].shape[0] == in_dim
+    jmodel, tmodel = models(env, cfg_kw)
+    fused = tmodel.make_fused_planner_apply(tparams, DT)
+    obs, abuf = draw(env, 96, in_extra=int(age))
+    ts = np.full((96, 1), DT, np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        exp = np.asarray(jmodel.make_fused_planner_apply(jax_tree(tparams), DT)(None, obs, abuf, ts))
+    assert rel_err(fused(None, torch.tensor(obs), torch.tensor(abuf), torch.tensor(ts)), exp) < TOL
+    obs, abuf = (torch.tensor(x) for x in draw(env, 1000, seed=4, in_extra=int(age)))
+    acts = abuf.reshape(1000, -1)
+    plain = tnl.nl_forward_plain(obs, acts, fused.packed, n, in_dim)
+    dims = (n, in_dim, 64, 128, n, 17)
+    assert rel_err(forward_repacked_plain(obs, acts, fused.hopper, dims), plain) < KERNEL_TOL
+    assert rel_err(forward_repacked_plain(obs, acts, fused.hopper, dims, split_tf32_matmul), plain) < KERNEL_TOL
+
+
 def test_tf32_split():
     x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 3 * 2.0**-11, -1.0 - 3 * 2.0**-12, 3.0e-5, 7.1,
                       1.0 + 2.0**-11 - 2.0**-23], dtype=torch.float32)

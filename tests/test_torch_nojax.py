@@ -196,10 +196,12 @@ def test_port_and_chip_smoke_import_and_tick_without_jax():
         step = make_sharded_train_step(pmodel.apply, opt, mesh)
         p1, _, loss = step(shard_params(p0, mesh), opt.init(p0), *[x[:8] for x in data])
         assert bool(torch.isfinite(loss))
-        # phase driver's references: the JAX package's NL run at HEAD, its records
-        for env in chip_smoke.DRIVER_ENVS:
-            for name in ("nl", "oracle"):
-                assert chip_smoke.jax_cell_returns(env, 1, name).shape == (20,)
+        # phase table's references: the JAX package's NL runs at HEAD, its records
+        for env in chip_smoke.ENVS:
+            for delay in chip_smoke.TABLE_DELAYS:
+                age = (env, delay) == chip_smoke.AGE_CHANNEL_CELL
+                assert chip_smoke.jax_cell_returns(env, delay, "nl", encode_obs_time=age).shape == (20,)
+                assert chip_smoke.jax_cell_returns(env, delay, "oracle").shape == (20,)
         # phase precision: the reference .pt through interop into latent_ode_ref,
         # the bf16 and int8 routes, the JAX references of their batches
         from neurallaplacecontrol_tpu_torch import interop

@@ -54,6 +54,27 @@ def test_latex_table_matches_jax(agg, subset):
     assert got.startswith("\\begin{tabular}") and "\\pm" in got
 
 
+@pytest.mark.parametrize("agg", ["std", "ci95"])
+def test_paper_table_matches_jax(agg):
+    """The paper's 12 cells x {nl, oracle, random} from the JAX package's
+    full-run records, the pendulum d0 NL record last, as the driver's
+    age-channel call appends it to the file: the scores and the table equal
+    the JAX package's, with every one of the 36 cells present."""
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "artifacts" / "results_full_r5.jsonl"
+    recs = [r for r in map(json.loads, path.read_text().splitlines())
+            if r["model_name"] in ("nl", "oracle", "random")]
+    age = [r for r in recs if (r["env_name"], r["delay"], r["model_name"]) == ("oderl-pendulum", 0, "nl")]
+    recs = [r for r in recs if r not in age] + age
+    assert len(recs) == 36
+    got = tprocess.normalized_scores(recs, agg=agg)
+    assert got == jprocess.normalized_scores(recs, agg=agg) and len(got) == 36
+    table = tprocess.latex_table(recs, agg=agg)
+    assert table == jprocess.latex_table(recs, agg=agg)
+    assert table.count("(d=") == 12 and "--" not in table
+
+
 @pytest.mark.parametrize("ci", [False, True], ids=["std", "ci"])
 def test_summarize_matches_jax(ci, tmp_path, capsys):
     path = tmp_path / "results.jsonl"
