@@ -46,7 +46,15 @@ and node over seeds 0-19 (200 steps), with the oracle and random, against
 the JAX package's recorded returns; the latent ODE's episode with carried
 history, cut to its first steps (``scripts/port_baselines_eval.py eval``
 runs it in full); ``train_model`` of each family on the collected buffer;
-and the reference's 20-update training segments at f64. Phase ``precision``
+and the reference's 20-update training segments at f64. It also holds the
+f32 forward of every tracked family checkpoint of the paper's table (38:
+rnn on pendulum d0 and d1, the other three families on every env at delays
+0-3) to the JAX package's f64 forward on 256 queries of its env
+(``artifacts/port/jax_baselines_table.npz``, made by
+``scripts/port_jax_baselines_reference.py --table``), and evaluates
+delta_t_rnn on acrobot at delay 0 (2-d actions) at the full protocol
+against its JAX record (``scripts/port_families_table.py`` runs every
+family cell of the table). Phase ``precision``
 imports the tracked reference checkpoint
 (``artifacts/baseline_parity/ref_latent_ode_cartpole_d1_r4.pt``) through
 ``interop``, exports it back bit-exact, holds the card's ``latent_ode_ref``
@@ -302,6 +310,10 @@ BASELINE_SEGMENT_LIMIT = 1e-7  # each f64 update's loss against JAX's, relative
 # predate the per-hemisphere sphere map, which moves the NL forward's f32 bits
 # (pendulum d1: record -125.87 +- 12.82, the package at HEAD -135.26 +- 3.43)
 JAX_RESULTS = ROOT / "artifacts" / "results_full_r5.jsonl"
+JAX_RNN_RESULTS = ROOT / "artifacts" / "results_rnn_all12_r3.jsonl"  # rnn's records: results_full_r5 has none
+JAX_BASELINES_TABLE = ROOT / "artifacts" / "port" / "jax_baselines_table.npz"
+FAMILY_TABLE_FAMILIES = ("delta_t_rnn", "node", "latent_ode")  # tracked on all 12 cells; rnn on pendulum d0, d1
+FAMILY_CELL_OFF_PENDULUM = ("delta_t_rnn", "oderl-acrobot", 0)  # phase baselines' full-protocol cell
 JAX_TABLE_REFERENCE = ROOT / "artifacts" / "port" / "jax_eval_table.json"
 TABLE_DELAYS = (0, 1, 2, 3)
 TABLE_MODELS = ("nl", "oracle", "random")
@@ -378,6 +390,7 @@ RESEARCH_DEMO_DYN_UPDATES, RESEARCH_DEMO_POL_UPDATES = 100, 20
 
 
 PHASE_SECONDS = {}  # each phase's seconds in this run, printed after the total
+PART_SECONDS = {}  # seconds of parts of a phase, printed beside them (within their phase's)
 
 
 @contextmanager
@@ -1145,17 +1158,20 @@ def read_jax_baselines_reference(path=JAX_BASELINES_REFERENCE) -> dict:
     return rec
 
 
-def load_family(family: str, device, dtype=torch.float32, z0_noise=None, config=None):
-    """(model, params) of a baseline family on its tracked pendulum-d1
-    checkpoint, loaded into the model's own tree (``load_pytree(like=...)``).
-    ``z0_noise`` replaces the latent ODE's fixed draw."""
+def load_family(family: str, device, dtype=torch.float32, z0_noise=None, config=None, env_name=BASELINE_ENV,
+                delay=DELAY):
+    """(model, params) of a baseline family on its tracked checkpoint of the
+    cell (pendulum d1 by default), loaded into the model's own tree
+    (``load_pytree(like=...)``). ``z0_noise`` replaces the latent ODE's fixed
+    draw."""
     cfg = config or port.Config()
+    spec = make_env(env_name).spec
     if family == "latent_ode" and z0_noise is not None:
-        model = make_latent_ode_model(3, 1, norm_stats_for(BASELINE_ENV, 2.0, 1), dt=cfg.dt, dtype=dtype,
-                                      device=device, z0_noise=torch.as_tensor(z0_noise))
+        model = make_latent_ode_model(spec.n_obs, spec.m, norm_stats_for(env_name, spec.action_high, spec.m),
+                                      dt=cfg.dt, dtype=dtype, device=device, z0_noise=torch.as_tensor(z0_noise))
     else:
-        model = make_model(family, BASELINE_ENV, 3, 1, 2.0, cfg, dtype=dtype, device=device)
-    path = resolve_checkpoint(model_checkpoint_name(family, BASELINE_ENV, DELAY, "exp", 0, True))
+        model = make_model(family, env_name, spec.n_obs, spec.m, spec.action_high, cfg, dtype=dtype, device=device)
+    path = resolve_checkpoint(model_checkpoint_name(family, env_name, delay, "exp", 0, True))
     return model, load_pytree(path, like=model.init(torch.Generator(device=device).manual_seed(0)))
 
 
@@ -1212,6 +1228,72 @@ def baseline_forwards(ref: dict, device) -> dict:
                                                        torch.as_tensor(ref["carried/states"], device=device).double())
             out[family] = rec
     return out
+
+
+def family_table_cells() -> list:
+    """The tracked family checkpoints of the paper's table, as (family, env,
+    delay): rnn on pendulum d0 and d1, delta_t_rnn, node and latent_ode on
+    every env at delays 0-3."""
+    return ([("rnn", "oderl-pendulum", d) for d in (0, 1)]
+            + [(f, e, d) for f in FAMILY_TABLE_FAMILIES for e in ENVS for d in TABLE_DELAYS])
+
+
+def read_jax_baselines_table(path=JAX_BASELINES_TABLE) -> dict:
+    """``scripts/port_jax_baselines_reference.py --table``'s record: its arrays
+    by name ("inputs/<env>/obs", "out/<family>/<env>/<delay>", ...) and
+    ``meta`` parsed from its JSON."""
+    with np.load(path) as z:
+        rec = {k: z[k] for k in z.files}
+    rec["meta"] = json.loads(str(rec["meta"]))
+    return rec
+
+
+def table_forwards(ref: dict, device) -> dict:
+    """The f32 forward on the card of every tracked family checkpoint against
+    the JAX package's f64 forward on the reference's 256 queries of its env,
+    as ``rel_err``; the latent ODE on JAX's z0 draw, over the rows whose
+    accepted dopri5 step counts agree with JAX's, with the share that differ.
+    Each checkpoint must be the file the reference ran (sha256). Keyed
+    ``"<env>/<delay>/<family>"``."""
+    out = {}
+    with torch.no_grad():
+        for family, env_name, delay in family_table_cells():
+            key = f"{env_name}/{delay}/{family}"
+            pinned = ref["meta"]["checkpoints"].get(key)
+            path = tracked_checkpoint_path(model_checkpoint_name(family, env_name, delay, "exp", 0, True))
+            digest = hashlib.sha256(path.read_bytes()).hexdigest()
+            if pinned is None or pinned["sha256"] != digest:
+                raise RuntimeError(f"{JAX_BASELINES_TABLE} ran {key} on {pinned}, the tracked file is {path} "
+                                   f"(sha256 {digest})")
+            q = [torch.as_tensor(ref[f"inputs/{env_name}/{k}"], device=device) for k in ("obs", "abuf", "ts")]
+            z0 = ref[f"latent_ode/{env_name}/z0"] if family == "latent_ode" else None
+            model, params = load_family(family, device, z0_noise=z0, env_name=env_name, delay=delay)
+            got = model.apply(params, *q).double()
+            exp = torch.as_tensor(ref[f"out/{family}/{env_name}/{delay}"], device=device)
+            rec = {"rel_err": rel_err(got, exp), "finite": bool(torch.isfinite(got).all())}
+            if family == "latent_ode":
+                eps = torch.as_tensor(z0, dtype=torch.float32, device=device)
+                n_acc = latent_ode_accepted_steps(model, params, *q, eps).cpu().numpy()
+                agree = n_acc == ref[f"n_acc/{env_name}/{delay}"]
+                row_err = ((got - exp).abs() / (1.0 + exp.abs())).amax(dim=1).cpu().numpy()
+                rec.update({"steps_differ_share": float(1.0 - agree.mean()), "rel_err_all_rows": rec["rel_err"],
+                            "rel_err": float(row_err[agree].max()) if agree.any() else math.inf})
+            out[key] = rec
+    return out
+
+
+def off_pendulum_cell(device, smi: str) -> dict:
+    """``FAMILY_CELL_OFF_PENDULUM`` (delta_t_rnn on acrobot at delay 0: 2-d
+    actions, no delay) at the paper's protocol through ``evaluate_policy``,
+    its mean return against the JAX package's record of the cell by the
+    3-sigma rule."""
+    name, env_name, delay = FAMILY_CELL_OFF_PENDULUM
+    model, params = load_family(name, device, env_name=env_name, delay=delay)
+    r = evaluate_policy(name, env_name, delay, EVAL_SEEDS, port.Config(), model_apply=model.apply, params=params,
+                        roll_outs=K, time_steps=T, device=device)
+    gap, limit = three_sigma(r["total_rewards"], jax_cell_returns(env_name, delay, name))
+    return {"family": name, "env": env_name, "delay": delay, **policy_stats(r),
+            "returns": len(r["total_rewards"]), "gap_to_jax": gap, "limit": limit, "card": smi}
 
 
 def baseline_segments(ref: dict, device, dtype=torch.float64, config=None) -> dict:
@@ -1283,6 +1365,12 @@ def run_baselines(device, smi: str, tmp: str, baselines: dict) -> dict:
     t0 = time.perf_counter()
     forwards = baseline_forwards(ref, device)
     timings["forwards_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table_ref = read_jax_baselines_table()
+    table_fwd = table_forwards(table_ref, device)
+    timings["table_forwards_s"] = PART_SECONDS["baselines.table_forwards"] = time.perf_counter() - t0
+    print("baselines " + json.dumps({"table_forwards": table_fwd, "rows": table_ref["meta"]["rows"], "card": smi}),
+          flush=True)
 
     t0 = time.perf_counter()
     n = len(EVAL_SEEDS)
@@ -1318,6 +1406,11 @@ def run_baselines(device, smi: str, tmp: str, baselines: dict) -> dict:
         families[name] = line
         print("baselines " + json.dumps(line), flush=True)
 
+    t0 = time.perf_counter()
+    off_cell = off_pendulum_cell(device, smi)
+    timings["off_pendulum_cell_s"] = PART_SECONDS["baselines.off_pendulum_cell"] = time.perf_counter() - t0
+    print("baselines " + json.dumps(off_cell), flush=True)
+
     # the latent ODE: a cut episode with carried history, 20 seeds in lockstep
     t0 = time.perf_counter()
     model, params = load_family("latent_ode", device)
@@ -1351,9 +1444,13 @@ def run_baselines(device, smi: str, tmp: str, baselines: dict) -> dict:
            "segments_f64": segments, "timings": timings, "jax_commit": ref["meta"]["commit"], "card": smi}
     print("baselines " + json.dumps(out), flush=True)
 
-    for family, rec in forwards.items():
+    for family, rec in {**forwards, **table_fwd}.items():
         if not rec["finite"] or not rec["rel_err"] < BASELINE_FORWARD_TOL:
             raise RuntimeError(f"{family} forward: {rec['rel_err']} is not below {BASELINE_FORWARD_TOL}: {rec}")
+    if len(table_fwd) != len(family_table_cells()):
+        raise RuntimeError(f"{len(table_fwd)} family checkpoints' forwards checked, not {len(family_table_cells())}")
+    if off_cell["returns"] != n or not off_cell["gap_to_jax"] <= off_cell["limit"]:
+        raise RuntimeError(f"the off-pendulum family cell: {off_cell}")
     lode = forwards["latent_ode"]
     if not lode["carried_final_rel_err"] < BASELINE_FORWARD_TOL:
         raise RuntimeError(f"latent_ode carried horizon: {lode['carried_final_rel_err']} is not below "
@@ -1379,7 +1476,7 @@ def run_baselines(device, smi: str, tmp: str, baselines: dict) -> dict:
         if not rec["update_loss_rel_gap"] < BASELINE_SEGMENT_LIMIT:
             raise RuntimeError(f"{family} f64 segment: {rec['update_loss_rel_gap']} is not below "
                                f"{BASELINE_SEGMENT_LIMIT}")
-    return {"families": families, **out}
+    return {"families": families, "table_forwards": table_fwd, "off_pendulum_cell": off_cell, **out}
 
 
 def three_sigma(a, b) -> tuple[float, float]:
@@ -1955,19 +2052,33 @@ def driver_args(tmp: str, part: str, *args) -> list:
             "--saved_models_path", str(out / "saved") + "/", *args]
 
 
+def protocol_mismatch(rec: dict, delay: int, seeds) -> list:
+    """The fields of a JAX record that differ from the protocol this run holds
+    it to (K rollouts, horizon T, seeds 0-19, the cell's delay), as
+    ``name=recorded``."""
+    want = {"roll_outs": K, "time_steps": T, "seeds": EVAL_SEEDS, "delay": delay}
+    got = {"roll_outs": rec.get("roll_outs"), "time_steps": rec.get("time_steps"), "seeds": seeds,
+           "delay": rec.get("delay")}
+    return [f"{k}={got[k]}" for k in want if got[k] != want[k]]
+
+
 def jax_cell_returns(env_name: str, delay: int, model_name: str, encode_obs_time: bool = False) -> np.ndarray:
     """The JAX package's per-seed returns of one cell: NL's from its run at
     HEAD (``JAX_TABLE_REFERENCE``), on the tracked checkpoint that the table
     loads here (its path and sha256 must match the reference's) and under
-    the same ``encode_obs_time``; the others' from the full run's records
-    (``JAX_RESULTS``)."""
+    the same ``encode_obs_time``; rnn's from its runs (``JAX_RNN_RESULTS``);
+    the others' from the full run's records (``JAX_RESULTS``). A record made
+    under another protocol than this run's (``protocol_mismatch``) is
+    refused."""
     if model_name == "nl":
         ref = json.loads(JAX_TABLE_REFERENCE.read_text())
-        if ref["seeds"] != EVAL_SEEDS:
-            raise RuntimeError(f"{JAX_TABLE_REFERENCE} ran seeds {ref['seeds']}, not {EVAL_SEEDS}")
         cell = ref["cells"].get(f"{env_name}/{delay}/nl")
         if cell is None:
             raise RuntimeError(f"{JAX_TABLE_REFERENCE} has no NL cell {env_name} d{delay}")
+        bad = protocol_mismatch(cell, delay, ref["seeds"])
+        if bad:
+            raise RuntimeError(f"{JAX_TABLE_REFERENCE} ran {env_name} d{delay} NL under {', '.join(bad)}, not this "
+                               f"run's K={K}, T={T}, seeds {EVAL_SEEDS}")
         path = tracked_checkpoint_path(model_checkpoint_name("nl", env_name, delay, "exp", 0, True))
         digest = hashlib.sha256(path.read_bytes()).hexdigest()
         if (ROOT / cell["checkpoint"]["path"]).resolve() != path.resolve() or cell["checkpoint"]["sha256"] != digest:
@@ -1977,11 +2088,16 @@ def jax_cell_returns(env_name: str, delay: int, model_name: str, encode_obs_time
             raise RuntimeError(f"{JAX_TABLE_REFERENCE} ran {env_name} d{delay} NL under encode_obs_time="
                                f"{cell['config']['encode_obs_time']}, the grid runs it under {encode_obs_time}")
         return np.asarray(cell["total_rewards"])
-    for line in JAX_RESULTS.read_text().splitlines():
+    path = JAX_RNN_RESULTS if model_name == "rnn" else JAX_RESULTS
+    for line in path.read_text().splitlines():
         r = json.loads(line)
         if (r["env_name"], r["delay"], r["model_name"]) == (env_name, delay, model_name) and not r.get("errored"):
+            bad = protocol_mismatch(r, delay, r.get("seeds"))
+            if bad:
+                raise RuntimeError(f"{path} ran {env_name} d{delay} {model_name} under {', '.join(bad)}, not this "
+                                   f"run's K={K}, T={T}, seeds {EVAL_SEEDS}")
             return np.asarray(r["total_rewards"])
-    raise RuntimeError(f"{JAX_RESULTS} has no record of {env_name} d{delay} {model_name}")
+    raise RuntimeError(f"{path} has no record of {env_name} d{delay} {model_name}")
 
 
 def table_calls() -> list:
@@ -1998,47 +2114,69 @@ def table_calls() -> list:
             ((age_env,), (age_delay,), ("nl",), ("--encode_obs_time", "true"))]
 
 
-def table_cells(recs: list, launches: dict) -> tuple[dict, list]:
-    """Each cell of the table's records: its mean, std, normalized score,
-    batch seconds and ticks/s; NL held to the JAX package's run at HEAD and
-    the oracle to its records by the 3-sigma rule, every NL cell's forward
-    launches (``launches[(env, delay)]``: launches and rows) at 8,040 of
-    S*K rows. Returns (cells, failures)."""
+def hold_records(recs: list, expected, grid, held) -> tuple[dict, list]:
+    """Each cell of a grid's records: its mean, std, normalized score
+    against the records' own oracle and random, batch seconds and ticks/s;
+    each cell of a model in ``held`` by the 3-sigma rule to the JAX
+    package's returns (``jax_cell_returns``; NL's under the age channel at
+    ``AGE_CHANNEL_CELL``). Returns (cells, failures): a cell of ``expected``
+    without a record, a record outside ``grid``, a cell recorded twice, an
+    errored record, a cell with other than 20 returns, a held cell without a
+    JAX record or over its limit."""
     failures, cells, n = [], {}, len(EVAL_SEEDS)
-    errored = [r for r in recs if r.get("errored")]
-    keys = sorted((r["env_name"], r["delay"], r["model_name"]) for r in recs)
-    expected = sorted((e, d, m) for e in ENVS for d in TABLE_DELAYS for m in TABLE_MODELS)
-    if errored or keys != expected:
-        named = [(r["env_name"], r["delay"], r["model_name"]) for r in errored]
-        failures.append(f"{len(recs)} records, {len(errored)} errored ({named}), missing "
-                        f"{sorted(set(expected) - set(keys))}, extra {sorted(set(keys) - set(expected))}")
-    scores = normalized_scores([r for r in recs if not r.get("errored")], agg="std")
+    by_cell = {}
     for r in recs:
+        by_cell.setdefault((r["env_name"], r["delay"], r["model_name"]), []).append(r)
+    errored = sorted(k for k, v in by_cell.items() if any(r.get("errored") for r in v))
+    missing, extra = sorted(set(expected) - set(by_cell)), sorted(set(by_cell) - set(grid))
+    twice = sorted(k for k, v in by_cell.items() if len(v) > 1)
+    if errored or missing or extra or twice:
+        failures.append(f"{len(recs)} records, {len(errored)} errored {errored}, missing {missing}, extra {extra}, "
+                        f"recorded twice {twice}")
+    scores = normalized_scores([r for r in recs if not r.get("errored")], agg="std")
+    for (env_name, delay, model_name), (r, *_) in sorted(by_cell.items()):
         if r.get("errored"):
             continue
-        env_name, delay, model_name = r["env_name"], r["delay"], r["model_name"]
-        got = np.asarray(r["total_rewards"])
+        name, got = f"{env_name} d{delay} {model_name}", np.asarray(r["total_rewards"], np.float64)
         score = scores.get((delay, env_name, model_name))  # none without the cell's oracle and random
         cell = {"mean": float(got.mean()), "std": float(got.std()),
                 "normalized_std": None if score is None else list(score[:2]),
                 "episode_batch_s": r["episode_elapsed_time"], "ticks_per_s": EVAL_STEPS / r["episode_elapsed_time"]}
-        if model_name in ("nl", "oracle"):
-            age = model_name == "nl" and (env_name, delay) == AGE_CHANNEL_CELL
+        cells[f"{env_name}/{delay}/{model_name}"] = cell
+        if got.shape != (n,):
+            failures.append(f"{name}: {got.size} returns, expected {n}")
+            continue
+        if model_name not in held:
+            continue
+        age = model_name == "nl" and (env_name, delay) == AGE_CHANNEL_CELL
+        try:
             jax_ret = jax_cell_returns(env_name, delay, model_name, encode_obs_time=age)
-            cell["jax_mean"] = float(jax_ret.mean())
-            cell["gap_to_jax"], cell["limit"] = three_sigma(got, jax_ret)
-            if got.shape != (n,):
-                failures.append(f"{env_name} d{delay} {model_name}: {got.size} returns, expected {n}")
-            elif not cell["gap_to_jax"] <= cell["limit"]:
-                failures.append(f"{env_name} d{delay} {model_name}: mean {cell['mean']:.3f} is {cell['gap_to_jax']:.3f} "
-                                f"from the JAX package's, over the limit {cell['limit']:.3f}")
+        except RuntimeError as e:
+            failures.append(f"{name}: {e}")
+            continue
+        cell["jax_mean"] = float(jax_ret.mean())
+        cell["gap_to_jax"], cell["limit"] = three_sigma(got, jax_ret)
+        if not cell["gap_to_jax"] <= cell["limit"]:
+            failures.append(f"{name}: mean {cell['mean']:.3f} is {cell['gap_to_jax']:.3f} from the JAX package's, "
+                            f"over the limit {cell['limit']:.3f}")
+    return cells, failures
+
+
+def table_cells(recs: list, launches: dict) -> tuple[dict, list]:
+    """Phase ``table``'s holds of its records: ``hold_records`` over the 36
+    cells, NL and the oracle held, and every NL cell's forward launches
+    (``launches[(env, delay)]``: launches and rows) at 8,040 of S*K rows.
+    Returns (cells, failures)."""
+    grid = [(e, d, m) for e in ENVS for d in TABLE_DELAYS for m in TABLE_MODELS]
+    cells, failures = hold_records(recs, grid, grid, ("nl", "oracle"))
+    for key, cell in cells.items():
+        env_name, delay, model_name = key.split("/")
         if model_name == "nl":
-            cell["launches"], rows = launches.get((env_name, delay), (0, 0))
+            cell["launches"], rows = launches.get((env_name, int(delay)), (0, 0))
             cell["rows_per_launch"] = rows / max(1, cell["launches"])
             if cell["launches"] != (EVAL_STEPS + 1) * T or rows != cell["launches"] * SEED_ROWS:
                 failures.append(f"{env_name} d{delay} nl: the forward kernel launched {cell['launches']} times over "
                                 f"{rows} rows, expected {(EVAL_STEPS + 1) * T} at {SEED_ROWS}")
-        cells[f"{env_name}/{delay}/{model_name}"] = cell
     return cells, failures
 
 
@@ -3258,6 +3396,7 @@ def main(argv=None) -> int:
     total = time.perf_counter() - t_start
     print(f"total {total:.3f} s", flush=True)
     print("phase seconds " + json.dumps({**{k: round(v, 3) for k, v in PHASE_SECONDS.items()},
+                                          "parts": {k: round(v, 3) for k, v in PART_SECONDS.items()},
                                           "budget": TOTAL_BUDGET_S, "within_budget": total <= TOTAL_BUDGET_S}),
           flush=True)
     launches = {"controller": result["launches"], "eval": evaluation["launches"],

@@ -32,10 +32,29 @@ phase ``baselines`` reads, since the GPU machine has no JAX:
 - ``jax_returns``: the JAX package's 20-seed returns on this cell, as recorded
   in ``artifacts/results_full_r5.jsonl`` and ``artifacts/results_rnn_20seeds.jsonl``
   (taken on a TPU), and ``meta``: commit, command, JAX version, seconds.
+
+    JAX_PLATFORMS=cpu python scripts/port_jax_baselines_reference.py --table
+
+writes ``artifacts/port/jax_baselines_table.npz`` instead, the forward
+reference of every tracked family checkpoint (``TABLE_CHECKPOINTS``: rnn on
+pendulum d0 and d1, delta_t_rnn, node and latent_ode on the three envs at
+delays 0-3; 38 files), which phase ``baselines`` holds the card's f32
+forwards to:
+
+- ``inputs/<env>/{obs,abuf,ts}``: 256 seeded queries on the env's shapes in
+  f32, obs ~ N(0, 1), action buffers ~ U(-high, high) [256, 4, m], ``ts`` =
+  dt; ``latent_ode/<env>/z0``: the latent ODE's apply draw at 256 rows (f64);
+- ``out/<family>/<env>/<delay>``: the f64 ``apply`` of the checkpoint;
+  ``n_acc/<env>/<delay>``: each row's accepted dopri5 steps in the latent
+  ODE's forward;
+- ``meta``: commit, command, JAX version, seconds, and each checkpoint's path
+  and sha256, keyed ``"<env>/<delay>/<family>"``.
 """
 
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -65,27 +84,93 @@ from neurallaplacecontrol_tpu.utils.checkpoint import load_pytree, model_checkpo
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "artifacts", "port", "jax_baselines_pendulum_d1.npz")
+TABLE_OUT = os.path.join(ROOT, "artifacts", "port", "jax_baselines_table.npz")
+ENVS = ("oderl-pendulum", "oderl-cartpole", "oderl-acrobot")
+ENV_SHAPES = {"oderl-pendulum": (3, 1, 2.0), "oderl-cartpole": (5, 1, 3.0), "oderl-acrobot": (6, 2, 5.0)}
 TRAIN_REFERENCE = os.path.join(ROOT, "artifacts", "port", "jax_train_pendulum_d1.npz")
 ENV, DELAY, N_OBS, M, HIGH, DT = "oderl-pendulum", 1, 3, 1, 2.0, 0.05
 FAMILIES = ("rnn", "delta_t_rnn", "node", "latent_ode")
 ROWS, A, HORIZON, TRACE_ROWS = 1000, 4, 40, 100
 UPDATES, BATCH = 20, 16
 LATENTS = N_OBS + 2
+TABLE_CHECKPOINTS = ([("rnn", ENV, d) for d in (0, 1)]
+                     + [(f, e, d) for f in ("delta_t_rnn", "node", "latent_ode") for e in ENVS for d in range(4)])
+TABLE_ROWS = 256
 RESULTS = {  # the JAX package's recorded 20-seed runs of this cell
     "artifacts/results_full_r5.jsonl": ("delta_t_rnn", "node", "latent_ode", "oracle", "random", "nl"),
     "artifacts/results_rnn_20seeds.jsonl": ("rnn",),
 }
 
 
-def checkpoint(model, family):
-    path = os.path.join(ROOT, "artifacts", "checkpoints", model_checkpoint_name(family, ENV, DELAY, "exp", 0, True))
-    return load_pytree(path, model.init(jax.random.PRNGKey(0)))
+def checkpoint_path(family, env=ENV, delay=DELAY):
+    return os.path.join(ROOT, "artifacts", "checkpoints", model_checkpoint_name(family, env, delay, "exp", 0, True))
 
 
-def z0_draw(rows):
+def checkpoint(model, family, env=ENV, delay=DELAY):
+    return load_pytree(checkpoint_path(family, env, delay), model.init(jax.random.PRNGKey(0)))
+
+
+def z0_draw(rows, latents=LATENTS):
     """The latent ODE's apply draw: ``predict_diff`` splits PRNGKey(0) once."""
-    return np.asarray(jax.random.normal(jax.random.split(jax.random.PRNGKey(0), 1)[0], (rows, LATENTS),
+    return np.asarray(jax.random.normal(jax.random.split(jax.random.PRNGKey(0), 1)[0], (rows, latents),
                                         dtype=jnp.float64))
+
+
+def accepted_steps(model, params, q, z0, m):
+    """Each row's accepted dopri5 steps in the latent ODE's forward from
+    z0 = z_mean + z_std * draw, as ``predict_diff`` decodes it."""
+    rows, a = q[1].shape[:2]
+    z_mean, z_std = model.encode_history(params, jnp.broadcast_to(q[0][:, None], (rows, a, q[0].shape[1])),
+                                         q[1][..., :m])
+
+    def n_acc(z, t):
+        _, n = odeint_dopri5_with_stats(lambda y, _t: mlp_apply_tanh(params["dec_ode"], y), z[None],
+                                        jnp.stack([jnp.zeros_like(t), t]), rtol=1e-3, atol=1e-4, max_steps=24)
+        return n[0]
+
+    return np.asarray(jax.jit(jax.vmap(n_acc))(z_mean + z_std * z0, q[2][:, 0]))
+
+
+def table() -> int:
+    """The forward reference of every tracked family checkpoint (the module
+    docstring's ``--table``)."""
+    t0 = time.perf_counter()
+    cfg = Config()
+    rng = np.random.default_rng(20261018)
+    rec, queries, checkpoints = {}, {}, {}
+    for env in ENVS:
+        n, m, high = ENV_SHAPES[env]
+        obs = rng.standard_normal((TABLE_ROWS, n)).astype(np.float32)
+        abuf = rng.uniform(-high, high, (TABLE_ROWS, A, m)).astype(np.float32)
+        ts = np.full((TABLE_ROWS, 1), DT, np.float32)
+        rec.update({f"inputs/{env}/obs": obs, f"inputs/{env}/abuf": abuf, f"inputs/{env}/ts": ts,
+                    f"latent_ode/{env}/z0": z0_draw(TABLE_ROWS, n + 2)})
+        queries[env] = [jnp.asarray(x, jnp.float64) for x in (obs, abuf, ts)]
+    models = {}  # one model (and one compiled apply) per (family, env): the delays differ in weights only
+    for family, env, delay in TABLE_CHECKPOINTS:
+        n, m, high = ENV_SHAPES[env]
+        if (family, env) not in models:
+            model = make_model(family, env, n, m, high, cfg, dtype=jnp.float64)
+            models[(family, env)] = model, jax.jit(model.apply)
+        model, apply = models[(family, env)]
+        params = checkpoint(model, family, env, delay)
+        rec[f"out/{family}/{env}/{delay}"] = np.asarray(apply(params, *queries[env]))
+        if family == "latent_ode":
+            rec[f"n_acc/{env}/{delay}"] = accepted_steps(model, params, queries[env], rec[f"latent_ode/{env}/z0"], m)
+        path = checkpoint_path(family, env, delay)
+        with open(path, "rb") as f:
+            checkpoints[f"{env}/{delay}/{family}"] = {"path": os.path.relpath(path, ROOT),
+                                                      "sha256": hashlib.sha256(f.read()).hexdigest()}
+        print(f"{family} {env} d{delay}: max |out| {np.abs(rec[f'out/{family}/{env}/{delay}']).max():.4g}",
+              flush=True)
+    commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT, capture_output=True, text=True).stdout.strip()
+    meta = {"commit": commit, "command": "JAX_PLATFORMS=cpu python scripts/port_jax_baselines_reference.py --table",
+            "jax_version": jax.__version__, "dt": DT, "rows": TABLE_ROWS, "checkpoints": checkpoints,
+            "seconds": time.perf_counter() - t0}
+    rec["meta"] = np.asarray(json.dumps(meta))
+    np.savez_compressed(TABLE_OUT, **rec)
+    print(f"wrote {TABLE_OUT} ({os.path.getsize(TABLE_OUT) / 1e6:.2f} MB) in {meta['seconds']:.1f} s", flush=True)
+    return 0
 
 
 def jax_returns() -> dict:
@@ -120,14 +205,7 @@ def main() -> int:
     lode, lp = models["latent_ode"], params["latent_ode"]
     z0 = z0_draw(ROWS)
     rec["latent_ode/z0"] = z0
-    z_mean, z_std = lode.encode_history(lp, jnp.broadcast_to(q[0][:, None], (ROWS, A, N_OBS)), q[1][..., :M])
-
-    def n_acc(z, t):
-        _, n = odeint_dopri5_with_stats(lambda y, _t: mlp_apply_tanh(lp["dec_ode"], y), z[None],
-                                        jnp.stack([jnp.zeros_like(t), t]), rtol=1e-3, atol=1e-4, max_steps=24)
-        return n[0]
-
-    rec["latent_ode/n_acc"] = np.asarray(jax.jit(jax.vmap(n_acc))(z_mean + z_std * z0, q[2][:, 0]))
+    rec["latent_ode/n_acc"] = accepted_steps(lode, lp, q, z0, M)
     rec["latent_ode/nfes"] = np.asarray(lode.decoder_nfes(lp, *q))
     print(f"latent_ode: accepted steps {np.bincount(rec['latent_ode/n_acc'])}, nfes {rec['latent_ode/nfes']}",
           flush=True)
@@ -197,4 +275,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--table", action="store_true",
+                        help="write the forward reference of every tracked family checkpoint instead")
+    sys.exit(table() if parser.parse_args().table else main())

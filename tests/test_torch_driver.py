@@ -6,6 +6,7 @@ JAX package's evaluate_policy."""
 
 import json
 import os
+import re
 import sys
 from pathlib import Path
 
@@ -370,3 +371,157 @@ def test_chip_smoke_table_calls_cover_the_grid_once():
                                                   for m in chip_smoke.TABLE_MODELS)
     assert [c[:3] for c in cells if c[3]] == [("oderl-pendulum", 0, "nl")]
     assert all(c[3] == ("--encode_obs_time", "true") for c in cells if c[3])
+
+
+def families_table_script():
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
+    import port_families_table
+
+    return port_families_table
+
+
+def hold(script, recs, expected):
+    """The script's holds of a file's records: chip_smoke.hold_records over its grid."""
+    import chip_smoke
+
+    return chip_smoke.hold_records(recs, expected, script.GRID, script.HELD)
+
+
+def families_records(script, shift=None):
+    """The families table's records (every cell of the script's grid) made
+    of the JAX package's returns; ``shift`` = ((env, delay, model), amount)
+    moves one cell's returns."""
+    import chip_smoke
+
+    recorded = {(r["env_name"], r["delay"], r["model_name"]): r["total_rewards"]
+                for r in map(json.loads, chip_smoke.JAX_RESULTS.read_text().splitlines())}
+    recs = []
+    for env, delay, model in script.GRID:
+        age = model == "nl" and (env, delay) == chip_smoke.AGE_CHANNEL_CELL
+        got = np.asarray(recorded[(env, delay, model)] if model == "random"
+                         else chip_smoke.jax_cell_returns(env, delay, model, encode_obs_time=age), dtype=np.float64)
+        if shift and shift[0] == (env, delay, model):
+            got = got + shift[1]
+        recs.append({"env_name": env, "delay": delay, "model_name": model, "total_rewards": got.tolist(),
+                     "total_reward": float(got.mean()), "episode_elapsed_time": 10.0, "errored": False})
+    return recs
+
+
+def test_families_table_gate_refuses_a_shifted_family_cell(tmp_path, monkeypatch):
+    """scripts/port_families_table.py's holds: the JAX package's own returns
+    pass every cell; one family cell's returns moved by twice its 3-sigma
+    limit, an errored record, a missing record, a cell recorded twice, a cell
+    of 19 returns and a cell whose JAX record is gone each fail, naming the
+    cell."""
+    import chip_smoke
+
+    script = families_table_script()
+    cells, failures = hold(script, families_records(script), script.GRID)
+    assert failures == [] and len(cells) == 74
+    assert all(c["gap_to_jax"] == 0.0 for k, c in cells.items() if not k.endswith("random"))
+    limit = cells["oderl-acrobot/2/latent_ode"]["limit"]
+    shifted = families_records(script, (("oderl-acrobot", 2, "latent_ode"), 2.0 * limit))
+    _, failures = hold(script, shifted, script.GRID)
+    assert len(failures) == 1 and failures[0].startswith("oderl-acrobot d2 latent_ode: mean")
+    recs = families_records(script)
+    first = tuple(recs[0][k] for k in ("env_name", "delay", "model_name"))
+    recs[0] = {**dict(zip(("env_name", "delay", "model_name"), first)), "errored": True}
+    outside = {**recs[1], "env_name": "oderl-cartpole", "delay": 5, "model_name": "random"}
+    _, failures = hold(script, recs[:-1] + recs[:1] + [outside], script.GRID)
+    assert failures == [f"75 records, 1 errored [{first}], missing [('oderl-pendulum', 3, 'random')], extra "
+                        f"[('oderl-cartpole', 5, 'random')], recorded twice [{first}]"]
+    recs = families_records(script)
+    short = next(i for i, r in enumerate(recs) if (r["env_name"], r["delay"], r["model_name"]) ==
+                 ("oderl-cartpole", 1, "node"))
+    recs[short]["total_rewards"] = recs[short]["total_rewards"][:19]
+    assert hold(script, recs, script.GRID)[1] == ["oderl-cartpole d1 node: 19 returns, expected 20"]
+    recs = families_records(script)
+    empty = tmp_path / "rnn.jsonl"
+    empty.write_text("")
+    monkeypatch.setattr(chip_smoke, "JAX_RNN_RESULTS", empty)
+    assert hold(script, recs, script.GRID)[1] == [
+        f"oderl-pendulum d{d} rnn: {empty} has no record of oderl-pendulum d{d} rnn" for d in (0, 1)]
+
+
+def test_families_table_calls_cover_the_tracked_checkpoints_once():
+    """The script's driver calls run each cell of its grid once: the 38
+    tracked family checkpoints (each with a JAX record), the oracle and
+    random on the 12 cells, and nl as phase table runs it (through the
+    forward kernel, only pendulum d0 under --encode_obs_time true)."""
+    import chip_smoke
+
+    script = families_table_script()
+    tracked = sorted((f, e, d) for f, e, d in (
+        (m[1], m[2], int(m[3])) for m in map(re.compile(
+            r"^(rnn|delta_t_rnn|node|latent_ode)_(oderl-\w+)_delay-(\d)_ts-grid-exp_0_train-with-expert-trajectories-"
+            r"True\.npz$").match, os.listdir(chip_smoke.ROOT / "artifacts" / "checkpoints")) if m))
+    assert len(tracked) == 38 and sorted(chip_smoke.family_table_cells()) == tracked
+    calls = script.driver_calls(script.MODELS, chip_smoke.ENVS, chip_smoke.TABLE_DELAYS)
+    cells = [(e, d, m, extra) for envs, delays, models, extra in calls for e in envs for d in delays for m in models]
+    assert sorted(c[:3] for c in cells) == script.GRID and len(cells) == len(set(c[:3] for c in cells)) == 74
+    assert sorted((m, e, d) for e, d, m, _ in cells if m not in ("nl", "oracle", "random")) == tracked
+    for family, env, delay in tracked:
+        assert chip_smoke.jax_cell_returns(env, delay, family).shape == (20,)
+    assert [c[:3] for c in cells if "--encode_obs_time" in c[3]] == [("oderl-pendulum", 0, "nl")]
+    assert all(("--fused_nl_planner", "true") == c[3][:2] for c in cells if c[2] == "nl")
+    assert all(c[3] == () for c in cells if c[2] != "nl")
+    assert script.driver_calls(["latent_ode", "rnn"], ["oderl-cartpole"], [2, 3]) == [
+        (("oderl-cartpole",), (2, 3), ("latent_ode",), ())]
+
+
+def test_families_table_h100_holds_every_cell():
+    """The committed run of the script on the card holds the whole grid: the
+    38 family cells, the oracle, random and NL on the 12 cells, once each,
+    none errored, 20 returns each, every held cell within 3 sigma of its JAX
+    record; each line names the card and its power limit."""
+    script = families_table_script()
+    recs = script.read_records(script.RESULTS)
+    cells, failures = hold(script, recs, script.GRID)
+    assert failures == [] and len(recs) == len(cells) == len(script.GRID) == 74
+    assert sum(r["model_name"] in ("oracle", "random") for r in recs) == 24
+    assert all(re.fullmatch(r"NVIDIA H100 .*, \d+\.\d\d W", r["card"]) for r in recs)
+
+
+def test_families_table_runs_only_on_a_card(tmp_path, monkeypatch):
+    """The script runs its grid on a CUDA device only: without one it stops
+    before any driver call and writes no record."""
+    script = families_table_script()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="runs on a CUDA device"):
+        script.main(["--models", "rnn", "--results", str(tmp_path / "t.jsonl")])
+    assert not (tmp_path / "t.jsonl").exists()
+
+
+@pytest.mark.parametrize("field,value", [("roll_outs", 500), ("time_steps", 20), ("seeds", list(range(5))),
+                                         ("delay", 2)])
+def test_chip_smoke_refuses_a_jax_record_of_another_protocol(field, value, tmp_path, monkeypatch):
+    """jax_cell_returns reads rnn's records from its own runs' file and
+    refuses a record made under other rollouts, horizon or seeds than the
+    run's, whichever file it comes from; NL's run at HEAD also under another
+    delay than its key's (a JSONL record is found by its delay)."""
+    import chip_smoke
+
+    assert chip_smoke.jax_cell_returns("oderl-pendulum", 0, "rnn").shape == (20,)
+    for path_name, model in (("JAX_RNN_RESULTS", "rnn"), ("JAX_RESULTS", "node")):
+        if field == "delay":
+            continue
+        recs = [json.loads(line) for line in getattr(chip_smoke, path_name).read_text().splitlines()]
+        for r in recs:
+            if (r["env_name"], r["delay"], r["model_name"]) == ("oderl-pendulum", 1, model):
+                r[field] = value
+        moved = tmp_path / f"{model}.jsonl"
+        moved.write_text("\n".join(json.dumps(r) for r in recs))
+        monkeypatch.setattr(chip_smoke, path_name, moved)
+        with pytest.raises(RuntimeError, match=f"ran oderl-pendulum d1 {model} under {field}="):
+            chip_smoke.jax_cell_returns("oderl-pendulum", 1, model)
+        assert chip_smoke.jax_cell_returns("oderl-pendulum", 0, model).shape == (20,)
+    ref = json.loads(chip_smoke.JAX_TABLE_REFERENCE.read_text())
+    if field == "seeds":
+        ref["seeds"] = value
+    else:
+        ref["cells"]["oderl-cartpole/1/nl"][field] = value
+    moved = tmp_path / "table.json"
+    moved.write_text(json.dumps(ref))
+    monkeypatch.setattr(chip_smoke, "JAX_TABLE_REFERENCE", moved)
+    with pytest.raises(RuntimeError, match=f"ran oderl-cartpole d1 NL under {field}="):
+        chip_smoke.jax_cell_returns("oderl-cartpole", 1, "nl")

@@ -199,15 +199,22 @@ def test_change_goal_moves_the_goal_mid_episode():
     assert trollout.goal_at(100, 200) == -2.0 and trollout.goal_at(101, 200) == 2.0
 
 
-@pytest.mark.parametrize("family,carried", [("rnn", False), ("delta_t_rnn", False), ("node", False),
-                                            ("latent_ode", True), ("latent_ode", False)],
-                         ids=["rnn", "delta_t_rnn", "node", "latent_ode_carried", "latent_ode_tiled"])
-def test_family_episode_matches_jax_f64(family, carried):
-    """A short seed-batched episode of each baseline family on its tracked
-    pendulum-d1 checkpoint, on JAX's draws (the latent ODE's fixed z0 draw
-    included): the latent ODE with carried history, and with the tiled
-    history of its bare apply. Records and returns within rtol 1e-10."""
-    env_name, delay = "oderl-pendulum", 1
+@pytest.mark.parametrize(
+    "family,carried,env_name,delay",
+    [("rnn", False, "oderl-pendulum", 1), ("delta_t_rnn", False, "oderl-pendulum", 1),
+     ("node", False, "oderl-pendulum", 1), ("latent_ode", True, "oderl-pendulum", 1),
+     ("latent_ode", False, "oderl-pendulum", 1), ("delta_t_rnn", False, "oderl-acrobot", 0),
+     ("node", False, "oderl-cartpole", 3), ("latent_ode", True, "oderl-acrobot", 2),
+     ("rnn", False, "oderl-pendulum", 0), ("delta_t_rnn", False, "oderl-cartpole", 2)],
+    ids=["rnn", "delta_t_rnn", "node", "latent_ode_carried", "latent_ode_tiled", "delta_t_rnn_acrobot_d0",
+         "node_cartpole_d3", "latent_ode_carried_acrobot_d2", "rnn_pendulum_d0", "delta_t_rnn_cartpole_d2"])
+def test_family_episode_matches_jax_f64(family, carried, env_name, delay):
+    """A short seed-batched episode of a baseline family on its tracked
+    checkpoint of the cell, on JAX's draws (the latent ODE's fixed z0 draw
+    included): every family on pendulum d1, the latent ODE with carried
+    history and with the tiled history of its bare apply; then cells of the
+    paper's table off pendulum d1 (acrobot's 2-d actions, delays 0, 2, 3).
+    Records and returns within rtol 1e-10."""
     (jenv, jcfg, jparams, _), (tenv, tcfg, tparams, _) = build(env_name, delay, "oracle")
     spec = jenv.spec
     ckpt = model_checkpoint_name(family, env_name, delay, "exp", 0, True)

@@ -189,35 +189,41 @@ def test_evaluate_policy_unported_models_raise(model_name, cfg):
         assert t[key] == j[key], key
 
 
-@pytest.mark.parametrize("family,carried", [("rnn", False), ("delta_t_rnn", False), ("node", False),
-                                            ("latent_ode", True), ("latent_ode", False)],
-                         ids=["rnn", "delta_t_rnn", "node", "latent_ode_carried", "latent_ode_apply"])
-def test_evaluate_policy_families_match_jax_f64(family, carried):
-    """``evaluate_policy`` of each baseline family on its tracked pendulum-d1
-    checkpoint against JAX's at f64 on JAX's draws (the latent ODE's fixed z0
-    draw included). The latent ODE's contract: the model itself plans with
-    carried history, its bare apply with tiled history. Returns within rtol
-    1e-10, every other field but the timings equal."""
-    env_name = "oderl-pendulum"
-    ckpt = REPO / "artifacts" / "checkpoints" / model_checkpoint_name(family, env_name, DELAY, "exp", 0, True)
+@pytest.mark.parametrize(
+    "family,carried,env_name,delay,dt",
+    [(f, c, "oderl-pendulum", DELAY, DT) for f, c in (("rnn", False), ("delta_t_rnn", False), ("node", False),
+                                                      ("latent_ode", True), ("latent_ode", False))]
+    + [("node", False, "oderl-acrobot", 3, 0.2)],
+    ids=["rnn", "delta_t_rnn", "node", "latent_ode_carried", "latent_ode_apply", "node_acrobot_d3"])
+def test_evaluate_policy_families_match_jax_f64(family, carried, env_name, delay, dt):
+    """``evaluate_policy`` of each baseline family on its tracked checkpoint
+    of the cell against JAX's at f64 on JAX's draws (the latent ODE's fixed z0
+    draw included): every family on pendulum d1, and node on acrobot at delay
+    3 (2-d actions) at dt 0.2: a 0.5 s step throws acrobot's plant into
+    overflow (returns ~-1e172), where both packages' f64 rounding parts.
+    The latent ODE's contract: the model itself plans with carried history,
+    its bare apply with tiled history. Returns within rtol 1e-10, every
+    other field but the timings equal."""
+    jenv = jax_make_env(env_name, dt=dt)
+    n, m, high = jenv.spec.n_obs, jenv.spec.m, jenv.spec.action_high
+    ckpt = REPO / "artifacts" / "checkpoints" / model_checkpoint_name(family, env_name, delay, "exp", 0, True)
     tweights = load_pytree(ckpt, device="cpu", dtype=torch.float64)
     jweights = jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()), tweights)
-    jm = jax_make_model(family, env_name, 3, 1, 2.0, JConfig(dt=DT), dtype=jnp.float64)
+    jm = jax_make_model(family, env_name, n, m, high, JConfig(dt=dt), dtype=jnp.float64)
     if family == "latent_ode":
-        tm = make_latent_ode_model(3, 1, norm_stats_for(env_name, 2.0, 1), dt=DT, dtype=torch.float64,
-                                   device="cpu", z0_noise=torch.tensor(fixed_z0_draw(K, 5)))
+        tm = make_latent_ode_model(n, m, norm_stats_for(env_name, high, m), dt=dt, dtype=torch.float64,
+                                   device="cpu", z0_noise=torch.tensor(fixed_z0_draw(K, n + 2)))
     else:
-        tm = torch_make_model(family, env_name, 3, 1, 2.0, TConfig(dt=DT), dtype=torch.float64, device="cpu")
+        tm = torch_make_model(family, env_name, n, m, high, TConfig(dt=dt), dtype=torch.float64, device="cpu")
     japply, tapply = (jm, tm) if carried else (jm.apply, tm.apply)
     seeds = SEEDS[:2]
-    j = jax_evaluate(family, env_name, DELAY, seeds, config=JConfig(dt=DT), model_apply=japply,
+    j = jax_evaluate(family, env_name, delay, seeds, config=JConfig(dt=dt), model_apply=japply,
                      params=jweights, roll_outs=K, time_steps=T)
-    jenv = jax_make_env(env_name, dt=DT)
-    jcfg = jmppi.MPPIConfig(num_samples=K, horizon=T, nu=1)
-    jparams = jmppi.make_mppi_params(jmppi.default_noise_sigma(1, 1.0, dtype=jnp.float64))
-    t = teval.evaluate_policy(family, env_name, DELAY, seeds, config=TConfig(dt=DT), model_apply=tapply,
+    jcfg = jmppi.MPPIConfig(num_samples=K, horizon=T, nu=m)
+    jparams = jmppi.make_mppi_params(jmppi.default_noise_sigma(m, 1.0, dtype=jnp.float64))
+    t = teval.evaluate_policy(family, env_name, delay, seeds, config=TConfig(dt=dt), model_apply=tapply,
                               params=tweights, roll_outs=K, time_steps=T, dtype=torch.float64, device="cpu",
-                              draws=JaxDraws(seed_keys(seeds), jenv, jcfg, jparams, N_STEPS))
+                              draws=JaxDraws(seed_keys(seeds), jenv, jcfg, jparams, int(10.0 / dt)))
     assert set(t) == set(j)
     np.testing.assert_allclose(t["total_rewards"], j["total_rewards"], rtol=1e-10)
     for key in set(j) - set(TIMINGS) - {"total_rewards", "total_reward", "total_reward_std"}:

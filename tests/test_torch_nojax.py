@@ -48,7 +48,8 @@ PORT_FILES = sorted((REPO / "neurallaplacecontrol_tpu_torch").rglob("*.py")) + [
     REPO / "scripts" / "bench_mxu_sweep_torch.py", REPO / "scripts" / "port_research_check.py",
     REPO / "bench_torch.py", REPO / "scripts" / "e2e_nl_pendulum_torch.py", REPO / "scripts" / "eval_bigk_torch.py",
     REPO / "scripts" / "heldout_parity_torch.py", REPO / "scripts" / "env_simulator_torch.py",
-    REPO / "scripts" / "make_readme_table_torch.py", REPO / "scripts" / "calibrate_cme_torch.py"]
+    REPO / "scripts" / "make_readme_table_torch.py", REPO / "scripts" / "calibrate_cme_torch.py",
+    REPO / "scripts" / "port_families_table.py"]
 FORBIDDEN = ("jax", "neurallaplacecontrol_tpu")
 
 

@@ -54,25 +54,31 @@ def test_latex_table_matches_jax(agg, subset):
     assert got.startswith("\\begin{tabular}") and "\\pm" in got
 
 
-@pytest.mark.parametrize("agg", ["std", "ci95"])
-def test_paper_table_matches_jax(agg):
-    """The paper's 12 cells x {nl, oracle, random} from the JAX package's
-    full-run records, the pendulum d0 NL record last, as the driver's
-    age-channel call appends it to the file: the scores and the table equal
-    the JAX package's, with every one of the 36 cells present."""
+SIX_MODELS = ("nl", "oracle", "random", "delta_t_rnn", "node", "latent_ode")
+
+
+@pytest.mark.parametrize("agg,models", [("std", SIX_MODELS[:3]), ("ci95", SIX_MODELS[:3]), ("std", SIX_MODELS),
+                                        ("ci95", SIX_MODELS)],
+                         ids=["std", "ci95", "six_models_std", "six_models_ci95"])
+def test_paper_table_matches_jax(agg, models):
+    """The paper's 12 cells from the JAX package's full-run records, the
+    pendulum d0 NL record last, as the driver's age-channel call appends it
+    to the file: {nl, oracle, random} (36 records), and the six models of
+    the paper's table (all 72). The scores and the table equal the JAX
+    package's, with every cell present and a row for each model."""
     from pathlib import Path
 
     path = Path(__file__).resolve().parent.parent / "artifacts" / "results_full_r5.jsonl"
-    recs = [r for r in map(json.loads, path.read_text().splitlines())
-            if r["model_name"] in ("nl", "oracle", "random")]
+    recs = [r for r in map(json.loads, path.read_text().splitlines()) if r["model_name"] in models]
     age = [r for r in recs if (r["env_name"], r["delay"], r["model_name"]) == ("oderl-pendulum", 0, "nl")]
     recs = [r for r in recs if r not in age] + age
-    assert len(recs) == 36
+    assert len(recs) == 12 * len(models)
     got = tprocess.normalized_scores(recs, agg=agg)
-    assert got == jprocess.normalized_scores(recs, agg=agg) and len(got) == 36
+    assert got == jprocess.normalized_scores(recs, agg=agg) and len(got) == len(recs)
     table = tprocess.latex_table(recs, agg=agg)
     assert table == jprocess.latex_table(recs, agg=agg)
     assert table.count("(d=") == 12 and "--" not in table
+    assert [line.split(" & ")[0] for line in table.splitlines()[4:-2]] == sorted(models)
 
 
 @pytest.mark.parametrize("ci", [False, True], ids=["std", "ci"])
