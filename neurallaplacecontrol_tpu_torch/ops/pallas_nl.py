@@ -21,7 +21,9 @@ product over rows and columns (``wide_layout`` picks the layout). For CPU tensor
 same function in plain PyTorch on ``pack_nl_forward``'s operands. Both are the
 implementations of one operator, ``torch.ops.nlc.nl_forward``
 (``nl_forward_op``), so an exported planner step records the kernel as a
-node of its graph.
+node of its graph. Each forward's host side is one span
+(``utils.timing.span``) named by the route it takes: ``fwd.resident``,
+``fwd.streamed`` or, on the CPU, ``fwd.plain``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.timing import span
 from . import nl_cuda
 from .ilt import fourier_spherical_host
 from .pallas_ilt import (
@@ -53,6 +56,7 @@ _SMEM_BUDGET = 232448  # bytes: an H100 block's opt-in dynamic shared memory (kS
 # resident layout's at every width (kWideTag)
 _WIDE_TAG = 4
 ACTION_STEPS = 4  # the action buffer's steps a buffer is packed for unless told (Config's default)
+_FORWARD_SPANS = {"resident": "fwd.resident", "streamed": "fwd.streamed"}  # by nl_cuda.forward_plan's variant
 
 
 def gru_gates(gi, gh, h):
@@ -379,22 +383,24 @@ def _nl_forward_cuda(obs, acts_flat, packed, hopper, state_dim: int, in_dim: int
     H, hid = packed[1].shape[0], packed[13].shape[0]
     dims = (B, n, A, in_dim, H, hid, state_dim, terms, hopper.numel())
     plan = nl_cuda.forward_plan(dims)
-    out = torch.empty((B, state_dim), dtype=torch.float32, device=obs.device)
-    operands = (obs, acts_flat, hopper, out)
-    if plan["variant"] == "streamed":
-        operands += (torch.empty(plan["scratch_floats"], dtype=torch.float32, device=obs.device),)
-    nl_cuda.launch("nl_forward_launch", operands, dims)
-    nl_forward_fused.launches += 1
-    nl_forward_fused.rows += B
-    if plan["variant"] == "streamed":
-        nl_forward_fused.streamed_launches += 1
-        nl_forward_fused.streamed_rows += B
-    return out
+    with span(_FORWARD_SPANS[plan["variant"]]):
+        out = torch.empty((B, state_dim), dtype=torch.float32, device=obs.device)
+        operands = (obs, acts_flat, hopper, out)
+        if plan["variant"] == "streamed":
+            operands += (torch.empty(plan["scratch_floats"], dtype=torch.float32, device=obs.device),)
+        nl_cuda.launch("nl_forward_launch", operands, dims)
+        nl_forward_fused.launches += 1
+        nl_forward_fused.rows += B
+        if plan["variant"] == "streamed":
+            nl_forward_fused.streamed_launches += 1
+            nl_forward_fused.streamed_rows += B
+        return out
 
 
 def _nl_forward_cpu(obs, acts_flat, packed, hopper, state_dim: int, in_dim: int, terms: int):
     """The operator's CPU implementation: the plain forward (``hopper`` unread)."""
-    return nl_forward_plain(obs, acts_flat, packed, state_dim, in_dim).contiguous()
+    with span("fwd.plain"):
+        return nl_forward_plain(obs, acts_flat, packed, state_dim, in_dim).contiguous()
 
 
 @torch.library.custom_op("nlc::nl_forward", mutates_args=(), device_types="cpu")

@@ -21,6 +21,10 @@ inputs. Every planner flag of the JAX module is here. Under K-sharding
 code on its K/n block of the noise, and the three reductions of step 6
 become ``all_reduce`` MIN and SUM over the group. The JAX module's
 ``scan_unroll`` has no counterpart: a Python loop has nothing to unroll.
+
+A plan (step 1 and the core) is one ``plan`` span (``utils.timing.span``);
+inside it steps 2-3 are ``plan.perturb``, step 4 ``plan.rollout`` and steps
+5-7 ``plan.weigh``.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
+
+from ..utils.timing import span
 
 
 @dataclass(frozen=True)
@@ -184,34 +190,11 @@ def mppi_command_core(
     A = action_buffer.shape[1]
     M = cfg.rollout_samples
 
-    # 2. bound, recompute noise
-    perturbed = U[:, None] + noise
-    if cfg.sample_null_action:
-        # the globally-last rollout of each seed: the last rank's last row
-        if axis is None or dist.get_rank(axis) == dist.get_world_size(axis) - 1:
-            perturbed[:, K - 1] = 0.0
-    perturbed = torch.clamp(perturbed * cfg.u_scale, cfg.u_min, cfg.u_max) / cfg.u_scale
-    noise = perturbed - U[:, None]
-
-    # action perturbation cost
-    action_cost = cfg.lambda_ * (noise.abs() if cfg.noise_abs_cost else noise) @ params.noise_sigma_inv
-
-    # 3. sliding action windows with prepended history
-    scaled = perturbed * cfg.u_scale  # [S, K, T, nu] env units
-    hist = action_buffer[:, None, 1:].expand(S, K, A - 1, nu)
-    full = torch.cat([hist, scaled], dim=2)  # [S, K, A-1+T, nu]
-
     def step_ages(ages):
         """time_buffer += dt; roll; newest age = 0."""
         ages = torch.roll(ages + cfg.dt, -1, dims=1)
         ages[:, -1] = 0.0
         return ages
-
-    if time_buffer is not None:
-        ages = time_buffer
-    else:
-        ages = torch.flip(torch.arange(A, dtype=scaled.dtype, device=scaled.device), dims=(0,)) * cfg.dt
-        ages = ages.expand(S, A)
 
     def tile(x):
         """[S*K, ...] -> [S*M*K, ...]: each seed's K rows repeated M times."""
@@ -220,83 +203,110 @@ def mppi_command_core(
         x = x.reshape((S, 1, K) + tuple(x.shape[1:]))
         return x.expand((S, M, K) + tuple(x.shape[3:])).reshape((S * M * K,) + tuple(x.shape[3:]))
 
-    ctx = None
-    if window_encoder is not None:
-        windows_all = _stack_windows(full.reshape(S * K, A - 1 + T, nu), T, A).reshape(S, K, T, A, nu)
-        if cfg.encode_obs_time:
-            # the ages the rollout would see at step t: advanced t+1 times
-            ages_all, ages_t = [], ages
-            for _ in range(T):
-                ages_t = step_ages(ages_t)
-                ages_all.append(ages_t)
-            ages_all = torch.stack(ages_all, dim=1)  # [S, T, A]
-            a = ages_all[:, None, :, :, None].expand(S, K, T, A, 1).to(windows_all.dtype)
-            windows_all = torch.cat([windows_all, a], dim=-1)
-        ctx = window_encoder(windows_all.reshape((S * K, T) + tuple(windows_all.shape[3:])))
+    with span("plan.perturb"):
+        # 2. bound, recompute noise
+        perturbed = U[:, None] + noise
+        if cfg.sample_null_action:
+            # the globally-last rollout of each seed: the last rank's last row
+            if axis is None or dist.get_rank(axis) == dist.get_world_size(axis) - 1:
+                perturbed[:, K - 1] = 0.0
+        perturbed = torch.clamp(perturbed * cfg.u_scale, cfg.u_min, cfg.u_max) / cfg.u_scale
+        noise = perturbed - U[:, None]
 
-    # 4. rollout over the horizon, all S*M*K rows in one dynamics call per step
-    nx = tuple(obs.shape[1:])
-    state = obs[:, None].expand((S, M * K) + nx).reshape((S * M * K,) + nx)
-    carry = dynamics_carry_init(state) if dynamics_carry_init is not None else None
-    costs, cost_var, states = [], None, []
-    for t in range(T):
-        window = full[:, :, t : t + A, :].reshape(S * K, A, nu)
-        if ctx is not None:
-            dyn_in = tile(ctx[:, t])
-        elif cfg.encode_obs_time:
-            ages = step_ages(ages)
-            a = ages[:, None, :, None].expand(S, K, A, 1).reshape(S * K, A, 1).to(window.dtype)
-            dyn_in = tile(torch.cat([window, a], dim=2))
+        # action perturbation cost
+        action_cost = cfg.lambda_ * (noise.abs() if cfg.noise_abs_cost else noise) @ params.noise_sigma_inv
+
+        # 3. sliding action windows with prepended history
+        scaled = perturbed * cfg.u_scale  # [S, K, T, nu] env units
+        hist = action_buffer[:, None, 1:].expand(S, K, A - 1, nu)
+        full = torch.cat([hist, scaled], dim=2)  # [S, K, A-1+T, nu]
+
+        if time_buffer is not None:
+            ages = time_buffer
         else:
-            dyn_in = tile(window)
-        step_arg = (t,) if cfg.step_dependent_dynamics else ()
-        if carry is None:
-            state = dynamics_fn(state, dyn_in, *step_arg)
-        else:
-            carry, state = dynamics_fn(carry, state, dyn_in, *step_arg)
-        c = running_cost_fn(state, tile(window[:, -1, :]), *cost_args)
-        if M > 1:
-            cM = c.reshape(S, M, K)
-            var = torch.var(cM, dim=1, unbiased=False) * cfg.rollout_var_discount**t
-            cost_var = var if cost_var is None else cost_var + var
-            c = torch.mean(cM, dim=1)
-        costs.append(c.reshape(S, K))
+            ages = torch.flip(torch.arange(A, dtype=scaled.dtype, device=scaled.device), dims=(0,)) * cfg.dt
+            ages = ages.expand(S, A)
+
+        ctx = None
+        if window_encoder is not None:
+            windows_all = _stack_windows(full.reshape(S * K, A - 1 + T, nu), T, A).reshape(S, K, T, A, nu)
+            if cfg.encode_obs_time:
+                # the ages the rollout would see at step t: advanced t+1 times
+                ages_all, ages_t = [], ages
+                for _ in range(T):
+                    ages_t = step_ages(ages_t)
+                    ages_all.append(ages_t)
+                ages_all = torch.stack(ages_all, dim=1)  # [S, T, A]
+                a = ages_all[:, None, :, :, None].expand(S, K, T, A, 1).to(windows_all.dtype)
+                windows_all = torch.cat([windows_all, a], dim=-1)
+            ctx = window_encoder(windows_all.reshape((S * K, T) + tuple(windows_all.shape[3:])))
+
+    with span("plan.rollout"):
+        # 4. rollout over the horizon, all S*M*K rows in one dynamics call per step
+        nx = tuple(obs.shape[1:])
+        state = obs[:, None].expand((S, M * K) + nx).reshape((S * M * K,) + nx)
+        carry = dynamics_carry_init(state) if dynamics_carry_init is not None else None
+        costs, cost_var, states = [], None, []
+        for t in range(T):
+            window = full[:, :, t : t + A, :].reshape(S * K, A, nu)
+            if ctx is not None:
+                dyn_in = tile(ctx[:, t])
+            elif cfg.encode_obs_time:
+                ages = step_ages(ages)
+                a = ages[:, None, :, None].expand(S, K, A, 1).reshape(S * K, A, 1).to(window.dtype)
+                dyn_in = tile(torch.cat([window, a], dim=2))
+            else:
+                dyn_in = tile(window)
+            step_arg = (t,) if cfg.step_dependent_dynamics else ()
+            if carry is None:
+                state = dynamics_fn(state, dyn_in, *step_arg)
+            else:
+                carry, state = dynamics_fn(carry, state, dyn_in, *step_arg)
+            c = running_cost_fn(state, tile(window[:, -1, :]), *cost_args)
+            if M > 1:
+                cM = c.reshape(S, M, K)
+                var = torch.var(cM, dim=1, unbiased=False) * cfg.rollout_var_discount**t
+                cost_var = var if cost_var is None else cost_var + var
+                c = torch.mean(cM, dim=1)
+            costs.append(c.reshape(S, K))
+            if terminal_state_cost is not None:
+                states.append(state)
+
+    with span("plan.weigh"):
+        cost_total = torch.sum(torch.stack(costs), dim=0)  # [S, K]
+
         if terminal_state_cost is not None:
-            states.append(state)
-    cost_total = torch.sum(torch.stack(costs), dim=0)  # [S, K]
+            # per trajectory sample m: states [S*K, T, nx] with the scaled actions
+            # [S*K, T, nu] (full[:, t + A - 1] is the step-t action); mean over M
+            st = torch.stack(states, dim=1).reshape((S, M, K, T) + nx)
+            acts = scaled.reshape(S * K, T, nu)
+            term = torch.stack([terminal_state_cost(st[:, m].reshape((S * K, T) + nx), acts).reshape(S, K)
+                                for m in range(M)])
+            cost_total = cost_total + torch.mean(term, dim=0)
 
-    if terminal_state_cost is not None:
-        # per trajectory sample m: states [S*K, T, nx] with the scaled actions
-        # [S*K, T, nu] (full[:, t + A - 1] is the step-t action); mean over M
-        st = torch.stack(states, dim=1).reshape((S, M, K, T) + nx)
-        acts = scaled.reshape(S * K, T, nu)
-        term = torch.stack([terminal_state_cost(st[:, m].reshape((S * K, T) + nx), acts).reshape(S, K)
-                            for m in range(M)])
-        cost_total = cost_total + torch.mean(term, dim=0)
+        # discounted cost-variance penalty across the M rollouts
+        if cost_var is not None:
+            cost_total = cost_total + cost_var * cfg.rollout_var_cost
 
-    # discounted cost-variance penalty across the M rollouts
-    if cost_var is not None:
-        cost_total = cost_total + cost_var * cfg.rollout_var_cost
+        # 5. perturbation cost
+        cost_total = cost_total + torch.sum(U[:, None] * action_cost, dim=(2, 3))
 
-    # 5. perturbation cost
-    cost_total = cost_total + torch.sum(U[:, None] * action_cost, dim=(2, 3))
+        # 6. softmax weighting + control update, per seed over its K rollouts
+        beta = torch.min(cost_total, dim=1, keepdim=True).values
+        if axis is not None:
+            dist.all_reduce(beta, op=dist.ReduceOp.MIN, group=axis)
+        weights = torch.exp(-(cost_total - beta) / cfg.lambda_)
+        eta = torch.sum(weights, dim=1, keepdim=True)
+        if axis is not None:
+            dist.all_reduce(eta, group=axis)
+        omega = weights / eta
+        dU = torch.sum(omega[:, :, None, None] * noise, dim=1)
+        if axis is not None:
+            dist.all_reduce(dU, group=axis)
+        U = U + dU
 
-    # 6. softmax weighting + control update, per seed over its K rollouts
-    beta = torch.min(cost_total, dim=1, keepdim=True).values
-    if axis is not None:
-        dist.all_reduce(beta, op=dist.ReduceOp.MIN, group=axis)
-    weights = torch.exp(-(cost_total - beta) / cfg.lambda_)
-    eta = torch.sum(weights, dim=1, keepdim=True)
-    if axis is not None:
-        dist.all_reduce(eta, group=axis)
-    omega = weights / eta
-    dU = torch.sum(omega[:, :, None, None] * noise, dim=1)
-    if axis is not None:
-        dist.all_reduce(dU, group=axis)
-    U = U + dU
-
-    # 7. leading action(s), env units
-    action = (U[:, 0] if cfg.u_per_command == 1 else U[:, : cfg.u_per_command]) * cfg.u_scale
+        # 7. leading action(s), env units
+        action = (U[:, 0] if cfg.u_per_command == 1 else U[:, : cfg.u_per_command]) * cfg.u_scale
     return action, U, {"cost_total": cost_total, "omega": omega}
 
 
@@ -321,18 +331,19 @@ def mppi_command(
     ``noise`` [S, K, T, nu] (or [K, T, nu]) replaces the draw from
     ``generator`` when given; a draw from ``generator`` is one plan's.
     """
-    # 1. receding horizon shift
-    U = torch.roll(U, -1, dims=-2)
-    U[..., -1, :] = params.u_init
-    if noise is None:
-        if U.dim() != 2:
-            raise ValueError("a seed-batched plan takes its noise as an argument, one draw per seed")
-        noise = _sample_noise(generator, cfg, params)
-    return mppi_command_core(
-        cfg, params, dynamics_fn, running_cost_fn, U, obs, action_buffer, noise,
-        terminal_state_cost=terminal_state_cost, dynamics_carry_init=dynamics_carry_init,
-        time_buffer=time_buffer, cost_args=cost_args, window_encoder=window_encoder,
-    )
+    with span("plan"):
+        # 1. receding horizon shift
+        U = torch.roll(U, -1, dims=-2)
+        U[..., -1, :] = params.u_init
+        if noise is None:
+            if U.dim() != 2:
+                raise ValueError("a seed-batched plan takes its noise as an argument, one draw per seed")
+            noise = _sample_noise(generator, cfg, params)
+        return mppi_command_core(
+            cfg, params, dynamics_fn, running_cost_fn, U, obs, action_buffer, noise,
+            terminal_state_cost=terminal_state_cost, dynamics_carry_init=dynamics_carry_init,
+            time_buffer=time_buffer, cost_args=cost_args, window_encoder=window_encoder,
+        )
 
 
 def mppi_rollout_states(

@@ -47,6 +47,7 @@ import torch
 from .config import Config
 from .planners import mppi_command, mppi_reset
 from .utils.device import resolve_device
+from .utils.timing import TICK, span
 
 
 class ControllerState(NamedTuple):
@@ -89,21 +90,22 @@ class Controller:
         )
 
     def step(self, state: ControllerState, obs, noise: Optional[torch.Tensor] = None):
-        """(state, obs [nx]) -> (action [nu], next state)."""
-        obs = torch.as_tensor(obs, dtype=self.dtype, device=self.device)
-        action, U, _ = mppi_command(
-            self.mppi_cfg, self.mppi_params, self.dynamics, self.cost_fn,
-            state.U, obs, state.action_buffer,
-            generator=self.generator, noise=noise,
-            time_buffer=state.ages if self.mppi_cfg.encode_obs_time else None,
-            dynamics_carry_init=self.dynamics_carry_init, window_encoder=self.window_encoder,
-        )
-        buffer = torch.roll(state.action_buffer, -1, dims=0)
-        buffer[-1] = action
-        # serving ticks at the nominal control interval
-        ages = torch.roll(state.ages, -1) + self.mppi_cfg.dt
-        ages[-1] = 0.0
-        return action, ControllerState(U=U, action_buffer=buffer, ages=ages)
+        """(state, obs [nx]) -> (action [nu], next state); one ``tick`` span."""
+        with span(TICK):
+            obs = torch.as_tensor(obs, dtype=self.dtype, device=self.device)
+            action, U, _ = mppi_command(
+                self.mppi_cfg, self.mppi_params, self.dynamics, self.cost_fn,
+                state.U, obs, state.action_buffer,
+                generator=self.generator, noise=noise,
+                time_buffer=state.ages if self.mppi_cfg.encode_obs_time else None,
+                dynamics_carry_init=self.dynamics_carry_init, window_encoder=self.window_encoder,
+            )
+            buffer = torch.roll(state.action_buffer, -1, dims=0)
+            buffer[-1] = action
+            # serving ticks at the nominal control interval
+            ages = torch.roll(state.ages, -1) + self.mppi_cfg.dt
+            ages[-1] = 0.0
+            return action, ControllerState(U=U, action_buffer=buffer, ages=ages)
 
 
 def make_controller(

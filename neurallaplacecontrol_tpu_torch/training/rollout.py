@@ -6,10 +6,11 @@ that runs S seeds in lockstep: every tensor of the episode carries a leading
 seed axis, each step plans all S seeds in one seed-batched planner call
 (``planners.mppi_delay``), and nothing in the loop waits for the device.
 
-The same loop serves evaluation (training.eval) and expert data collection
-(data.collector): collection adds exploration noise to the planned action
-(mppi_dataset_collector.py:250-254), and the per-step transition records
-are always kept.
+Each step of the loop, one tick of the S seeds, is one ``tick`` span
+(``utils.timing.span``). The same loop serves evaluation (training.eval)
+and expert data collection (data.collector): collection adds exploration
+noise to the planned action (mppi_dataset_collector.py:250-254), and the
+per-step transition records are always kept.
 
 Randomness comes from a draws object (``SeedDraws``): one ``torch.Generator``
 per seed, seeded from the seed. Every draw the episode makes goes through
@@ -31,6 +32,7 @@ from ..envs.base import uniform
 from ..envs.oracle import ORACLES
 from ..planners import MPPIConfig, MPPIParams, mppi_command, mppi_reset
 from ..utils.device import resolve_device
+from ..utils.timing import TICK, span
 
 
 class EpisodeRecords(NamedTuple):
@@ -272,58 +274,59 @@ def make_episode_fn(
         ages = (torch.flip(torch.arange(A, dtype=dtype, device=device), dims=(0,)) * spec.dt).repeat(S, 1)
         steps = []
         for it in range(settings.n_steps):
-            obs = env.observe(raw)
-            # change_goal: the goal goes to the planner's cost as its argument
-            cost_args = () if goal_cost is None else (goal_at(it, settings.n_steps),)
-            if settings.random_policy:
-                action = draws.random_action(it, nu, -spec.action_high, spec.action_high)
-            elif command_fn is not None:
-                action, U, _ = command_fn(
-                    U, obs, buffer, noise=draws.planner_noise(it, mppi_cfg, mppi_params),
-                    time_buffer=ages if settings.encode_obs_time else None, cost_args=cost_args,
-                )
-            else:
-                action, U, _ = mppi_command(
-                    mppi_cfg, mppi_params, dynamics_fn, goal_cost or running_cost, U, obs, buffer,
-                    noise=draws.planner_noise(it, mppi_cfg, mppi_params),
-                    time_buffer=ages if settings.encode_obs_time else None, cost_args=cost_args,
-                    dynamics_carry_init=dynamics_carry_init, window_encoder=window_encoder,
-                )
-            if settings.explore_noise is not None and not settings.random_policy:
-                # expert-collection exploration on top of the planner action
-                # (collector :250-254)
-                action = action + (
-                    (draws.explore(it, nu) - 0.5) * 2.0 * spec.action_high * settings.explore_noise
-                )
-                action = torch.clamp(action, -spec.action_high, spec.action_high)
+            with span(TICK):
+                obs = env.observe(raw)
+                # change_goal: the goal goes to the planner's cost as its argument
+                cost_args = () if goal_cost is None else (goal_at(it, settings.n_steps),)
+                if settings.random_policy:
+                    action = draws.random_action(it, nu, -spec.action_high, spec.action_high)
+                elif command_fn is not None:
+                    action, U, _ = command_fn(
+                        U, obs, buffer, noise=draws.planner_noise(it, mppi_cfg, mppi_params),
+                        time_buffer=ages if settings.encode_obs_time else None, cost_args=cost_args,
+                    )
+                else:
+                    action, U, _ = mppi_command(
+                        mppi_cfg, mppi_params, dynamics_fn, goal_cost or running_cost, U, obs, buffer,
+                        noise=draws.planner_noise(it, mppi_cfg, mppi_params),
+                        time_buffer=ages if settings.encode_obs_time else None, cost_args=cost_args,
+                        dynamics_carry_init=dynamics_carry_init, window_encoder=window_encoder,
+                    )
+                if settings.explore_noise is not None and not settings.random_policy:
+                    # expert-collection exploration on top of the planner action
+                    # (collector :250-254)
+                    action = action + (
+                        (draws.explore(it, nu) - 0.5) * 2.0 * spec.action_high * settings.explore_noise
+                    )
+                    action = torch.clamp(action, -spec.action_high, spec.action_high)
 
-            # delay buffer roll; delayed action executes (get_action :25-28)
-            buffer = torch.roll(buffer, -1, dims=1)
-            buffer[:, -1] = action
-            executed = buffer[:, -(delay + 1)]
+                # delay buffer roll; delayed action executes (get_action :25-28)
+                buffer = torch.roll(buffer, -1, dims=1)
+                buffer[:, -1] = action
+                executed = buffer[:, -(delay + 1)]
 
-            # env transition: one Euler step over a sampled interval
-            delta_t = draws.dt(it, spec.ts_grid, spec.dt)  # [S]
-            raw_next = raw + delta_t[:, None] * env.rhs(raw, executed)
-            reward = env.reward_state(raw_next) + env.reward_action(executed)
+                # env transition: one Euler step over a sampled interval
+                delta_t = draws.dt(it, spec.ts_grid, spec.dt)  # [S]
+                raw_next = raw + delta_t[:, None] * env.rhs(raw, executed)
+                reward = env.reward_state(raw_next) + env.reward_action(executed)
 
-            # entry ages advance by the REALIZED interval; newest entry is 0
-            # (collector get_action_with_encode_obs_time :20-24, :206-208)
-            ages = torch.roll(ages, -1, dims=1) + delta_t[:, None]
-            ages[:, -1] = 0.0
+                # entry ages advance by the REALIZED interval; newest entry is 0
+                # (collector get_action_with_encode_obs_time :20-24, :206-208)
+                ages = torch.roll(ages, -1, dims=1) + delta_t[:, None]
+                ages[:, -1] = 0.0
 
-            # observation noise persisted into env state
-            # (mppi_with_model.py:203-204)
-            if settings.observation_noise > 0.0:
-                raw_next = raw_next + draws.obs_noise(it, raw_next.shape[-1]) * settings.observation_noise
+                # observation noise persisted into env state
+                # (mppi_with_model.py:203-204)
+                if settings.observation_noise > 0.0:
+                    raw_next = raw_next + draws.obs_noise(it, raw_next.shape[-1]) * settings.observation_noise
 
-            rec_buffer = buffer
-            if settings.encode_obs_time:
-                rec_buffer = torch.cat([buffer, ages[:, :, None]], dim=2)
-            steps.append(EpisodeRecords(
-                s0=obs, a0=rec_buffer, sn=env.observe(raw_next), ts=delta_t, reward=reward,
-            ))
-            raw = raw_next
+                rec_buffer = buffer
+                if settings.encode_obs_time:
+                    rec_buffer = torch.cat([buffer, ages[:, :, None]], dim=2)
+                steps.append(EpisodeRecords(
+                    s0=obs, a0=rec_buffer, sn=env.observe(raw_next), ts=delta_t, reward=reward,
+                ))
+                raw = raw_next
         records = EpisodeRecords(*(torch.stack(field, dim=1) for field in zip(*steps)))
         return torch.sum(records.reward, dim=1), records
 
