@@ -201,6 +201,7 @@ TRACE_TICKS = 5  # controller ticks under torch.profiler
 EVAL_SEEDS = list(range(20))  # the paper's 20 seeds per cell
 EVAL_STEPS = 200  # int(10 / dt): 10-second episodes
 SEED_ROWS = len(EVAL_SEEDS) * K  # forward rows per launch in the evaluation
+SERVE_ROWS = 32768  # forward rows per launch in the benchmark's serve cell (portbench traffic serve-k32768)
 TRACE_EVAL_TICKS = 3  # seed-batched episode ticks under torch.profiler
 JAX_REFERENCE = ROOT / "artifacts" / "port" / "jax_eval_cartpole_d1.json"
 JAX_GOAL_REFERENCE = ROOT / "artifacts" / "port" / "jax_eval_cartpole_d1_change_goal.json"
@@ -592,6 +593,8 @@ def check_kernels(device) -> dict:
                 rec["smem_bytes"] = nl_cuda.smem_bytes(name, (
                     (K, n, A, in_dim, packed[1].shape[0], hid, n, terms, fused.hopper.numel())
                     if name == "nl_forward" else (K, hid, n, terms, head_hopper.numel())))
+                if name == "nl_forward":
+                    rec.update(weight_loads(K, fused, spec, terms))
                 # the kernel's share of the tighter of its bounds
                 tight = min(("bound_ms", "bound_tc_ms"), key=rec.get)
                 rec["bound_share"], rec["bound_share_of"] = rec[tight] / rec["ms"], tight
@@ -600,10 +603,19 @@ def check_kernels(device) -> dict:
     return records
 
 
+def weight_loads(rows: int, fused, spec, terms: int) -> dict:
+    """The resident forward's CTAs at ``rows`` rows (each copies its weights
+    once a launch, ``nl_forward_fused.weight_loads``), its CTAs a cluster and
+    the rows each weight load serves."""
+    plan = nl_cuda.forward_plan(forward_dims(rows, fused, spec, terms))
+    return {"ctas": plan["ctas"], "cluster": plan["cluster"], "tile_rows": plan["tile"][0],
+            "rows_per_weight_load": rows / plan["ctas"]}
+
+
 def check_forward_rows(device, env_name: str, rows: int, timed: bool = False) -> dict:
     """The forward on ``env_name``'s tracked weights at ``rows`` batch rows
     against its plain version (``KERNEL_TOL``); with ``timed``, also its
-    graph-timed ms and bounds at that size."""
+    graph-timed and eager ms, bounds and weight loads at that size."""
     env, params, model = load_nl(env_name, device)
     spec = env.spec
     terms, A = port.Config().nl_s_recon_terms, port.Config().action_buffer_size
@@ -624,7 +636,8 @@ def check_forward_rows(device, env_name: str, rows: int, timed: bool = False) ->
         raise RuntimeError(f"nl_forward {env_name} at B={rows}: relative error {rel:.3e} >= {KERNEL_TOL}")
     rec = {"env": env_name, "B": rows, "max_abs_err": float((got - exp).abs().max()), "max_rel_err": rel}
     if timed:
-        rec.update(ms=graph_ms(kernel, 20), plain_ms=graph_ms(plain, 5))
+        rec.update(ms=graph_ms(kernel, 20), eager_ms=time_ms(kernel, 20), plain_ms=graph_ms(plain, 5))
+        rec.update(weight_loads(rows, fused, spec, terms))
         hid = packed[13].shape[0]
         rec.update(bounds(*forward_cost(rows, n, A, in_dim, packed[1].shape[0], hid, n, terms, packed)))
         tight = min(("bound_ms", "bound_tc_ms"), key=rec.get)
@@ -634,8 +647,10 @@ def check_forward_rows(device, env_name: str, rows: int, timed: bool = False) ->
 
 def check_forward_seed_batch(device) -> dict:
     """The forward on cartpole at the evaluation's S*K = 20,000 rows against
-    its plain version, with its graph-timed ms and bounds at that size."""
+    its plain version, with its graph-timed ms and bounds at that size, and
+    the same at the serve cell's K = 32,768 rows (``serve`` in the record)."""
     rec = check_forward_rows(device, MAIN_ENV, SEED_ROWS, timed=True)
+    rec["serve"] = check_forward_rows(device, MAIN_ENV, SERVE_ROWS, timed=True)
     print("kernel nl_forward seed batch: " + json.dumps(rec), flush=True)
     return rec
 
@@ -3223,7 +3238,10 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
     evaluation's 20,000 rows, its launches the evaluation's; ``serving_tick``
     keeps its figures at the controller's 1,000 rows, ``trained_weights`` its
     launches in phase ``train`` and its error there on the weights the port
-    trained. The head is timed at 1,000 rows, the shape of its check.
+    trained, ``serve`` its times at the serve cell's 32,768 rows, and
+    ``weight_loads`` the resident kernel's CTAs and the rows each CTA's
+    weight load serves at the three sizes. The head is timed at 1,000 rows,
+    the shape of its check.
     ``variants`` gives the launches of each variant: the resident kernel's
     on the main path at width 128 (the evaluation's launches less its
     streamed ones, with the tile and device launches per forward that
@@ -3241,7 +3259,7 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
         small = next(r for r in recs if "ms" in r)  # the main env at B=1000
         main = small
         if name == "nl_forward":
-            main, recs = seed_batch, recs + [seed_batch]
+            main, recs = seed_batch, recs + [seed_batch, seed_batch["serve"]]
         serving = {"B": K, "launches": launches["controller"][name], "eager_ms": small["eager_ms"],
                    "plain_eager_ms": small["plain_eager_ms"], **{k: small[k] for k in timed}}
         out.append({
@@ -3263,6 +3281,9 @@ def kernels_line(records: dict, seed_batch: dict, launches: dict, training: dict
             out[-1]["trained_weights"] = {"launches": launches["train"][name],
                                           "max_rel_err": training["kernel_on_trained_weights"],
                                           "max_cond_err": training["kernel_cond_on_trained_weights"]}
+            out[-1]["serve"] = {"B": SERVE_ROWS, **{k: seed_batch["serve"][k] for k in timed + ("eager_ms",)}}
+            out[-1]["weight_loads"] = [{k: r[k] for k in ("B", "ctas", "cluster", "tile_rows", "rows_per_weight_load")}
+                                       for r in (small, seed_batch, seed_batch["serve"])]
             out[-1]["table"] = {"launches": launches["table"], "rows": SEED_ROWS}
             out[-1]["driver"] = {"launches": launches["driver"]}
             out[-1]["change_goal"] = {"launches": launches["change_goal"]}

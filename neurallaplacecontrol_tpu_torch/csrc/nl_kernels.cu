@@ -25,33 +25,72 @@
 // multiple of 4 (pad_nl_forward says why that is exact); the dims a launcher takes are the
 // model's, and it pads them as the host does.
 //
-// Design. One CTA of 16 warps owns kRows = 8 batch rows, the N side of the MMA, so 125 CTAs
-// cover B = 1000, one per SM. The GRU's and the trunk's products run on the tensor cores in
-// split TF32 ("3xTF32", mma.sync.m16n8k8): x = hi + lo with hi and lo TF32 values, and
-// a*b ~ hi*hi + hi*lo + lo*hi, each of the three summed in its own f32 accumulator (the
-// hi*hi one by f32 adds, see mma3); one pass of TF32 errs by up to 2^-11 per operand and
-// misses the 1e-3 limit. The weights are split
-// in registers as they are loaded; each activation is split once, when it is computed, and
-// stored as two planes. The head's two products run in f32 on the CUDA cores (see
-// head_tile). The weights are staged in dynamic shared memory by bulk asynchronous copies
-// (cp.async.bulk, completion on an mbarrier): the small operands and GRU layer 1 first, GRU
-// layer 2 while layer 1 runs its first step, the trunk's second layer into layer 1's place
-// once layer 1 is done, and the head, chunk by chunk, into layer 2's place once the GRU is
-// done (one chunk up to 104 columns: 17 terms on every env take one). The GRU runs
-// as a wavefront: in phase p warps 0-7 compute layer 1 at step p and warps 8-15 layer 2 at
-// step p-1, warp w owning hidden units 8(w%8)..8(w%8)+7 with its r and z gates in one
-// 16-column tile over [x; h] and its candidate's input and hidden halves in another, so the
-// gate update happens in registers; A steps take A + 1 phases. The 64->2 encoder runs in f32
-// with shuffles. (wgmma at N = 8 rows, 64 output columns per instruction, ran the same
-// work slower than mma.sync on an H100.)
+// Design. nl_forward_kernel walks the batch in one of two ways, picked from B (forward_plan).
+//
+// The cluster walk (B >= kClusterMinB). The weights (79,844 floats at cartpole's dims, 319 KB)
+// do not fit in one SM's shared memory; split by stage they fit in two. The grid is persistent:
+// clusters of kClusterCtas CTAs of 16 warps, one CTA an SM, as many clusters as fit on the card
+// at once (cudaOccupancyMaxActiveClusters: 39 of 3 on an H100, 117 SMs) and no more than B
+// needs. Ranks g < kGruCtas are GRU CTAs: each holds the small operands and both GRU layers for
+// the whole launch. The last rank is the trunk/head CTA: it holds the small operands, trunk layer
+// 2 and the head. Each CTA copies its part once, by cp.async.bulk at its start, and the cluster
+// walks row tiles of R = kTileRows rows: the cluster's k-th tile is cluster + k * clusters, and
+// GRU CTA k % kGruCtas runs its GRU. Where the two roles do not fit at 16 rows (a long action
+// buffer, a wide head beside trunk layer 2), the one-tile walk runs at every B. A GRU CTA hands each tile's
+// action latent (R x 2 floats) to the trunk/head CTA through a ring of kSlots slots per GRU CTA
+// in the trunk/head CTA's shared memory, written over distributed shared memory
+// (st.shared::cluster) with a release arrival on the slot's "full" mbarrier; the trunk/head CTA
+// frees a slot with an arrival on the GRU CTA's "empty" mbarrier. So the GRUs of the next tiles
+// overlap the trunk and head of this one. Inside each CTA two groups of 8 warps pass work through
+// two buffers, synchronized by named barriers rather than the whole CTA: in a GRU CTA layer 1
+// (each warp 8 hidden units) runs up to two steps ahead of layer 2 and into the next tile, since
+// it needs only its own last state (gru_role); in the trunk/head CTA the trunk's two layers (on
+// the tensor cores) fill the next tile's hid2 while the head (on the CUDA cores) reads this one's
+// (trunk_head_role).
+//
+// kGruCtas = 2, from the measurement on an H100 (PERF.md, PR 22): the GRU is ~92% of the MMAs
+// and paces the walk (a GRU CTA takes ~24 us a 16-row tile, the trunk/head CTA ~8-10), so at
+// 32,768 rows a cluster of 2 (the GRU on half the SMs) ran 0.745 ms, of 3 0.625, of 4 0.671 (30
+// clusters; the trunk/head CTA the slower) and of 5 0.902, against 0.718 for one tile a CTA at
+// the parent commit.
+//
+// The one-tile walk (B < kClusterMinB): one CTA of 16 warps an 8-row tile, as many CTAs as
+// tiles, each copying every weight from L2 as its stages free shared memory (one_tile), the GRU
+// a wavefront of A + 1 phases; where a few waves cover B, the cluster walk's fill and drain cost
+// more than the copies.
+//
+// Both run the GRU's and the trunk's products on the tensor cores in split TF32 ("3xTF32",
+// mma.sync.m16n8k8, the tile's rows on its N side, R / 8 n-tiles a warp): x = hi + lo with hi and
+// lo TF32 values, and a*b ~ hi*hi + hi*lo + lo*hi, each of the three summed in its own f32
+// accumulator (the hi*hi one by f32 adds, see mma3); one pass of TF32 errs by up to 2^-11 per
+// operand and misses the 1e-3 limit. The weights are split in registers as they are loaded, once
+// for all of a warp's n-tiles; each activation is split once, when it is computed, and stored as
+// two planes. The head's two products run in f32 on the CUDA cores (see head_tile). A warp's
+// GRU units take their r and z gates in one 16-column tile over [x; h] and the candidate's input
+// and hidden halves in another, so the gate update happens in registers. The 64->2 encoder runs
+// in f32 with shuffles, a warp a row. (wgmma at N = 8 rows, 64 output columns per instruction, ran
+// the same work slower than mma.sync on an H100.)
+//
+// Shared memory at cartpole's dims (n = 5, A = 4, H = 64, hid = 128, 17 terms): a GRU
+// CTA 212,048 bytes (small operands 8.7 KB, GRU layers 55.3 and 98.3 KB, the action steps
+// 6.1 KB, five split GRU states 43.5 KB, one of them the zero state), the trunk/head CTA 207,568
+// (the ring, small operands, trunk layer 2 65.5 KB, the head 91.5 KB, the tile's activations
+// with two hid2 buffers 41.2 KB); the launch takes the larger; the one-tile walk 209,456. Where
+// the whole head does not fit beside trunk layer 2 (more terms), its chunks pass through one
+// chunk's room in turn for every tile, as head_tile streams them. Both read the buffer the host
+// packed (forward_sections); the host packs it where the one-tile walk fits (its footprint;
+// ops/pallas_nl.py resident_bytes).
 //
 // Bound. At B = 1000 (cartpole) the forward does 0.375 GFLOP against ~0.5 MB of weights:
 // 5.6 us with every FLOP at the f32 peak of 67 TFLOP/s; 2.3 us with every product at
 // 495/3 TFLOP/s (split TF32) and the fourier combine at the f32 rate. The head's products
-// (0.044 GFLOP) run in f32, a cost the kernel pays against the second bound. What holds the
-// kernel back is latency, not rate: each CTA streams ~0.3 MB of weights from L2 into shared
-// memory (the first 64 KB before any product can start), and the A + 1 GRU phases and 3
-// further layers are dependent stages of short products with one CTA per SM.
+// (0.044 GFLOP) run in f32, a cost the kernel pays against the second bound. In the cluster walk
+// a CTA reads its ~160 KB of weights from L2 once a launch, where one tile a CTA reads 319 KB for
+// every 8 rows (1.31 GB a forward at 32,768 rows). That traffic was not what held the kernel
+// back: the GRU's mma.sync issue is. With one TF32 pass in place of three (a timing experiment
+// on a cluster of 2, not the kernel) the walk ran 45% faster; without the gates' expf and tanhf
+// 19%; without the head's products 4% (PERF.md, PR 22). So what is left below the roofline is the
+// split-TF32 MMAs themselves, a quarter of the GRU's spent on the candidate tiles' zero halves.
 //
 // Numerics: accurate tanhf/sincosf/expf (no fast-math) and the per-hemisphere radius, since
 // the ILT tail amplifies error near phi ~ pi/2 (pallas_nl.py:46-60).
@@ -108,14 +147,27 @@
 
 namespace {
 
-constexpr int kRows = 8;  // batch rows per CTA: the N side of mma.m16n8k8
+constexpr int kRows = 8;  // batch rows of an n-tile (the N side of mma.m16n8k8); nl_head_kernel's CTA
+constexpr int kTileRows = 16;  // batch rows of a cluster walk's tile: two n-tiles
+// B from which the resident kernel walks row tiles in clusters; below it, one 8-row tile a CTA.
+// On an H100 (cartpole's dims, CUDA graphs of 20 launches, PERF.md PR 22) the one-tile walk ran
+// 0.2157-0.2241 / 0.2368-0.2396 / 0.2578-0.2606 ms at 10,000 / 11,000 / 12,000 rows, the cluster
+// walk 0.2203-0.2293 / 0.2324-0.2348 / 0.2522-0.2551: they cross between 10,000 and 11,000.
+constexpr int kClusterMinB = 11000;
 constexpr int kWarps = 16;  // 8 for each GRU layer
 constexpr int kThreads = 32 * kWarps;
-static_assert(kWarps >= kRows, "the encoder gives a warp to each of the kRows rows");
+static_assert(kWarps >= kTileRows, "the encoder gives a warp to each row of a tile");
 constexpr int kGroup = 8;   // GRU hidden units per warp
 constexpr int kHeadRows = 4;  // rows per thread in the head's f32 products
 constexpr int kLatent = 2;  // action latent
 constexpr int kBarFloats = 8;  // four mbarriers at the start of shared memory
+constexpr int kGruCtas = 2;  // GRU CTAs a cluster of the resident kernel, which feed one trunk/head CTA
+constexpr int kClusterCtas = kGruCtas + 1;
+constexpr int kSlots = 2;  // ring slots for each GRU CTA in the trunk/head CTA
+// floats of the mbarriers at the start of a resident CTA's shared memory: the trunk/head CTA's
+// 3 + kGruCtas * kSlots, an even count, so that what follows stays 16-byte aligned
+constexpr int kClusterBarFloats = (3 + kGruCtas * kSlots + 1) / 2 * 4;
+static_assert(2 + kSlots <= kClusterBarFloats / 2, "a GRU CTA's mbarriers");
 // floats of one head chunk in shared memory (ops/pallas_ilt.py _HEAD_STAGE_FLOATS): 104
 // columns at Hx = 128; a chunk takes as many columns as fit, at least 4
 constexpr int kHeadStageFloats = 104 * (4 + 2 * 128);
@@ -149,15 +201,24 @@ HeadDims head_dims(int Hx, int D, int terms) {  // Hx: the padded width
 }
 
 // Float offsets of the forward's buffer sections (ops/pallas_nl.py forward_sections) and of
-// its shared-memory image.
+// the shared memory of the resident kernel's two roles at `rows` rows a tile (tile_layout).
 struct ForwardLayout {
   int n, A, in_dim, H, hid;
   HeadDims head;
   int kx, k1;                       // padded widths of the GRU input and of [obs; latent]
   int small, gru1, gru2, w2;        // buffer sections before the head
   int ld_x, ld_h, ld_z, ld_hid, ld_c;  // activation row strides, 4 mod 32: no bank conflicts
-  int region_a, region_b;           // gru1 then w2; gru2 then the head's chunks
-  int o_a, o_b, o_xs, o_h, o_z, o_hid1, o_hid2, o_c, total;  // shared-memory offsets
+  // the one-tile walk: a CTA of one 8-row tile holds its activations and, in turn, GRU layer 1
+  // then trunk layer 2 in region a and GRU layer 2 then the head's chunks in region b. Its total,
+  // the footprint, decides where the host packs this layout (ops/pallas_nl.py resident_bytes)
+  int o_a, o_b, o_xs, o_h, o_z, o_hid1, o_hid2, o_c, footprint;
+  int cluster;         // CTAs a cluster: 1 for the one-tile walk, kClusterCtas for the cluster walk
+  int head_resident;   // the whole head in the trunk/head CTA (1), else one chunk at a time (0)
+  // a GRU CTA: mbarriers | small | gru1 | gru2 | x [A][2 rows][ld_x] | h [5][2 rows][ld_h]
+  int g_xs, g_h, g_total;
+  // the trunk/head CTA: mbarriers | ring [kGruCtas][kSlots][rows][kLatent] | small | w2 | head |
+  // [obs; latent] [2 rows][ld_z] | hid1 [2 rows][ld_hid] | hid2 [2][rows][ld_hid] | contrib [rows][ld_c]
+  int t_small, t_w2, t_head, t_z, t_hid1, t_hid2, t_c, t_total;
 };
 
 ForwardLayout forward_layout(int n, int A, int in_dim, int H, int hid, int D, int terms) {
@@ -171,19 +232,37 @@ ForwardLayout forward_layout(int n, int A, int in_dim, int H, int hid, int D, in
   L.gru2 = (H / kGroup) * 2 * H * 24;
   L.w2 = hid * hid;
   L.ld_x = L.kx + 4; L.ld_h = H + 4; L.ld_z = L.k1 + 4; L.ld_hid = hid + 4; L.ld_c = L.head.cols() + 4;
-  L.region_a = L.gru1 > L.w2 ? L.gru1 : L.w2;
-  L.region_b = L.gru2 > L.head.chunk() ? L.gru2 : L.head.chunk();
   L.o_a = kBarFloats + L.small;
-  L.o_b = L.o_a + L.region_a;
+  L.o_b = L.o_a + std::max(L.gru1, L.w2);
   // the tensor cores' activations are stored split (2 kRows rows each); hid2 feeds the f32 head
-  L.o_xs = L.o_b + L.region_b;
+  L.o_xs = L.o_b + std::max(L.gru2, L.head.chunk());
   L.o_h = L.o_xs + A * 2 * kRows * L.ld_x;  // h1 ping-pong, then h2 ping-pong
   L.o_z = L.o_h + 4 * 2 * kRows * L.ld_h;
   L.o_hid1 = L.o_z + 2 * kRows * L.ld_z;
   L.o_hid2 = L.o_hid1 + 2 * kRows * L.ld_hid;
   L.o_c = L.o_hid2 + kRows * L.ld_hid;
-  L.total = L.o_c + kRows * L.ld_c;
+  L.footprint = L.o_c + kRows * L.ld_c;
+  L.cluster = 1;
   return L;
+}
+
+// The two roles' shared memory at kTileRows rows a tile; returns the launch's floats (the larger).
+int tile_layout(ForwardLayout& L) {
+  constexpr int rows = kTileRows;
+  L.g_xs = kClusterBarFloats + L.small + L.gru1 + L.gru2;
+  L.g_h = L.g_xs + L.A * 2 * rows * L.ld_x;
+  L.g_total = L.g_h + 5 * 2 * rows * L.ld_h;
+  L.t_small = kClusterBarFloats + kGruCtas * kSlots * rows * kLatent;
+  L.t_w2 = L.t_small + L.small;
+  L.t_head = L.t_w2 + L.w2;
+  const int acts = 2 * rows * L.ld_z + 4 * rows * L.ld_hid + rows * L.ld_c;
+  L.head_resident = 4LL * (L.t_head + L.head.size() + acts) <= kSmemBudget;
+  L.t_z = L.t_head + (L.head_resident ? L.head.size() : L.head.chunk());
+  L.t_hid1 = L.t_z + 2 * rows * L.ld_z;
+  L.t_hid2 = L.t_hid1 + 2 * rows * L.ld_hid;
+  L.t_c = L.t_hid2 + 2 * rows * L.ld_hid;
+  L.t_total = L.t_c + rows * L.ld_c;
+  return std::max(L.g_total, L.t_total);
 }
 
 // ---- asynchronous copies and mbarriers ----
@@ -194,6 +273,10 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_count(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
 }
 
 // Copies `bytes` (a multiple of 16) from global to shared memory; `bar` completes its phase
@@ -219,6 +302,60 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity = 0) {
   } while (!done);
 }
 
+// ---- thread-block clusters (the resident kernel) ----
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ int cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of every CTA of the cluster: the writes before it, to shared memory anywhere in
+// the cluster, are seen by the reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The shared::cluster address of `p`'s offset in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void peer_store(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
+
+// An arrival on another CTA's mbarrier that releases this thread's earlier writes to the cluster.
+__device__ __forceinline__ void peer_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// mbar_wait for a phase that other CTAs of the cluster complete: acquires their released writes.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
 // ---- split-TF32 tensor-core products ----
 
 // x = hi + lo with hi the TF32 value nearest x and lo the TF32 value nearest x - hi (CUTLASS's
@@ -238,16 +375,19 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
 }
 
 // An activation that the tensor cores read is stored split once, by the thread that computes
-// it, rather than by each of the warps that read it: X [kRows][ld] holds hi, X + kRows * ld lo.
+// it, rather than by each of the warps that read it: for a tile of R rows, X [R][ld] holds hi,
+// X + R * ld lo.
+template <int R>
 __device__ __forceinline__ void put_split(float* X, int ld, int r, int k, float v) {
   uint32_t hi, lo;
   split(v, hi, lo);
   X[r * ld + k] = __uint_as_float(hi);
-  X[(kRows + r) * ld + k] = __uint_as_float(lo);
+  X[(R + r) * ld + k] = __uint_as_float(lo);
 }
 
+template <int R>
 __device__ __forceinline__ float get_split(const float* X, int ld, int r, int k) {
-  return X[r * ld + k] + X[(kRows + r) * ld + k];  // hi + lo: v to within 2^-22 |v|
+  return X[r * ld + k] + X[(R + r) * ld + k];  // hi + lo: v to within 2^-22 |v|
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -258,8 +398,8 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A 16 x 8 output tile (16 weight columns by the CTA's 8 rows). Lane l holds register j at
-// column m = l/4 + 8 (j/2) of the tile and batch row 2 (l%4) + j%2.
+// A 16 x 8 output tile (16 weight columns by one n-tile of 8 rows). Lane l holds register j at
+// column m = l/4 + 8 (j/2) of the tile and batch row 2 (l%4) + j%2 of the n-tile.
 struct Acc {
   float hh[4], hl[4], lh[4];  // the three products, summed apart (three dependent chains)
   __device__ __forceinline__ Acc() {
@@ -269,105 +409,131 @@ struct Acc {
   __device__ __forceinline__ float get(int j) const { return hh[j] + (hl[j] + lh[j]); }
 };
 
-// The B operand: split activations X at columns k0..k0+7.
+// The A operand, four weights of a lane's fragment, split once for every n-tile it multiplies.
+struct AFrag {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ AFrag(float a0, float a1, float a2, float a3) {
+    split(a0, hi[0], lo[0]);
+    split(a1, hi[1], lo[1]);
+    split(a2, hi[2], lo[2]);
+    split(a3, hi[3], lo[3]);
+  }
+};
+
+// The B operand: split activations X at columns k0..k0+7 of n-tile j (rows 8j..8j+7 of R).
 struct BFrag {
   uint32_t hi[2], lo[2];
 };
 
-__device__ __forceinline__ BFrag load_b(const float* X, int ld, int k0, int lane) {
-  const float* x = X + (lane >> 2) * ld + k0 + (lane & 3);
-  const float* y = x + kRows * ld;
+template <int R>
+__device__ __forceinline__ BFrag load_b(const float* X, int ld, int k0, int j, int lane) {
+  const float* x = X + (8 * j + (lane >> 2)) * ld + k0 + (lane & 3);
+  const float* y = x + R * ld;
   return BFrag{{__float_as_uint(x[0]), __float_as_uint(x[4])},
                {__float_as_uint(y[0]), __float_as_uint(y[4])}};
 }
 
-__device__ __forceinline__ void mma3(Acc& acc, float a0, float a1, float a2, float a3,
-                                     const BFrag& b) {
-  uint32_t hi[4], lo[4];
-  split(a0, hi[0], lo[0]);
-  split(a1, hi[1], lo[1]);
-  split(a2, hi[2], lo[2]);
-  split(a3, hi[3], lo[3]);
-  mma_tf32(acc.lh, lo, b.hi[0], b.hi[1]);
-  mma_tf32(acc.hl, hi, b.lo[0], b.lo[1]);
+__device__ __forceinline__ void mma3(Acc& acc, const AFrag& a, const BFrag& b) {
+  mma_tf32(acc.lh, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(acc.hl, a.hi, b.lo[0], b.lo[1]);
   // The tensor core truncates when it adds to its accumulator, an error that grows with the
   // k-steps; the large product is formed apart and added in f32, rounded to nearest.
   float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(t, hi, b.hi[0], b.hi[1]);
+  mma_tf32(t, a.hi, b.hi[0], b.hi[1]);
 #pragma unroll
   for (int j = 0; j < 4; ++j) acc.hh[j] += t[j];
 }
 
-// acc += W^T X over `ksteps` steps of 8 for one tile, W in fragment order [ksteps][32][4].
-__device__ __forceinline__ void tile_gemm(Acc& acc, const float* w, const float* X, int ld,
-                                          int ksteps, int lane) {
+// acc[j] += W^T X over `ksteps` steps of 8 for one m-tile and every n-tile j of the R rows, W in
+// fragment order [ksteps][32][4].
+template <int R>
+__device__ __forceinline__ void tile_gemm(Acc (&acc)[R / kRows], const float* w, const float* X,
+                                          int ld, int ksteps, int lane) {
   const float4* wf = reinterpret_cast<const float4*>(w) + lane;
 #pragma unroll 4
   for (int kt = 0; kt < ksteps; ++kt) {
-    const float4 a = wf[kt * 32];
-    mma3(acc, a.x, a.y, a.z, a.w, load_b(X, ld, kt * 8, lane));
+    const float4 v = wf[kt * 32];
+    const AFrag a(v.x, v.y, v.z, v.w);
+#pragma unroll
+    for (int j = 0; j < R / kRows; ++j) mma3(acc[j], a, load_b<R>(X, ld, kt * 8, j, lane));
   }
 }
 
-// out[r][m] = tanh(acc + bias[m]) over tile mt, stored split when the tensor cores read it next.
-template <bool kSplit>
-__device__ __forceinline__ void store_tanh(const Acc& acc, const float* bias, float* out, int ld,
-                                           int mt, int lane) {
+// out[r][m] = tanh(acc + bias[m]) over m-tile mt, stored split when the tensor cores read it next.
+template <int R, bool kSplit>
+__device__ __forceinline__ void store_tanh(const Acc (&acc)[R / kRows], const float* bias, float* out,
+                                           int ld, int mt, int lane) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int m = mt * 16 + (lane >> 2) + 8 * (j >> 1);
-    const int r = 2 * (lane & 3) + (j & 1);
-    const float v = tanhf(acc.get(j) + bias[m]);
-    if (kSplit) {
-      put_split(out, ld, r, m, v);
-    } else {
-      out[r * ld + m] = v;
+  for (int j = 0; j < R / kRows; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = mt * 16 + (lane >> 2) + 8 * (e >> 1);
+      const int r = 8 * j + 2 * (lane & 3) + (e & 1);
+      const float v = tanhf(acc[j].get(e) + bias[m]);
+      if (kSplit) {
+        put_split<R>(out, ld, r, m, v);
+      } else {
+        out[r * ld + m] = v;
+      }
     }
   }
 }
 
 __device__ __forceinline__ float logisticf(float x) { return 1.f / (1.f + expf(-x)); }
 
-// One GRU layer at one step for hidden units 8*group .. 8*group+7 (gates r/z/n,
-// models/common.py gru_gates): h_out = (1 - z) n + z h_in, formed as n + z (h_in - n). x (split, row stride ldx) is the
-// layer's input over kx steps of 8; h_in / h_out are split, row stride ldh. w holds the
-// layer's tiles (per group: the r/z tile over [x; h], then the candidate's half tiles),
-// bias = b_ih [3H] | b_hh [3H].
+// One GRU layer at one step for hidden units 8*group .. 8*group+7 and the R rows of a tile (gates
+// r/z/n, models/common.py gru_gates): h_out = (1 - z) n + z h_in, formed as n + z (h_in - n). x
+// (split, row stride ldx) is the layer's input over kx steps of 8; h_in / h_out are split, row
+// stride ldh. w holds the layer's tiles (per group: the r/z tile over [x; h], then the
+// candidate's half tiles), bias = b_ih [3H] | b_hh [3H].
+template <int R>
 __device__ __forceinline__ void gru_group(const float* w, const float* bias, int H,
                                           const float* x, int ldx, int kx, const float* h_in,
                                           float* h_out, int ldh, int group, int lane) {
+  constexpr int NT = R / kRows;
   const int kh = H / 8;
   const int ks = kx + kh;
   const float* w_rz = w + group * ks * 192;
   const float4* a_rz = reinterpret_cast<const float4*>(w_rz) + lane;
   const float2* a_n = reinterpret_cast<const float2*>(w_rz + ks * 128) + lane;
-  Acc rz, nn;
+  Acc rz[NT], nn[NT];
 #pragma unroll 2
   for (int kt = 0; kt < kx; ++kt) {  // input part: r/z, and the candidate's input half
-    const BFrag b = load_b(x, ldx, kt * 8, lane);
     const float4 a = a_rz[kt * 32];
-    mma3(rz, a.x, a.y, a.z, a.w, b);
     const float2 v = a_n[kt * 32];
-    mma3(nn, v.x, 0.f, v.y, 0.f, b);
+    const AFrag ar(a.x, a.y, a.z, a.w), an(v.x, 0.f, v.y, 0.f);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const BFrag b = load_b<R>(x, ldx, kt * 8, j, lane);
+      mma3(rz[j], ar, b);
+      mma3(nn[j], an, b);
+    }
   }
 #pragma unroll 4
   for (int kt = 0; kt < kh; ++kt) {  // hidden part: r/z, and the candidate's hidden half
-    const BFrag b = load_b(h_in, ldh, kt * 8, lane);
     const float4 a = a_rz[(kx + kt) * 32];
-    mma3(rz, a.x, a.y, a.z, a.w, b);
     const float2 v = a_n[(kx + kt) * 32];
-    mma3(nn, 0.f, v.x, 0.f, v.y, b);
+    const AFrag ar(a.x, a.y, a.z, a.w), an(0.f, v.x, 0.f, v.y);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const BFrag b = load_b<R>(h_in, ldh, kt * 8, j, lane);
+      mma3(rz[j], ar, b);
+      mma3(nn[j], an, b);
+    }
   }
   const int u = group * kGroup + (lane >> 2);
   const float* b_ih = bias;
   const float* b_hh = bias + 3 * H;
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int row = 2 * (lane & 3) + q;
-    const float r = logisticf(rz.get(q) + b_ih[u] + b_hh[u]);
-    const float z = logisticf(rz.get(2 + q) + b_ih[H + u] + b_hh[H + u]);
-    const float n = tanhf(nn.get(q) + b_ih[2 * H + u] + r * (nn.get(2 + q) + b_hh[2 * H + u]));
-    put_split(h_out, ldh, row, u, fmaf(z, get_split(h_in, ldh, row, u) - n, n));  // n + z (h - n)
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int row = 8 * j + 2 * (lane & 3) + q;
+      const float r = logisticf(rz[j].get(q) + b_ih[u] + b_hh[u]);
+      const float z = logisticf(rz[j].get(2 + q) + b_ih[H + u] + b_hh[H + u]);
+      const float n = tanhf(nn[j].get(q) + b_ih[2 * H + u] + r * (nn[j].get(2 + q) + b_hh[2 * H + u]));
+      put_split<R>(h_out, ldh, row, u, fmaf(z, get_split<R>(h_in, ldh, row, u) - n, n));  // n + z (h - n)
+    }
   }
 }
 
@@ -451,20 +617,326 @@ __device__ __forceinline__ void head_tile(const float* x, int ldx, const HeadDim
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-nl_forward_kernel(const float* __restrict__ obs, const float* __restrict__ acts,
-                  const float* __restrict__ buf, float* __restrict__ out, int B,
-                  ForwardLayout L) {
-  extern __shared__ __align__(16) float smem[];
+// Named barriers between the two warp groups of a resident CTA (warps 0-7 produce into two
+// buffers, warps 8-15 consume; 0 is __syncthreads): each group among itself, and for each
+// buffer, "written" (the producers arrive, the consumers wait) and "read" (the consumers arrive,
+// the producers wait before they write the buffer again).
+constexpr int kBarProducers = 1;
+constexpr int kBarConsumers = 2;
+constexpr int kBarWritten = 3;  // + buffer
+constexpr int kBarRead = 5;     // + buffer
+constexpr int kGroupThreads = kThreads / 2;
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The head and the fourier combine for the R rows of a tile on the consumer warps (t their thread,
+// 0 .. kGroupThreads - 1), as head_tile computes them for 8 rows: x [R][ldx] in shared memory.
+// A thread owns one column of both W_theta and W_phi for R / 2 rows, so 2 mc threads cover a
+// chunk. `region` holds every chunk of the head (resident), or one chunk at a time streamed from
+// src: each copy completes a phase of `bar`, `loads` counts the phases waited for over the launch,
+// and the copy of the next chunk goes out once every consumer is done with this one (chunk 0 for
+// the next tile where `more`). contrib is [R][cols + 4] scratch.
+template <int R>
+__device__ void head_rows(const float* x, int ldx, const HeadDims& h, float* region,
+                          bool resident, uint64_t* bar, const float* src, int& loads, bool more,
+                          float* contrib, float* __restrict__ out, int row0, int B, int t) {
+  constexpr int kRowsPer = R / 2;
+  const int mc = h.mc;
+  const int ncols = h.D * h.terms;
+  const int ldc = h.cols() + 4;
+  for (int c = 0; c < h.chunks; ++c) {
+    const float* chunk = region;
+    if (resident) {
+      chunk += c * h.chunk();
+    } else {
+      mbar_wait(bar, loads++ & 1);
+    }
+    const float* b_theta = chunk;
+    const float* b_phi = chunk + mc;
+    const float* c_re = chunk + 2 * mc;
+    const float* c_im = chunk + 3 * mc;
+    const float2* w = reinterpret_cast<const float2*>(chunk + 4 * mc);  // [Hx][mc] (theta, phi)
+    for (int idx = t; idx < (R / kRowsPer) * mc; idx += kGroupThreads) {
+      const int m = idx % mc;
+      const int r0 = (idx / mc) * kRowsPer;
+      float at[kRowsPer] = {};
+      float ap[kRowsPer] = {};
+      for (int k = 0; k < h.Hx; k += 4) {
+        float xq[kRowsPer][4];
+#pragma unroll
+        for (int q = 0; q < kRowsPer; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(x + (r0 + q) * ldx + k);
+          xq[q][0] = v.x; xq[q][1] = v.y; xq[q][2] = v.z; xq[q][3] = v.w;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float2 wv = w[(k + kk) * mc + m];
+#pragma unroll
+          for (int q = 0; q < kRowsPer; ++q) {
+            at[q] = fmaf(xq[q][kk], wv.x, at[q]);
+            ap[q] = fmaf(xq[q][kk], wv.y, ap[q]);
+          }
+        }
+      }
+      const int col = c * mc + m;
+      if (col >= ncols) continue;
+#pragma unroll
+      for (int q = 0; q < kRowsPer; ++q) {
+        const float theta = tanhf(at[q] + b_theta[m]) * kPiF;
+        const float phi = fminf(fmaxf(tanhf(ap[q] + b_phi[m]) * kHalfPiF, kPhiLoF), kPhiHiF);
+        float sin_phi, cos_phi, sin_theta, cos_theta;
+        sincosf(phi, &sin_phi, &cos_phi);
+        sincosf(theta, &sin_theta, &cos_theta);
+        const float radius = phi >= 0.f ? (1.f + sin_phi) / cos_phi : cos_phi / (1.f - sin_phi);
+        contrib[(r0 + q) * ldc + col] = radius * cos_theta * c_re[m] - radius * sin_theta * c_im[m];
+      }
+    }
+    named_sync(kBarConsumers, kGroupThreads);
+    if (!resident && (c + 1 < h.chunks || more) && t == 0) {  // every consumer is done with it
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      bulk_load(region, src + ((c + 1) % h.chunks) * h.chunk(), 4u * h.chunk(), bar);
+    }
+  }
+  for (int idx = t; idx < R * h.D; idx += kGroupThreads) {
+    const int r = idx / h.D;
+    const int d = idx % h.D;
+    if (row0 + r >= B) continue;
+    const float* c = contrib + r * ldc + d * h.terms;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int t = 0; t < h.terms; ++t) acc += c[t];
+    out[(row0 + r) * h.D + d] = acc;
+  }
+}
+
+// A GRU CTA (cluster rank g < kGruCtas): the GRU and the encoder for the cluster's tiles
+// k = g, g + kGruCtas, ..., each tile's latent handed to the trunk/head CTA's ring slot.
+// Warps 0-7 run layer 1 and warps 8-15 layer 2, warp w owning hidden units 8(w%8)..8(w%8)+7,
+// over the CTA's steps q = j A + s (tile j, step s, newest action first, w_nl.py:27): layer 1
+// at step q needs only its own state after q - 1, so it runs ahead of layer 2, which needs layer
+// 1's state after q, by up to two steps (its two state buffers) and into the next tile. Layer 2
+// runs the encoder after each tile's last step. mbarriers: 0 small + GRU layer 1, 1 GRU layer 2,
+// 2 + s slot s emptied by the trunk/head CTA.
+template <int R>
+__device__ void gru_role(const float* __restrict__ acts, const float* __restrict__ buf, int B,
+                         const ForwardLayout& L, float* smem, int g) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* s_small = smem + kClusterBarFloats;
+  float* s_gru1 = s_small + L.small;
+  float* s_gru2 = s_gru1 + L.gru1;
+  float* xs = smem + L.g_xs;
+  const int xb = 2 * R * L.ld_x;  // one action step, split
+  // GRU states, split: h1 after step q at h + (q % 2) hb, h2 after step q at h + (2 + q % 2) hb,
+  // the zero state at h + 4 hb (pointer arithmetic on smem, not a pointer array, keeps the loads
+  // in the shared address space)
+  float* h = smem + L.g_h;
+  const int hb = 2 * R * L.ld_h;
+  const float* hz = h + 4 * hb;
+  const int H = L.H;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int group = warp % (kWarps / 2);
+  if (tid == 0) {
+    for (int i = 0; i < 2 + kSlots; ++i) mbar_init_count(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bulk_load(s_small, buf, 4u * (L.small + L.gru1), bars + 0);  // small + GRU layer 1
+    bulk_load(s_gru2, buf + L.small + L.gru1, 4u * L.gru2, bars + 1);  // GRU layer 2
+  }
+  // zeros that no tile writes: the action steps' padded columns and the zero state
+  for (int idx = tid; idx < L.A * xb; idx += kThreads) {
+    if (idx % L.ld_x >= L.in_dim) xs[idx] = 0.f;
+  }
+  for (int idx = tid; idx < hb; idx += kThreads) h[4 * hb + idx] = 0.f;
+  cluster_sync();  // every CTA's mbarriers are initialized before any arrives from another
+
+  const int A_in = L.A * L.in_dim;
+  const int tiles = (B + R - 1) / R;
+  const int cluster = cluster_index();
+  const int clusters = cluster_count();
+  const int first = cluster + g * clusters;  // the CTA's tile j is first + j kGruCtas clusters
+  const int mine = first < tiles ? (tiles - first + kGruCtas * clusters - 1) / (kGruCtas * clusters) : 0;
+  const int steps = mine * L.A;
+  mbar_wait(bars + 0);
+  if (warp < kWarps / 2) {  // layer 1
+    const int t1 = tid;     // 0 .. kGroupThreads - 1
+    for (int j = 0; j < mine; ++j) {
+      const int row0 = (first + j * kGruCtas * clusters) * R;
+      // the tile's action buffer as A steps of [R][kx], split; layer 1 alone reads it, and its
+      // last step of the tile before is done (kBarProducers)
+      for (int idx = t1; idx < R * A_in; idx += kGroupThreads) {
+        const int r = idx / A_in;
+        const int s = (idx % A_in) / L.in_dim;
+        const int k = idx % L.in_dim;
+        put_split<R>(xs + s * xb, L.ld_x, r, k, row0 + r < B ? acts[(row0 + r) * A_in + idx % A_in] : 0.f);
+      }
+      named_sync(kBarProducers, kGroupThreads);
+      for (int s = 0; s < L.A; ++s) {
+        const int q = j * L.A + s;
+        if (q >= 2) named_sync(kBarRead + (q & 1), kThreads);  // layer 2 is done with step q - 2
+        if (group < H / kGroup) {
+          gru_group<R>(s_gru1, s_small, H, xs + (L.A - 1 - s) * xb, L.ld_x, L.kx / 8,
+                       s == 0 ? hz : h + ((q - 1) & 1) * hb, h + (q & 1) * hb, L.ld_h, group, lane);
+        }
+        named_arrive(kBarWritten + (q & 1), kThreads);
+        named_sync(kBarProducers, kGroupThreads);
+      }
+    }
+  } else {  // layer 2, then the encoder
+    mbar_wait(bars + 1);
+    const float* w_enc = s_small + 12 * H;
+    for (int j = 0; j < mine; ++j) {
+      for (int s = 0; s < L.A; ++s) {
+        const int q = j * L.A + s;
+        named_sync(kBarWritten + (q & 1), kThreads);  // layer 1's state after step q
+        if (group < H / kGroup) {
+          gru_group<R>(s_gru2, s_small + 6 * H, H, h + (q & 1) * hb, L.ld_h, H / 8,
+                       s == 0 ? hz : h + (2 + ((q - 1) & 1)) * hb, h + (2 + (q & 1)) * hb, L.ld_h,
+                       group, lane);
+        }
+        named_sync(kBarConsumers, kGroupThreads);
+        if (q + 2 < steps) named_arrive(kBarRead + (q & 1), kThreads);
+      }
+      // encoder head H -> 2 in f32 on the CUDA cores: a warp a row, its lanes split k into 16
+      // parts for each of the 2 columns and meet by shuffles; lanes 0 and 1 store the latent into
+      // the trunk/head CTA's slot and arrive on its "full" mbarrier
+      const float* h2 = h + (2 + ((j * L.A + L.A - 1) & 1)) * hb;
+      const int col = lane & 1;
+      const int s = j % kSlots;
+      for (int r = group; r < R; r += kWarps / 2) {
+        float v = 0.f;
+        for (int k = lane >> 1; k < H; k += 16) {
+          v = fmaf(get_split<R>(h2, L.ld_h, r, k), w_enc[k * kLatent + col], v);
+        }
+#pragma unroll
+        for (int off = 2; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane < kLatent) {
+          if (j >= kSlots) mbar_wait_cluster(bars + 2 + s, (j / kSlots - 1) & 1);
+          const float* slot = smem + kClusterBarFloats + ((g * kSlots + s) * R + r) * kLatent + col;
+          peer_store(peer_addr(slot, kGruCtas), v + w_enc[kLatent * H + col]);
+          peer_arrive(peer_addr(bars + 3 + g * kSlots + s, kGruCtas));
+        }
+      }
+    }
+  }
+  mbar_wait(bars + 1);  // no copy is in flight when the CTA ends, with or without a tile
+  cluster_sync();  // the trunk/head CTA's last arrivals here have landed
+}
+
+// The trunk/head CTA (cluster rank kGruCtas), for each of the cluster's tiles in turn (tile k's
+// latent from GRU CTA k % kGruCtas). Warps 0-7 run trunk layer 1 over [obs; latent]
+// (normalization and contour folded in) and layer 2 on the tensor cores, into hid2 buffer k % 2;
+// warps 8-15 run the head and the fourier combine on the CUDA cores from it, so the trunk of tile
+// k + 1 overlaps the head of tile k. mbarriers: 0 small, 1 trunk layer 2 (and the head where it
+// is resident), 2 a head chunk (streamed), 3 + g kSlots + s GRU CTA g's slot s filled (2 R
+// arrivals).
+template <int R>
+__device__ void trunk_head_role(const float* __restrict__ obs, const float* __restrict__ buf,
+                                float* __restrict__ out, int B, const ForwardLayout& L, float* smem) {
+  constexpr int NT = R / kRows;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  const float* ring = smem + kClusterBarFloats;
+  float* s_small = smem + L.t_small;
+  float* s_w2 = smem + L.t_w2;
+  float* s_head = smem + L.t_head;
+  float* z1 = smem + L.t_z;
+  float* hid1 = smem + L.t_hid1;
+  float* hid2 = smem + L.t_hid2;  // two buffers of [R][ld_hid]
+  const int H = L.H;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const float* src_w2 = buf + L.small + L.gru1 + L.gru2;
+  const float* src_head = src_w2 + L.w2;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init_count(bars + i, 1);
+    for (int i = 0; i < kGruCtas * kSlots; ++i) mbar_init_count(bars + 3 + i, R * kLatent);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bulk_load(s_small, buf, 4u * L.small, bars + 0);
+    bulk_load(s_w2, src_w2, 4u * (L.w2 + (L.head_resident ? L.head.size() : 0)), bars + 1);
+    if (!L.head_resident) bulk_load(s_head, src_head, 4u * L.head.chunk(), bars + 2);
+  }
+  cluster_sync();
+
+  const int tiles = (B + R - 1) / R;
+  const int cluster = cluster_index();
+  const int clusters = cluster_count();
+  const int mine = (tiles - cluster + clusters - 1) / clusters;  // tile k is cluster + k clusters
+  const int hb = R * L.ld_hid;
+  mbar_wait(bars + 0);
+  mbar_wait(bars + 1);
+  if (warp < kWarps / 2) {  // the trunk
+    const float* w1 = s_small + 12 * H + kLatent * H + 4;
+    const float* b1 = w1 + L.k1 * L.hid;
+    const float* b2 = b1 + L.hid;
+    for (int k = 0; k < mine; ++k) {
+      const int row0 = (cluster + k * clusters) * R;
+      const int g = k % kGruCtas;
+      const int j = k / kGruCtas;
+      const int s = j % kSlots;
+      // [obs | latent | 0], split: the latent from GRU CTA g's slot s; the trunk's last reads of
+      // z1 and hid1 (tile k - 1) are behind kBarProducers
+      for (int idx = tid; idx < R * L.k1; idx += kGroupThreads) {
+        const int r = idx / L.k1;
+        const int c = idx % L.k1;
+        float v = 0.f;
+        if (c < L.n) {
+          if (row0 + r < B) v = obs[(row0 + r) * L.n + c];
+        } else if (c < L.n + kLatent) {
+          mbar_wait_cluster(bars + 3 + g * kSlots + s, (j / kSlots) & 1);
+          v = ring[((g * kSlots + s) * R + r) * kLatent + c - L.n];
+        }
+        put_split<R>(z1, L.ld_z, r, c, v);
+      }
+      named_sync(kBarProducers, kGroupThreads);
+      if (tid == 0) peer_arrive(peer_addr(bars + 2 + s, g));  // GRU CTA g's slot s is free
+      for (int mt = warp; mt < L.hid / 16; mt += kWarps / 2) {
+        Acc acc[NT];
+        tile_gemm<R>(acc, w1 + mt * (L.k1 / 8) * 128, z1, L.ld_z, L.k1 / 8, lane);
+        store_tanh<R, true>(acc, b1, hid1, L.ld_hid, mt, lane);
+      }
+      named_sync(kBarProducers, kGroupThreads);
+      if (k >= 2) named_sync(kBarRead + (k & 1), kThreads);  // the head is done with tile k - 2
+      for (int mt = warp; mt < L.hid / 16; mt += kWarps / 2) {
+        Acc acc[NT];
+        tile_gemm<R>(acc, s_w2 + mt * (L.hid / 8) * 128, hid1, L.ld_hid, L.hid / 8, lane);
+        store_tanh<R, false>(acc, b2, hid2 + (k & 1) * hb, L.ld_hid, mt, lane);
+      }
+      named_arrive(kBarWritten + (k & 1), kThreads);
+    }
+  } else {  // the head
+    int loads = 0;
+    for (int k = 0; k < mine; ++k) {
+      named_sync(kBarWritten + (k & 1), kThreads);
+      head_rows<R>(hid2 + (k & 1) * hb, L.ld_hid, L.head, s_head, L.head_resident, bars + 2, src_head,
+                   loads, k + 1 < mine, smem + L.t_c, out, (cluster + k * clusters) * R, B,
+                   tid - kGroupThreads);
+      if (k + 2 < mine) named_arrive(kBarRead + (k & 1), kThreads);
+    }
+  }
+  cluster_sync();  // the GRU CTAs' last arrivals here have landed
+}
+
+// The one-tile walk: a CTA owns one 8-row tile and copies every weight for it, staged as the
+// stages free its shared memory (see ForwardLayout); the GRU as a wavefront of A + 1 phases.
+__device__ void one_tile(const float* __restrict__ obs, const float* __restrict__ acts,
+                         const float* __restrict__ buf, float* __restrict__ out, int B,
+                         const ForwardLayout& L, float* smem) {
+  constexpr int R = kRows;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   float* s_small = smem + kBarFloats;
   float* s_a = smem + L.o_a;
   float* s_b = smem + L.o_b;
   float* xs = smem + L.o_xs;
-  // GRU states: h1 ping-pong at h + {0, 1} * hb, h2 ping-pong at h + {2, 3} * hb (pointer
-  // arithmetic on smem, not a pointer array, keeps the loads in the shared address space)
+  // GRU states: h1 ping-pong at h + {0, 1} * hb, h2 ping-pong at h + {2, 3} * hb
   float* h = smem + L.o_h;
-  const int hb = 2 * kRows * L.ld_h;
+  const int hb = 2 * R * L.ld_h;
   float* z1 = smem + L.o_z;
   float* hid1 = smem + L.o_hid1;
   float* hid2 = smem + L.o_hid2;
@@ -472,7 +944,7 @@ nl_forward_kernel(const float* __restrict__ obs, const float* __restrict__ acts,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * R;
 
   if (tid == 0) {
     for (int i = 0; i < 4; ++i) mbar_init(bars + i);
@@ -481,27 +953,26 @@ nl_forward_kernel(const float* __restrict__ obs, const float* __restrict__ acts,
     bulk_load(s_b, buf + L.small + L.gru1, 4u * L.gru2, bars + 1);  // GRU layer 2
   }
   // one pass over the inputs, so that each thread waits on one global load: the action buffer
-  // as A steps of [kRows][kx], zero-padded; [obs | latent | 0]; h = 0
+  // as A steps of [R][kx], zero-padded; [obs | latent | 0]; h = 0
   const int A_in = L.A * L.in_dim;
-  const int n_xs = L.A * kRows * L.kx;
-  const int n_z = kRows * L.k1;
-  for (int idx = tid; idx < n_xs + n_z + kRows * H; idx += kThreads) {
+  const int n_xs = L.A * R * L.kx;
+  const int n_z = R * L.k1;
+  for (int idx = tid; idx < n_xs + n_z + R * H; idx += kThreads) {
     if (idx < n_xs) {
       const int k = idx % L.kx;
-      const int r = (idx / L.kx) % kRows;
-      const int s = idx / (L.kx * kRows);
+      const int r = (idx / L.kx) % R;
+      const int s = idx / (L.kx * R);
       const bool live = k < L.in_dim && row0 + r < B;
-      put_split(xs + s * 2 * kRows * L.ld_x, L.ld_x, r, k,
-                live ? acts[(row0 + r) * A_in + s * L.in_dim + k] : 0.f);
+      put_split<R>(xs + s * 2 * R * L.ld_x, L.ld_x, r, k, live ? acts[(row0 + r) * A_in + s * L.in_dim + k] : 0.f);
     } else if (idx < n_xs + n_z) {
       const int r = (idx - n_xs) / L.k1;
       const int k = (idx - n_xs) % L.k1;
-      put_split(z1, L.ld_z, r, k, (k < L.n && row0 + r < B) ? obs[(row0 + r) * L.n + k] : 0.f);
+      put_split<R>(z1, L.ld_z, r, k, (k < L.n && row0 + r < B) ? obs[(row0 + r) * L.n + k] : 0.f);
     } else {
       const int r = (idx - n_xs - n_z) / H;
       const int k = (idx - n_xs - n_z) % H;
-      put_split(h, L.ld_h, r, k, 0.f);
-      put_split(h + 2 * hb, L.ld_h, r, k, 0.f);
+      put_split<R>(h, L.ld_h, r, k, 0.f);
+      put_split<R>(h + 2 * hb, L.ld_h, r, k, 0.f);
     }
   }
   __syncthreads();
@@ -511,43 +982,42 @@ nl_forward_kernel(const float* __restrict__ obs, const float* __restrict__ acts,
   mbar_wait(bars + 0);
   for (int p = 0; p <= L.A; ++p) {
     if (p == 1) mbar_wait(bars + 1);
-    if (p == L.A && tid == 0) {  // layer 1 is done with region A: bring the trunk's w2
+    if (p == L.A && tid == 0) {  // layer 1 is done with region a: bring the trunk's w2
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       bulk_load(s_a, buf + L.small + L.gru1 + L.gru2, 4u * L.w2, bars + 2);
     }
     const int group = warp % (kWarps / 2);
     if (group < H / kGroup) {
       if (warp < kWarps / 2 && p < L.A) {
-        const float* x = xs + (L.A - 1 - p) * 2 * kRows * L.ld_x;
-        gru_group(s_a, s_small, H, x, L.ld_x, L.kx / 8, h + (p & 1) * hb, h + ((p + 1) & 1) * hb,
-                  L.ld_h, group, lane);
+        gru_group<R>(s_a, s_small, H, xs + (L.A - 1 - p) * 2 * R * L.ld_x, L.ld_x, L.kx / 8,
+                     h + (p & 1) * hb, h + ((p + 1) & 1) * hb, L.ld_h, group, lane);
       }
       if (warp >= kWarps / 2 && p >= 1) {
-        gru_group(s_b, s_small + 6 * H, H, h + (p & 1) * hb, L.ld_h, H / 8,
-                  h + (2 + ((p - 1) & 1)) * hb, h + (2 + (p & 1)) * hb, L.ld_h, group, lane);
+        gru_group<R>(s_b, s_small + 6 * H, H, h + (p & 1) * hb, L.ld_h, H / 8,
+                     h + (2 + ((p - 1) & 1)) * hb, h + (2 + (p & 1)) * hb, L.ld_h, group, lane);
       }
     }
     __syncthreads();
   }
   const float* head_src = buf + L.small + L.gru1 + L.gru2 + L.w2;
-  if (tid == 0) {  // the GRU is done with region B: bring the head's first chunk
+  if (tid == 0) {  // the GRU is done with region b: bring the head's first chunk
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     bulk_load(s_b, head_src, 4u * L.head.chunk(), bars + 3);
   }
 
-  // encoder head H -> 2 in f32 on the CUDA cores: warp r < kRows owns batch row r, its lanes
-  // split k into 16 parts for each of the 2 columns and meet by shuffles
+  // encoder head H -> 2 in f32 on the CUDA cores: warp r < R owns batch row r, its lanes split k
+  // into 16 parts for each of the 2 columns and meet by shuffles
   const float* w_enc = s_small + 12 * H;
-  if (warp < kRows) {
+  if (warp < R) {
     const float* h2 = h + (2 + (L.A & 1)) * hb;
     const int col = lane & 1;
     float v = 0.f;
     for (int k = lane >> 1; k < H; k += 16) {
-      v = fmaf(get_split(h2, L.ld_h, warp, k), w_enc[k * kLatent + col], v);
+      v = fmaf(get_split<R>(h2, L.ld_h, warp, k), w_enc[k * kLatent + col], v);
     }
 #pragma unroll
     for (int off = 2; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane < kLatent) put_split(z1, L.ld_z, warp, L.n + col, v + w_enc[kLatent * H + col]);
+    if (lane < kLatent) put_split<R>(z1, L.ld_z, warp, L.n + col, v + w_enc[kLatent * H + col]);
   }
   __syncthreads();
 
@@ -556,19 +1026,36 @@ nl_forward_kernel(const float* __restrict__ obs, const float* __restrict__ acts,
   const float* b1 = w1 + L.k1 * L.hid;
   const float* b2 = b1 + L.hid;
   for (int mt = warp; mt < L.hid / 16; mt += kWarps) {
-    Acc acc;
-    tile_gemm(acc, w1 + mt * (L.k1 / 8) * 128, z1, L.ld_z, L.k1 / 8, lane);
-    store_tanh<true>(acc, b1, hid1, L.ld_hid, mt, lane);
+    Acc acc[1];
+    tile_gemm<R>(acc, w1 + mt * (L.k1 / 8) * 128, z1, L.ld_z, L.k1 / 8, lane);
+    store_tanh<R, true>(acc, b1, hid1, L.ld_hid, mt, lane);
   }
   __syncthreads();
   mbar_wait(bars + 2);
   for (int mt = warp; mt < L.hid / 16; mt += kWarps) {
-    Acc acc;
-    tile_gemm(acc, s_a + mt * (L.hid / 8) * 128, hid1, L.ld_hid, L.hid / 8, lane);
-    store_tanh<false>(acc, b2, hid2, L.ld_hid, mt, lane);
+    Acc acc[1];
+    tile_gemm<R>(acc, s_a + mt * (L.hid / 8) * 128, hid1, L.ld_hid, L.hid / 8, lane);
+    store_tanh<R, false>(acc, b2, hid2, L.ld_hid, mt, lane);
   }
   __syncthreads();
   head_tile(hid2, L.ld_hid, L.head, s_b, bars + 3, head_src, smem + L.o_c, out, row0, B);
+}
+
+// The resident forward, one launch: the cluster walk (kWalk, clusters of kClusterCtas CTAs, R =
+// kTileRows rows a tile) or the one-tile walk (R = kRows; see Design).
+template <int R, bool kWalk>
+__global__ void __launch_bounds__(kThreads, 1)
+nl_forward_kernel(const float* __restrict__ obs, const float* __restrict__ acts,
+                  const float* __restrict__ buf, float* __restrict__ out, int B,
+                  const __grid_constant__ ForwardLayout L) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (!kWalk) {
+    one_tile(obs, acts, buf, out, B, L, smem);
+  } else if (cluster_rank() < kGruCtas) {
+    gru_role<R>(acts, buf, B, L, smem, static_cast<int>(cluster_rank()));
+  } else {
+    trunk_head_role<R>(obs, buf, out, B, L, smem);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -625,10 +1112,6 @@ __device__ __forceinline__ void put_plane(float* X, size_t at, float v) {
   split(v, hi, lo);
   X[at] = __uint_as_float(hi);
   X[at + 64] = __uint_as_float(lo);
-}
-
-__device__ __forceinline__ void mbar_init_count(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
 }
 
 // mbar_wait with the spin inside the asm, so that the compiler sees no divergent exit.
@@ -1148,6 +1631,8 @@ int wide_launch(const float* const* p, const WidePlan& W, cudaStream_t st) {
 }
 
 int g_smem_limit = 0;  // bytes of dynamic shared memory a block may use, set by nl_init
+// clusters of the resident kernel that fit on the device at once (one CTA an SM), set by nl_init
+int g_clusters = 0;
 
 int grid_for(int B, int rows) { return (B + rows - 1) / rows; }
 
@@ -1156,10 +1641,11 @@ enum { kResident = 0, kStreamed = 1, kBadDims = -1, kNoFit = -2, kTooBig = -3 };
 // dims of a forward launch: B, n, A, in_dim, H, hid, D, terms, buf_len (floats), with H and
 // hid the model's widths. The buffer's length says its layout (ops/pallas_nl.py wide_layout
 // picks it on the host): the resident one, which exists up to H = 64 (8 warps of 8 GRU units a
-// layer), gives kResident where it fits in shared memory at these dims and kNoFit where it does
-// not (a buffer packed for fewer action steps); the wide one gives kStreamed (a chain of stage
-// kernels) at any width, or kTooBig where an offset would overflow int. Malformed dims or a
-// length of neither layout give kBadDims.
+// layer), gives kResident where its footprint fits in shared memory at these dims, with the walk
+// set (from kClusterMinB rows the cluster walk where both roles fit, else the one-tile walk), and
+// kNoFit where it does not (a buffer packed for fewer action steps); the wide one gives
+// kStreamed (a chain of stage kernels) at any width, or kTooBig where an offset would overflow
+// int. Malformed dims or a length of neither layout give kBadDims.
 int forward_plan(const int* dims, int n_dims, ForwardLayout& L, WidePlan& W) {
   if (n_dims != 9) return kBadDims;
   const int B = dims[0], n = dims[1], A = dims[2], in_dim = dims[3];
@@ -1171,7 +1657,9 @@ int forward_plan(const int* dims, int n_dims, ForwardLayout& L, WidePlan& W) {
   if (H <= kGroup * kWarps / 2) {
     L = forward_layout(n, A, in_dim, H, hid, D, terms);
     if (L.small + L.gru1 + L.gru2 + L.w2 + L.head.size() == buf_len) {
-      return 4LL * L.total <= kSmemBudget ? kResident : kNoFit;
+      if (4LL * L.footprint > kSmemBudget) return kNoFit;
+      if (B >= kClusterMinB && 4LL * tile_layout(L) <= kSmemBudget) L.cluster = kClusterCtas;
+      return kResident;
     }
   }
   W = wide_plan(B, n, A, in_dim, H, hid, D, terms);
@@ -1179,8 +1667,12 @@ int forward_plan(const int* dims, int n_dims, ForwardLayout& L, WidePlan& W) {
   return W.buf_len == buf_len ? kStreamed : kBadDims;
 }
 
+long long resident_smem(const ForwardLayout& L) {
+  return 4LL * (L.cluster == 1 ? L.footprint : std::max(L.g_total, L.t_total));
+}
+
 long long plan_smem(int variant, const ForwardLayout& L, const WidePlan& W) {
-  if (variant == kResident) return 4LL * L.total;
+  if (variant == kResident) return resident_smem(L);
   if (variant == kStreamed) return wide_smem(W);
   return -1;
 }
@@ -1192,6 +1684,32 @@ long long head_plan(const int* dims, int n_dims, HeadDims& h) {
   h = head_dims(round_up(dims[1], 4), dims[2], dims[3]);
   if (h.size() != dims[4]) return -1;  // another layout
   return 4LL * (kBarFloats + h.chunk() + kRows * (h.Hx + 4) + kRows * (h.cols() + 4));
+}
+
+// CTAs of a resident launch, each of which copies its weights once: for the cluster walk, clusters
+// enough for every GRU CTA to have a tile and no more than fit at once.
+long long resident_ctas(int B, const ForwardLayout& L) {
+  if (L.cluster == 1) return grid_for(B, kRows);
+  const int tiles = grid_for(B, kTileRows);
+  return static_cast<long long>(std::min(g_clusters, (tiles + kGruCtas - 1) / kGruCtas)) * kClusterCtas;
+}
+
+template <int R, bool kWalk>
+int resident_launch(const float* const* p, int B, const ForwardLayout& L, cudaStream_t st) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(resident_ctas(B, L)));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = resident_smem(L);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = kWalk ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, nl_forward_kernel<R, kWalk>, p[0], p[1], p[2],
+                                             const_cast<float*>(p[3]), B, L));
 }
 
 int check_smem(long long smem) {
@@ -1213,7 +1731,8 @@ int nl_init() {
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&g_smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  const void* kernels[] = {reinterpret_cast<const void*>(nl_forward_kernel),
+  const void* kernels[] = {reinterpret_cast<const void*>(nl_forward_kernel<kRows, false>),
+                           reinterpret_cast<const void*>(nl_forward_kernel<kTileRows, true>),
                            reinterpret_cast<const void*>(nl_head_kernel),
                            reinterpret_cast<const void*>(nl_wide_gemm_kernel<3, 2>),
                            reinterpret_cast<const void*>(nl_wide_gemm_kernel<3, 4>),
@@ -1227,12 +1746,30 @@ int nl_init() {
       err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_limit);
     }
   }
+  // the cluster walk's clusters at one CTA an SM (the whole opt-in shared memory)
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterCtas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kClusterCtas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = g_smem_limit;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveClusters(&g_clusters, nl_forward_kernel<kTileRows, true>, &cfg);
+  }
+  if (err == cudaSuccess && g_clusters < 1) err = cudaErrorInvalidConfiguration;
   return static_cast<int>(err);
 }
 
-// The plan of a forward launch with these dims, in info[0..7]: rows and columns of a GRU tile
+// The plan of a forward launch with these dims, in info[0..9]: rows and columns of a GRU tile
 // (0 columns: all), rows of a trunk-2 tile, rows of a head tile, device launches per forward,
-// the largest dynamic shared memory of a launch (bytes), the scratch it needs (floats). Returns
+// the largest dynamic shared memory of a launch (bytes), the scratch it needs (floats), the
+// resident kernel's CTAs (each loads its weights once) and CTAs a cluster. nl_init must have run
+// on the current device (the CTAs depend on the clusters that fit). Returns
 // the variant: 0 resident, 1 streamed (the wide chain), or -1 for malformed dims or a buffer of
 // neither layout's length, -2 for a buffer in the resident layout that does not fit in shared
 // memory at these dims, -3 where an offset would overflow int.
@@ -1240,11 +1777,13 @@ int nl_forward_plan(const int* dims, int n_dims, long long* info) {
   ForwardLayout L;
   WidePlan W;
   const int v = forward_plan(dims, n_dims, L, W);
-  for (int i = 0; i < 8; ++i) info[i] = 0;
+  for (int i = 0; i < 10; ++i) info[i] = 0;
   if (v == kResident) {
-    info[0] = kRows;
+    info[0] = L.cluster == 1 ? kRows : kTileRows;
     info[4] = 1;
-    info[5] = 4LL * L.total;
+    info[5] = plan_smem(v, L, W);
+    info[7] = resident_ctas(dims[0], L);
+    info[8] = L.cluster;
   } else if (v == kStreamed) {
     info[0] = 16LL * W.nt_gru;
     info[1] = kColMt * 16;
@@ -1287,9 +1826,8 @@ int nl_forward_launch(const void* const* ptrs, int n_ptrs, const int* dims, int 
   const float* const* p = reinterpret_cast<const float* const*>(ptrs);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (variant == kStreamed) return wide_launch(p, W, st);
-  nl_forward_kernel<<<grid_for(B, kRows), kThreads, 4LL * L.total, st>>>(
-      p[0], p[1], p[2], const_cast<float*>(p[3]), B, L);
-  return static_cast<int>(cudaGetLastError());
+  return L.cluster == 1 ? resident_launch<kRows, false>(p, B, L, st)
+                        : resident_launch<kTileRows, true>(p, B, L, st);
 }
 
 // ptrs: x [B, Hx], buf (repack_head), out [B, D].

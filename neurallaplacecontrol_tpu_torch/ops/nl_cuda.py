@@ -119,6 +119,15 @@ def _check(lib, name: str, code: int, dims=()) -> None:
         raise RuntimeError(f"{name} failed: {msg} (cudaError {code}; dims {list(dims)})")
 
 
+def _init(lib, index: int) -> None:
+    """``nl_init`` once per device, with it current: the kernels' shared-memory
+    limit and the resident kernel's clusters that fit on the card."""
+    if index not in _READY:
+        with torch.cuda.device(index):
+            _check(lib, "nl_init", lib.nl_init())
+        _READY.add(index)
+
+
 def check_operands(tensors, device: torch.device) -> None:
     """Every operand a contiguous float32 tensor on ``device``; raises otherwise."""
     for i, t in enumerate(tensors):
@@ -141,10 +150,8 @@ def launch(name: str, tensors, dims) -> None:
     lib = library()
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
     ints = (ctypes.c_int * len(dims))(*dims)
+    _init(lib, device.index)
     with torch.cuda.device(device):
-        if device.index not in _READY:  # the kernels' shared-memory limit, once per device
-            _check(lib, "nl_init", lib.nl_init())
-            _READY.add(device.index)
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib, name, getattr(lib, name)(ptrs, len(tensors), ints, len(dims), stream), dims)
 
@@ -161,24 +168,32 @@ _REFUSALS = {
 @functools.lru_cache(maxsize=256)
 def forward_plan(dims: tuple) -> types.MappingProxyType:
     """The kernel library's plan of a forward launch with these ``dims`` (as
-    ``nl_forward_launch`` takes them), read-only: ``variant``,
-    ``"resident"`` (``nl_forward_kernel``, every weight in shared memory, up
-    to width 128) or ``"streamed"`` (the chain of stage kernels past it);
-    ``tile``, the GRU stage's CTA tile as batch rows by output columns (the
-    resident kernel's 8 rows by every column, 0); ``trunk_rows`` and
+    ``nl_forward_launch`` takes them) on the current device, read-only:
+    ``variant``, ``"resident"`` (``nl_forward_kernel`` up to width 128: from
+    11,000 rows clusters whose CTAs keep the weights, split by stage, for
+    the whole launch while they walk row tiles; below, one 8-row tile a
+    CTA) or ``"streamed"`` (the chain of stage kernels past it); ``tile``,
+    the GRU stage's tile as batch rows by output columns (the resident
+    kernel's 8 or 16 rows by every column, 0); ``trunk_rows`` and
     ``head_rows``, the streamed chain's rows a CTA of trunk layer 2 and of
     the head; ``launches``, device launches per forward (1, or 2 A + 4);
     ``smem_bytes``, the largest dynamic shared memory of a launch;
-    ``scratch_floats``, the scratch the chain needs. Raises ``ValueError``
-    with the reason for dims that neither variant takes."""
+    ``scratch_floats``, the scratch the chain needs; ``ctas``, the resident
+    launch's CTAs, each of which copies its weights once (0 streamed);
+    ``cluster``, its CTAs a cluster (1 for one tile a CTA, 0 streamed).
+    Raises ``ValueError`` with the reason for dims that neither variant
+    takes."""
+    lib = library()
+    _init(lib, torch.cuda.current_device())
     ints = (ctypes.c_int * len(dims))(*dims)
-    info = (ctypes.c_longlong * 8)()
-    code = library().nl_forward_plan(ints, len(dims), info)
+    info = (ctypes.c_longlong * 10)()
+    code = lib.nl_forward_plan(ints, len(dims), info)
     if code < 0:
         raise ValueError(f"the forward kernel does not take dims {list(dims)}: {_REFUSALS[code]}")
     return types.MappingProxyType({
         "variant": FORWARD_VARIANTS[code], "tile": (info[0], info[1]), "trunk_rows": info[2],
-        "head_rows": info[3], "launches": info[4], "smem_bytes": info[5], "scratch_floats": info[6]})
+        "head_rows": info[3], "launches": info[4], "smem_bytes": info[5], "scratch_floats": info[6],
+        "ctas": info[7], "cluster": info[8]})
 
 
 def smem_bytes(kernel: str, dims) -> int:

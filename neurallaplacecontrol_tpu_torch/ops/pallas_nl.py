@@ -15,9 +15,11 @@ flat float32 buffer (see ``forward_sections``), after ``pad_nl_forward`` has
 zero-padded a ragged GRU width to a multiple of 8 and a ragged trunk width to
 a multiple of 16. ``nl_forward_fused`` launches the CUDA kernels
 (``csrc/nl_kernels.cu``) on that repack for CUDA tensors: ``nl_forward_kernel``
-with every weight resident in shared memory up to width 128 where that layout
-fits, else the chain of stage kernels named "streamed", which tiles each
-product over rows and columns (``wide_layout`` picks the layout). For CPU tensors it computes ``nl_forward_plain``, the
+up to width 128 where that layout fits (from 11,000 rows, clusters of CTAs
+that keep the weights in shared memory, split by stage, for the whole launch
+while they walk row tiles; below, one 8-row tile a CTA), else the chain of
+stage kernels named "streamed", which tiles each product over rows and
+columns (``wide_layout`` picks the layout). For CPU tensors it computes ``nl_forward_plain``, the
 same function in plain PyTorch on ``pack_nl_forward``'s operands. Both are the
 implementations of one operator, ``torch.ops.nlc.nl_forward``
 (``nl_forward_op``), so an exported planner step records the kernel as a
@@ -49,8 +51,12 @@ from .pallas_ilt import (
 MMA_M, MMA_K = 16, 8  # mma.sync.m16n8k8: output columns per tile, inputs per step
 _GROUP = 8  # GRU hidden units per warp: their r/z gates fill one 16-column tile
 _LATENT = 2  # the encoder's action latent
-_ROWS = 8  # the resident kernel's batch rows per CTA (kRows in csrc/nl_kernels.cu)
-_BAR_FLOATS = 8  # its mbarriers' floats at the start of shared memory (kBarFloats)
+_ROWS = 8  # batch rows of an n-tile of mma.m16n8k8 (kRows in csrc/nl_kernels.cu)
+_BAR_FLOATS = 8  # the footprint's mbarrier floats (kBarFloats)
+_CLUSTER_BAR_FLOATS = 16  # a resident CTA's mbarrier floats at kGruCtas = 2 (kClusterBarFloats)
+_GRU_CTAS = 2  # GRU CTAs a cluster of the resident kernel (kGruCtas)
+_SLOTS = 2  # ring slots for each GRU CTA in the trunk/head CTA (kSlots)
+_TILE_ROWS = 16  # batch rows of the cluster walk's tiles (kTileRows)
 _SMEM_BUDGET = 232448  # bytes: an H100 block's opt-in dynamic shared memory (kSmemBudget)
 # zero floats that end the wide layout's buffer, so that its length tells it from the
 # resident layout's at every width (kWideTag)
@@ -236,9 +242,13 @@ def pad_nl_forward(packed):
 
 
 def resident_bytes(n: int, A: int, in_dim: int, H: int, hid: int, D: int, terms: int) -> int:
-    """Dynamic shared memory of the resident kernel (``nl_forward_kernel``)
-    at these dims, the widths padded as ``padded_widths`` pads them: the
-    total of ``forward_layout`` in csrc/nl_kernels.cu."""
+    """Dynamic shared memory of the resident kernel's one-tile walk at these
+    dims, the widths padded as ``padded_widths`` pads them: a CTA that holds
+    one 8-row tile's activations and, in turn, GRU layer 1 then trunk layer
+    2 and GRU layer 2 then the head's chunks (``footprint`` in
+    csrc/nl_kernels.cu). The host packs the resident layout where it fits
+    (``wide_layout``); the library runs the cluster walk there where both of
+    its roles fit (``tile_bytes``), else this one."""
     H, hid = padded_widths(H, hid)
     kx, k1 = _round_up(in_dim, MMA_K), _round_up(n + _LATENT, MMA_K)
     chunks, mc = head_chunks(hid, D, terms)
@@ -246,6 +256,30 @@ def resident_bytes(n: int, A: int, in_dim: int, H: int, hid: int, D: int, terms:
     gru1, gru2 = (H // _GROUP) * (kx + H) * 24, (H // _GROUP) * 2 * H * 24
     acts = 2 * _ROWS * (A * (kx + 4) + 4 * (H + 4) + (k1 + 4) + (hid + 4)) + _ROWS * (hid + 4 + chunks * mc + 4)
     return 4 * (_BAR_FLOATS + small + max(gru1, hid * hid) + max(gru2, mc * (4 + 2 * hid)) + acts)
+
+
+def tile_bytes(n: int, A: int, in_dim: int, H: int, hid: int, D: int, terms: int) -> dict:
+    """Dynamic shared memory of each role of the resident kernel's cluster
+    walk (``tile_layout`` in csrc/nl_kernels.cu: 16 rows a tile), the widths
+    padded as ``padded_widths`` pads them: ``gru``, a GRU CTA
+    (the small operands, both GRU layers, the tile's action steps and five
+    split GRU states); ``trunk_head``, the trunk/head CTA (the ring of
+    latents, the small operands, trunk layer 2, the head or one chunk of
+    it, the tile's trunk activations); ``head_resident``, whether the whole
+    head fits there. A launch takes the larger of the two."""
+    H, hid = padded_widths(H, hid)
+    kx, k1 = _round_up(in_dim, MMA_K), _round_up(n + _LATENT, MMA_K)
+    chunks, mc = head_chunks(hid, D, terms)
+    rows = _TILE_ROWS
+    small = 12 * H + _LATENT * H + 4 + k1 * hid + 2 * hid
+    gru = _CLUSTER_BAR_FLOATS + small + (H // _GROUP) * (kx + 3 * H) * 24 + 2 * rows * (
+        A * (kx + 4) + 5 * (H + 4))
+    chunk = mc * (4 + 2 * hid)
+    base = _CLUSTER_BAR_FLOATS + _GRU_CTAS * _SLOTS * rows * _LATENT + small + hid * hid
+    acts = 2 * rows * (k1 + 4) + 4 * rows * (hid + 4) + rows * (chunks * mc + 4)
+    head_resident = 4 * (base + chunks * chunk + acts) <= _SMEM_BUDGET
+    return {"gru": 4 * gru, "trunk_head": 4 * (base + (chunks if head_resident else 1) * chunk + acts),
+            "head_resident": head_resident}
 
 
 def wide_layout(n: int, in_dim: int, H: int, hid: int, D: int, terms: int, actions: int = ACTION_STEPS) -> bool:
@@ -278,9 +312,13 @@ def forward_sections(n: int, in_dim: int, H: int, hid: int, D: int, terms: int,
     - ``head``: ``repack_head``'s buffer.
     - ``tag``, in the wide layout only: ``_WIDE_TAG`` zeros.
 
-    The resident kernel copies small+gru1 and gru2 at its start, w2 into
-    gru1's place once the first GRU layer is done, and the head's chunks in
-    turn into gru2's place once the second is. The streamed variant's stage
+    The resident kernel's one-tile walk copies small+gru1 and gru2 at its
+    start, w2 into gru1's place once the first GRU layer is done, and the
+    head's chunks in turn into gru2's place once the second is. In its
+    cluster walk a GRU CTA copies small+gru1 and gru2 once a launch, the
+    trunk/head CTA small, then w2 with the head (or w2, and the head's
+    chunks in turn for every tile where the whole head does not fit beside
+    it). The streamed variant's stage
     kernels read the products' fragments in tiles of 4 m-tiles by 4 k-steps,
     the biases, the encoder, W1 and the head from global memory.
     """
@@ -391,6 +429,7 @@ def _nl_forward_cuda(obs, acts_flat, packed, hopper, state_dim: int, in_dim: int
         nl_cuda.launch("nl_forward_launch", operands, dims)
         nl_forward_fused.launches += 1
         nl_forward_fused.rows += B
+        nl_forward_fused.weight_loads += plan["ctas"]
         if plan["variant"] == "streamed":
             nl_forward_fused.streamed_launches += 1
             nl_forward_fused.streamed_rows += B
@@ -446,3 +485,6 @@ nl_forward_fused.launches = 0  # forwards launched since the last reset, the exp
 nl_forward_fused.rows = 0  # batch rows over those launches
 nl_forward_fused.streamed_launches = 0  # of those, the streamed variant's (2 A + 4 device launches each)
 nl_forward_fused.streamed_rows = 0
+# the resident launches' CTA weight loads (each CTA copies its part of the weights once a launch):
+# (rows - streamed_rows) / weight_loads is the rows each load serves
+nl_forward_fused.weight_loads = 0

@@ -36,6 +36,11 @@ RAGGED = [1, 7, 8, 9, 999, 1000, 1001]  # below, at and past the 8-row tile and 
 SEED_BATCH = [20000, 20003]
 # a rank's rows under the K-sharded planner at K=262,144 over two ranks, and over one
 SHARD_ROWS = [131072, 262144]
+# the resident kernel's walks: the one-tile walk's last B and the cluster walk's first
+# (kClusterMinB); on an H100's 39 clusters of 3, whose 78 GRU CTAs take 16 rows a tile,
+# 1,248 rows a round: one row under and over ten rounds, ten rounds and five tiles (some
+# clusters a tile fewer than others), and the serve cell's K
+CLUSTER_ROWS = [10999, 11000, 12479, 12481, 12560, 32768]
 DT = 0.05
 B = 1000  # the planner's K
 
@@ -123,11 +128,12 @@ def test_forward_kernel_matches_plain(env, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", RAGGED + SEED_BATCH + SHARD_ROWS)
+@pytest.mark.parametrize("rows", RAGGED + SEED_BATCH + SHARD_ROWS + CLUSTER_ROWS)
 def test_forward_kernel_ragged_batches(rows, cuda_device):
     """Batches that fill no tile, exactly one, or one and a bit, up to the
-    seed-batched evaluation's 20,000 rows: the rows past B are masked on load
-    and never stored."""
+    seed-batched evaluation's 20,000 rows, and across the edges of the
+    cluster walk's rounds of tiles: the rows past B are masked on load and
+    never stored."""
     n, m, _ = ENV_DIMS["oderl-cartpole"]
     fused, obs, acts = forward_inputs("oderl-cartpole", rows, cuda_device, seed=rows)
     got = tnl.nl_forward_fused(obs, acts, fused.packed, n, m, terms=17, hopper=fused.hopper)
@@ -139,6 +145,55 @@ def test_forward_kernel_ragged_batches(rows, cuda_device):
     assert got.shape == (rows, n) and bool(torch.isfinite(got).all())
     assert rel_err(got, exp) < TOL
     assert torch.equal(out[:rows], got) and bool((out[rows:] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_forward_plan_and_weight_loads_at_the_serve_cell(cuda_device):
+    """At the serve cell's dims (cartpole, K = 32,768) the library plans the
+    resident kernel's cluster walk: one launch, 16 rows a tile, at most one
+    CTA an SM in clusters of 3; each forward adds its CTAs to
+    ``nl_forward_fused.weight_loads``, so a weight load serves ~250 rows,
+    where at 1,000 rows each CTA of the one-tile walk loads them for 8."""
+    n, m, _ = ENV_DIMS["oderl-cartpole"]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for rows, cluster, tile in ((32768, 3, 16), (1000, 1, 8)):
+        fused, obs, acts = forward_inputs("oderl-cartpole", rows, cuda_device)
+        plan = nl_cuda.forward_plan((rows, n, 4, m, 64, 128, n, 17, fused.hopper.numel()))
+        assert plan["variant"] == "resident" and plan["launches"] == 1
+        assert plan["cluster"] == cluster and plan["tile"] == (tile, 0)
+        roles = tnl.tile_bytes(n, 4, m, 64, 128, n, 17)
+        assert plan["smem_bytes"] == (tnl.resident_bytes(n, 4, m, 64, 128, n, 17) if cluster == 1
+                                      else max(roles["gru"], roles["trunk_head"]))
+        if cluster == 1:
+            assert plan["ctas"] == rows // 8
+        else:
+            assert 0 < plan["ctas"] <= sms and plan["ctas"] % cluster == 0 and rows / plan["ctas"] >= 150
+        before = (tnl.nl_forward_fused.weight_loads, tnl.nl_forward_fused.launches)
+        for _ in range(2):
+            tnl.nl_forward_fused(obs, acts, fused.packed, n, m, terms=17, hopper=fused.hopper)
+        torch.cuda.synchronize()
+        assert tnl.nl_forward_fused.weight_loads == before[0] + 2 * plan["ctas"]
+        assert tnl.nl_forward_fused.launches == before[1] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", sorted(ENV_DIMS))
+def test_cluster_walk_streams_a_two_chunk_head(env, cuda_device):
+    """At 20,000 rows the resident kernel walks row tiles in clusters. At 32
+    terms the head (two chunks on acrobot and cartpole, one on pendulum)
+    does not fit beside trunk layer 2 in the trunk/head CTA and passes
+    through it a chunk at a time for every tile; the padded terms add 0, so
+    both term counts match the plain forward."""
+    n, m, _ = ENV_DIMS[env]
+    fused, obs, acts = forward_inputs(env, 20000, cuda_device)
+    exp = tnl.nl_forward_plain(obs, acts, fused.packed, n, m)
+    for terms in (17, 32):
+        hopper = torch.as_tensor(tnl.repack_nl_forward(fused.packed, n, m, terms), device=cuda_device)
+        plan = nl_cuda.forward_plan((20000, n, 4, m, 64, 128, n, terms, hopper.numel()))
+        assert plan["cluster"] == 3 and plan["tile"] == (16, 0)
+        got = tnl.nl_forward_fused(obs, acts, fused.packed, n, m, terms=terms, hopper=hopper)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()) and rel_err(got, exp) < TOL, terms
 
 
 @pytest.mark.cuda
@@ -320,8 +375,9 @@ def test_fused_planner_refuses_bad_widths_on_card(width, cuda_device):
     counter at every width, the streamed variant's past 128; the layout the
     host packed (``pallas_nl.wide_layout``, the mirror of the library's
     test) is the one the library's plan reads, and below 128 the library's
-    shared memory is the mirror's ``resident_bytes``. Another ILT than
-    fourier still raises."""
+    shared memory is the mirror's: ``resident_bytes`` for one tile a CTA,
+    the larger role of ``tile_bytes`` for the cluster walk (20,000 rows).
+    Another ILT than fourier still raises."""
     sys.path.insert(0, str(REPO))
     import chip_smoke
 
@@ -336,8 +392,11 @@ def test_fused_planner_refuses_bad_widths_on_card(width, cuda_device):
         assert plan["variant"] == ("streamed" if tnl.wide_layout(n, m, H, hid, n, 17) else "resident") == (
             "streamed" if width > 128 else "resident")
         assert plan["launches"] == (2 * 4 + 4 if width > 128 else 1)
-        if width <= 128:
+        if width <= 128 and plan["cluster"] == 1:
             assert plan["smem_bytes"] == tnl.resident_bytes(n, 4, m, H, hid, n, 17)
+        elif width <= 128:
+            roles = tnl.tile_bytes(n, 4, m, H, hid, n, 17)
+            assert plan["smem_bytes"] == max(roles["gru"], roles["trunk_head"])
         rng = np.random.default_rng(rows)
         obs = torch.tensor(rng.standard_normal((rows, n)), dtype=torch.float32, device=cuda_device)
         acts = torch.tensor(rng.uniform(-high, high, (rows, 4 * m)), dtype=torch.float32, device=cuda_device)

@@ -804,6 +804,41 @@ def test_wide_layout_where_resident_does_not_fit(terms, actions):
         assert float((got - exp).abs().max()) <= 1e-12 * (1.0 + float(exp.abs().max())), B
 
 
+@pytest.mark.parametrize("env", sorted(ENV_DIMS))
+def test_cluster_roles_fit_wherever_the_resident_layout_does(env):
+    """The resident kernel's cluster walk splits the weights between a GRU
+    CTA and a trunk/head CTA at 16 rows a tile; the library takes it (from
+    11,000 rows) where both roles fit in a block's shared memory
+    (``tile_bytes``) and runs one tile a CTA elsewhere on the resident
+    layout. Both fit at the action buffer's 4 steps and 17 terms at every
+    width up to 128, ragged ones included, with and without the age channel,
+    and at 32 terms, where the head (two chunks on acrobot and cartpole)
+    passes through the trunk/head CTA a chunk at a time. The set of dims on
+    the resident layout is the one the one-tile walk's footprint
+    (``resident_bytes``) gives, as before the cluster walk: at width 128 on
+    cartpole 17 terms take it up to 33 action steps and 100 terms at 4 steps,
+    and the two wide cases of ``test_wide_layout_where_resident_does_not_fit``
+    stay wide."""
+    n, m, _ = ENV_DIMS[env]
+    for in_dim in (m, m + 1):
+        for width in sorted(set(range(16, 129, 8)) | {24, 100, 101, 127}):
+            H, hid = width // 2, width
+            for terms in (17, 32):
+                assert not tnl.wide_layout(n, in_dim, H, hid, n, terms)
+                b = tnl.tile_bytes(n, 4, in_dim, H, hid, n, terms)
+                assert max(b["gru"], b["trunk_head"]) <= tnl._SMEM_BUDGET, (width, terms, b)
+                # one chunk is always resident; at width 128 two chunks stream beside trunk layer 2
+                assert b["head_resident"] or tilt.head_chunks(hid, n, terms)[0] > 1, (width, terms)
+                if width == 128:
+                    assert b["head_resident"] == (tilt.head_chunks(hid, n, terms)[0] == 1), terms
+    if env == "oderl-cartpole":
+        assert not tnl.wide_layout(n, m, 64, 128, n, 17, 33) and tnl.wide_layout(n, m, 64, 128, n, 17, 34)
+        assert not tnl.wide_layout(n, m, 64, 128, n, 100, 4)
+        assert tnl.wide_layout(n, m, 64, 128, n, WIDE_HEAD_TERMS, 4) and tnl.wide_layout(n, m, 64, 128, n, 17, 40)
+        assert tnl.tile_bytes(n, 4, m, 64, 128, n, 17) == {"gru": 212048, "trunk_head": 207568, "head_resident": True}
+        assert tnl.resident_bytes(n, 4, m, 64, 128, n, 17) == 209456
+
+
 @pytest.mark.parametrize(
     "env,terms,hx",
     [(env, 17, 128) for env in sorted(ENV_DIMS)] + [("oderl-cartpole", 32, 128)]
