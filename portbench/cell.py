@@ -1,11 +1,14 @@
-"""One cell of ``BENCHMARK.json``: its configuration, its traffic mix and its
-limits, each read from the file its name points to."""
+"""One cell of ``BENCHMARK.json``: its configuration, its traffic mix, its
+limits and its model's adapter, each read from the file its name points to."""
 
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
+
+from . import models
 
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
@@ -18,6 +21,7 @@ class Cell:
     config: dict  # configs/<config>.json
     traffic: dict  # traffic/<traffic>.json
     limits: dict  # limits/<cell>.json: number name -> limit
+    model: ModuleType  # models/<the configuration's model>.py
 
     @property
     def rollouts(self) -> int:
@@ -29,11 +33,8 @@ class Cell:
 
     @property
     def dims(self) -> dict:
-        """The forward's dims, as ``flops`` takes them."""
-        c = self.config
-        return {"n_obs": c["n_obs"], "m_act": c["m"], "width": c["nl_hidden_units"],
-                "gru_hidden": c["nl_hidden_units"] // 2, "terms": c["nl_s_recon_terms"],
-                "actions": c["action_buffer_size"], "gru_layers": c["gru_layers"]}
+        """The forward's dims, as the model's yardstick takes them."""
+        return self.model.dims(self.config)
 
 
 def benchmark(root: Path = ROOT) -> dict:
@@ -42,7 +43,8 @@ def benchmark(root: Path = ROOT) -> dict:
 
 def load(name: str, root: Path = ROOT, traffic_overrides: dict | None = None) -> Cell:
     """The cell ``name`` of ``root/BENCHMARK.json``; ``traffic_overrides``
-    replaces keys of its traffic mix (the tests' small sizes)."""
+    replaces keys of its traffic mix (the tests' small sizes). A model with no
+    adapter file stops the load."""
     bench = benchmark(root)
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -54,4 +56,5 @@ def load(name: str, root: Path = ROOT, traffic_overrides: dict | None = None) ->
     traffic.update(traffic_overrides or {})
     limits_path = BENCH_DIR / "limits" / f"{name}.json"
     limits = json.loads(limits_path.read_text()) if limits_path.is_file() else {}
-    return Cell(name=name, chips=int(w["chips"]), config=config, traffic=traffic, limits=limits)
+    return Cell(name=name, chips=int(w["chips"]), config=config, traffic=traffic, limits=limits,
+                model=models.adapter(config["model"]))

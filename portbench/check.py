@@ -38,7 +38,6 @@ import torch
 from . import inputs
 from .cell import Cell
 from .reference import mppi
-from .reference.nl import NLModel
 
 Records = namedtuple("Records", "s0 a0 sn reward")  # the port's EpisodeRecords fields the judge reads
 
@@ -58,16 +57,14 @@ def env_module(cell: Cell):
 
 
 class Planner:
-    """The reference planner of a cell at one dtype."""
+    """The reference planner of a cell at one dtype, over the judge's model
+    that the cell's adapter builds (``models``)."""
 
     def __init__(self, cell: Cell, params, device, dtype=torch.float32):
-        c = cell.config
-        if (c["model"], c["nl_ilt_algorithm"]) != ("nl", "fourier"):
-            raise ValueError("the reference is the NL model with the fourier ILT")
         self.cell, self.env, self.dtype = cell, env_module(cell), dtype
-        self.model = NLModel(params, c["norm"], c["dt"], c["nl_s_recon_terms"], dtype=dtype, device=device)
+        self.model = cell.model.reference(cell, params, device, dtype)
         self.sigma_inv = torch.linalg.inv(inputs.noise_cov(cell)).to(dtype=dtype, device=device)
-        self.u_max = float(c["action_high"])
+        self.u_max = float(cell.config["action_high"])
 
     def cost(self, obs, action):
         return -(self.env.reward_obs(obs) + self.env.reward_action(action))

@@ -28,15 +28,13 @@ def sync(device):
 
 
 def port_setup(cell, device):
-    """The port's ``Config`` for the cell and its model (whose ``apply`` the
-    planner builders take; the fused route rebuilds the forward), with
-    PyTorch's TF32 set as the configuration states."""
+    """The port's ``Config`` for the cell, from the configuration's keys that
+    its model's adapter names (``port_config_keys``), and its model (whose
+    ``apply`` the planner builders take), with PyTorch's TF32 set as the
+    configuration states."""
     import neurallaplacecontrol_tpu_torch as port
 
     c = cell.config
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = bool(c["tf32"])
-    cfg = port.Config(fused_nl_planner=c["fused_nl_planner"], nl_hidden_units=c["nl_hidden_units"],
-                      nl_s_recon_terms=c["nl_s_recon_terms"], nl_ilt_algorithm=c["nl_ilt_algorithm"],
-                      nl_compute_dtype=c["nl_compute_dtype"], action_buffer_size=c["action_buffer_size"],
-                      dt=c["dt"], mppi_lambda=c["mppi_lambda"], mppi_sigma=c["mppi_sigma"])
+    cfg = port.Config(**{k: c[k] for k in cell.model.port_config_keys})
     return cfg, port.make_model(c["model"], c["env"], c["n_obs"], c["m"], c["action_high"], cfg, device=device)

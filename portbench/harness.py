@@ -110,14 +110,11 @@ def main(argv=None, *, t_start: float | None = None, device: str = "cuda", requi
 
     tracer = None
     if args.trace:
-        from neurallaplacecontrol_tpu_torch.ops.pallas_nl import nl_forward_fused
-
         spec = cell.traffic["trace"]
-        tracer = trace.Tracer(int(spec["start_tick"]), int(spec["ticks"]),
-                              lambda: (nl_forward_fused.launches, nl_forward_fused.rows))
+        tracer = trace.Tracer(int(spec["start_tick"]), int(spec["ticks"]), cell.model.counters)
     window = driver.window(args.seconds, tracer)
     memory_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    traced = trace.read(tracer, window.host_tick_s, cell.dims) if tracer is not None else None
+    traced = None if tracer is None else trace.read(tracer, window.host_tick_s, cell.dims, cell.model.is_forward_op)
 
     t_judge = time.perf_counter()
     numbers = driver.judge(np.random.default_rng(stream_seed(args.seed, "judge")))

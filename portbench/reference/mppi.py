@@ -8,8 +8,8 @@ For S independent plans, each with its own K sampled perturbations:
   3. each rollout's action window at horizon step t is the buffer's newest
      A - 1 actions followed by the rollout's scaled actions, t .. t + A - 1
      of the joined sequence;
-  4. the state rolls forward through the model, state += f(state, window),
-     and pays the running cost -(reward(state) + reward(action_t));
+  4. the state rolls forward through the model, state, carry = step(state,
+     input_t, carry), and pays the running cost -(reward(state) + reward(action_t));
   5. cost += lambda sum_t U_t Sigma^-1 eps_t;
   6. omega = softmax(-(cost - min cost) / lambda) over the K rollouts;
      U += sum_k omega_k eps_k;
@@ -26,9 +26,10 @@ def tick(model, running_cost, U_prev, obs, buffer, noise, sigma_inv, u_scale: fl
     """(action [S, nu], U [S, T, nu]) of one tick from the previous plan
     ``U_prev`` [S, T, nu], the observations [S, n], the action buffers before
     the tick [S, A, nu] (env units, oldest first) and the perturbations
-    ``noise`` [S, K, T, nu]. ``model`` has ``encode`` and ``decode``
-    (``reference.nl.NLModel``); every window is encoded at once before the
-    rollout, which is the same function as encoding each at its step."""
+    ``noise`` [S, K, T, nu]. ``model`` is a judge's model (``models``): its
+    ``prepare`` turns every rollout's windows into its per-step inputs before
+    the rollout, and its ``step`` carries each rollout's carry, from
+    ``init_carry``, through the T steps."""
     S, K, T, nu = noise.shape
     A = buffer.shape[1]
     U = torch.cat([U_prev[:, 1:], torch.zeros_like(U_prev[:, :1])], dim=1)
@@ -37,12 +38,13 @@ def tick(model, running_cost, U_prev, obs, buffer, noise, sigma_inv, u_scale: fl
     scaled = perturbed * u_scale  # [S, K, T, nu]
     joined = torch.cat([buffer[:, None, 1:].expand(S, K, A - 1, nu), scaled], dim=2)
     windows = torch.stack([joined[:, :, t:t + A] for t in range(T)], dim=2)  # [S, K, T, A, nu]
-    latents = model.encode(windows.reshape(S * K * T, A, nu)).reshape(S * K, T, -1)
+    inputs = model.prepare(windows.reshape(S * K, T, A, nu))
     state = obs[:, None].expand(S, K, obs.shape[-1]).reshape(S * K, -1)
+    carry = model.init_carry(S * K)
     actions = scaled.reshape(S * K, T, nu)
     cost = torch.zeros(S * K, dtype=state.dtype, device=state.device)
     for t in range(T):
-        state = state + model.decode(state, latents[:, t])
+        state, carry = model.step(state, inputs[:, t], carry)
         cost = cost + running_cost(state, actions[:, t])
     cost = cost.reshape(S, K) + lam * torch.sum(U[:, None] * (eps @ sigma_inv), dim=(2, 3))
     weights = torch.exp(-(cost - cost.min(dim=1, keepdim=True).values) / lam)

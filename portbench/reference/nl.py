@@ -58,7 +58,10 @@ def contour_angles(t_model: float, terms: int) -> tuple[list[float], list[float]
 class NLModel:
     """The NL forward at one shared query time ``dt``, split as the planner
     can use it: ``encode`` maps action windows to latents, ``decode`` maps
-    (observation, latent) to the state difference over ``dt``."""
+    (observation, latent) to the state difference over ``dt``. As the judge's
+    model (``models/nl.py``) it carries nothing, encodes every window before
+    the rollout, which is the same function as encoding each at its step,
+    and steps by its state difference."""
 
     def __init__(self, params, norm: dict, dt: float, terms: int, dtype=torch.float32, device="cpu"):
         def cast(tree):
@@ -125,6 +128,18 @@ class NLModel:
         radius = torch.where(north, 1.0 + sin_phi, cos_phi) / torch.where(north, cos_phi, 1.0 - sin_phi)
         re, im = radius * torch.cos(theta), radius * torch.sin(theta)
         return (re * self.w_re + im * self.w_im).sum(dim=-1)
+
+    def init_carry(self, rows: int) -> None:
+        return None
+
+    def prepare(self, windows: torch.Tensor) -> torch.Tensor:
+        """Raw action windows [N, T, A, m] -> action latents [N, T, 2]."""
+        N, T, A, m = windows.shape
+        return self.encode(windows.reshape(N * T, A, m)).reshape(N, T, -1)
+
+    def step(self, state: torch.Tensor, latent: torch.Tensor, carry):
+        """(the next state [N, n], ``carry``) from the state [N, n] and the step's latents [N, 2]."""
+        return state + self.decode(state, latent), carry
 
     def forward(self, obs: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
         """obs [R, n], raw action windows [R, A, m] -> state differences [R, n]."""

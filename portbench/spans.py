@@ -22,7 +22,9 @@ forward's launch call sits ~10 us inside its span.
 ``read`` joins each device operation to the span its launch call fell in,
 through the ``correlation`` id a kernel shares with its runtime call, and
 splits the device's idle time by the innermost span the host was in, with
-``trace._idle_gaps``' labels.
+``trace._idle_gaps``' labels. The forward's counters and the test that tells
+its kernels are the cell's model's adapter's (``models``), as in
+``harness``.
 The five readers under ``metrics/`` (``tick_host_ms``, ``plan_host_ms``,
 ``fwd_issue_ms``, ``plan_device_ms``, ``plan_idle_ms``) read ``Spans``
 from a ``Trace``'s attribute ``spans``, and read nothing where a trace has
@@ -44,7 +46,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from . import trace
+from . import models, trace
 
 TICK, PLAN = "tick", "plan"
 FORWARD = "fwd."  # the prefix of the forward's spans
@@ -231,10 +233,12 @@ class _Innermost:
         return [(a, b, self.at(0.5 * (a + b))) for a, b in zip(cuts, cuts[1:]) if b > a]
 
 
-def read(records, dropped: int, edges_ns, events, ticks: int) -> Spans:
+def read(records, dropped: int, edges_ns, events, ticks: int, is_forward_op=None) -> Spans:
     """The spans ``records`` (``timing.records()``) of a run whose traced
     stretch of ``ticks`` ticks lies between the two edge syncs around which
-    the host noted ``edges_ns``, joined to the trace's complete ``events``."""
+    the host noted ``edges_ns``, joined to the trace's complete ``events``;
+    ``is_forward_op`` as ``trace.read`` takes it."""
+    is_forward_op = is_forward_op or models.any_forward_op()
     recs = list(records)
     first_edge = edges_ns[0][0][0] if edges_ns else float("inf")
     host = _host(recs, first_edge)
@@ -246,7 +250,7 @@ def read(records, dropped: int, edges_ns, events, ticks: int) -> Spans:
     last = _instant(edges_ns[1], syncs, near=first[1] - first[0] * 1e-3) if first else None
     if last:
         clock = Clock(host_ns=(first[0], last[0]), trace_us=(first[1], last[1]))
-        traced.update(_device(recs, clock, events, syncs[0][1], syncs[-1][1], ticks))
+        traced.update(_device(recs, clock, events, syncs[0][1], syncs[-1][1], ticks, is_forward_op))
         traced["clock"] = clock
         traced["counts"] = _counts(recs, edges_ns[0][-1][1], edges_ns[1][0][0])
     return Spans(traced_ticks=ticks if len(edges_ns) == 2 else 0, dropped=dropped, **host, **traced)
@@ -284,7 +288,7 @@ def _counts(recs, lo_ns, hi_ns) -> dict:
     return dict(sorted(counts.items()))
 
 
-def _device(recs, clock: Clock, events, lo: float, hi: float, ticks: int) -> dict:
+def _device(recs, clock: Clock, events, lo: float, hi: float, ticks: int, is_forward_op) -> dict:
     """The device's side over the stretch [lo, hi] (trace us)."""
     inner = _Innermost(recs, clock, lo, hi)
     launches = {}
@@ -304,7 +308,7 @@ def _device(recs, clock: Clock, events, lo: float, hi: float, ticks: int) -> dic
             span = inner.at(call["ts"] + 0.5 * call["dur"])
             if span >= 0 and inner.in_plan[span] and not inner.in_fwd[span]:
                 plan_us += min(b, hi) - a
-        if trace.FORWARD_KERNEL.search(name):
+        if is_forward_op(name):
             at = call["ts"] + 0.5 * call["dur"] if call is not None else None
             forward.append((at, a, recs[span].name if span >= 0 else None))
     runtime = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
@@ -337,7 +341,6 @@ def main(argv=None, *, t_start: float | None = None) -> int:
     if not (torch.cuda.is_available() and torch.cuda.device_count() >= cell.chips):
         print(f"portbench: {cell.name} needs {cell.chips} CUDA device(s)", file=sys.stderr)
         return 2
-    from neurallaplacecontrol_tpu_torch.ops.pallas_nl import nl_forward_fused
     from neurallaplacecontrol_tpu_torch.utils import timing
 
     torch.set_num_threads(1)
@@ -345,11 +348,11 @@ def main(argv=None, *, t_start: float | None = None) -> int:
     driver.setup()
     setup_s = time.perf_counter() - t_start
     spec = cell.traffic["trace"]
-    tracer = SpanTracer(int(spec["start_tick"]), int(spec["ticks"]),
-                        lambda: (nl_forward_fused.launches, nl_forward_fused.rows))
+    tracer = SpanTracer(int(spec["start_tick"]), int(spec["ticks"]), cell.model.counters)
     window = driver.window(args.seconds, tracer)
-    traced = trace.read(tracer, window.host_tick_s, cell.dims)
-    traced.spans = read(timing.records(), timing.dropped(), tracer.edges_ns, tracer.events(), traced.ticks)
+    traced = trace.read(tracer, window.host_tick_s, cell.dims, cell.model.is_forward_op)
+    traced.spans = read(timing.records(), timing.dropped(), tracer.edges_ns, tracer.events(), traced.ticks,
+                        cell.model.is_forward_op)
     run = harness.Run(cell, setup_s, window, traced)
     names = [m["name"] for m in harness.metrics_for(cells.benchmark(), "per_layer", cell.name)]
     suffix = names[0].rpartition(".")[2] if names else ""

@@ -9,8 +9,9 @@ serving tick), which would read as device idle time; the runtime calls alone
 stretch it by about a quarter. The stretch starts and ends with a device
 sync made inside the trace, so that exactly the device work of those ticks
 falls between the two, and the window is the time between them on the
-trace's clock. The program's counters of forwards and rows
-(``nl_forward_fused.launches`` and ``.rows``) are read at both ends.
+trace's clock. The program's counters of forwards and rows (the cell's
+model's adapter's ``counters``) are read at both ends, and its
+``is_forward_op`` tells the forward's device operations from the rest.
 
 ``Trace`` holds what the readers under ``metrics/`` take. Nothing here runs
 unless the run asks for a trace.
@@ -21,14 +22,13 @@ from __future__ import annotations
 import bisect
 import json
 import os
-import re
 import tempfile
 from dataclasses import dataclass, field
 
 import torch
 
-# the forward's kernels: the resident kernel and the streamed chain's stage kernels
-FORWARD_KERNEL = re.compile(r"\bnl_(forward|wide_\w+)_kernel\b")
+from . import models
+
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 SYNC = "cudaDeviceSynchronize"
 
@@ -122,7 +122,11 @@ class Trace:
     breakdown: dict = field(default_factory=dict)
 
 
-def read(tracer: Tracer, host_tick_s, cell: dict) -> Trace:
+def read(tracer: Tracer, host_tick_s, cell: dict, is_forward_op=None) -> Trace:
+    """The trace of ``tracer``'s stretch. ``cell``: the forward's dims;
+    ``is_forward_op(name)``: whether a device operation is the forward's, by
+    default whether any model's adapter counts it as its forward's."""
+    is_forward_op = is_forward_op or models.any_forward_op()
     events = tracer.events()
     syncs = sorted(e["ts"] + e["dur"] for e in events if e.get("cat") == "cuda_runtime" and e.get("name") == SYNC)
     lo, hi = (syncs[0], syncs[-1]) if len(syncs) >= 2 else (0.0, 0.0)
@@ -132,7 +136,7 @@ def read(tracer: Tracer, host_tick_s, cell: dict) -> Trace:
     for a, b, name in device:
         dur = min(b, hi) - a
         per_name[name] = per_name.get(name, 0.0) + dur
-        if FORWARD_KERNEL.search(name):
+        if is_forward_op(name):
             fwd += dur
         else:
             other += dur
