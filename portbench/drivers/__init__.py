@@ -29,9 +29,9 @@ def sync(device):
 
 def port_setup(cell, device):
     """The port's ``Config`` for the cell, from the configuration's keys that
-    its model's adapter names (``port_config_keys``), and its model (whose
-    ``apply`` the planner builders take), with PyTorch's TF32 set as the
-    configuration states."""
+    its model's adapter names (``port_config_keys``), and its model (which
+    the adapter's ``planner_apply`` turns into what the planner builders
+    take), with PyTorch's TF32 set as the configuration states."""
     import neurallaplacecontrol_tpu_torch as port
 
     c = cell.config

@@ -48,8 +48,8 @@ class Driver:
         self.params = inputs.params(self.cell, self.seed, self.device)
         cfg, model = port_setup(self.cell, self.device)
         env, mppi_cfg, mppi_params, dynamics, carry, encoder = build_planner(
-            c["model"], c["env"], c["delay"], cfg, model_apply=model.apply, params=self.params,
-            roll_outs=self.cell.rollouts, time_steps=self.cell.horizon, device=self.device)
+            c["model"], c["env"], c["delay"], cfg, model_apply=self.cell.model.planner_apply(model),
+            params=self.params, roll_outs=self.cell.rollouts, time_steps=self.cell.horizon, device=self.device)
 
         running_cost = build_running_cost(env)
         self.plans = []  # the plan each tick of the running batch returned

@@ -38,9 +38,9 @@ class Driver:
         c = self.cell.config
         self.params = inputs.params(self.cell, self.seed, self.device)
         cfg, model = port_setup(self.cell, self.device)
-        self.ctrl = make_controller(c["model"], c["env"], c["delay"], cfg, model_apply=model.apply,
-                                    params=self.params, roll_outs=self.cell.rollouts,
-                                    time_steps=self.cell.horizon, device=self.device)
+        self.ctrl = make_controller(c["model"], c["env"], c["delay"], cfg,
+                                    model_apply=self.cell.model.planner_apply(model), params=self.params,
+                                    roll_outs=self.cell.rollouts, time_steps=self.cell.horizon, device=self.device)
         # the cell's shapes, once: builds and loads the kernel, fills the allocator
         self._episode(inputs.PlantDraws(self.cell, self.seed, "warmup", self.device),
                       int(self.cell.traffic["warmup_ticks"]), None, None, 0)

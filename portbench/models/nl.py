@@ -1,6 +1,8 @@
 """The adapter of the Neural Laplace model (``"model": "nl"``): the reference
 ``reference.nl.NLModel`` with the fourier ILT, the nine configuration keys
-the port's ``Config`` takes, the forward's dims and yardstick
+the port's ``Config`` takes, the model's ``apply`` for the planner builders
+(which swap in the fused forward under ``fused_nl_planner``), the forward's
+dims and yardstick
 (``flops.forward_*``), the forward counters of ``ops.pallas_nl``'s
 ``nl_forward_fused``, and the names of the forward's kernels (the resident
 kernel and the streamed chain's stage kernels).
@@ -23,6 +25,10 @@ def reference(cell, params, device, dtype) -> NLModel:
     if c["nl_ilt_algorithm"] != "fourier":
         raise ValueError("the reference is the NL model with the fourier ILT")
     return NLModel(params, c["norm"], c["dt"], c["nl_s_recon_terms"], dtype=dtype, device=device)
+
+
+def planner_apply(port_model):
+    return port_model.apply
 
 
 def dims(config: dict) -> dict:

@@ -1,16 +1,20 @@
 """The model adapters (``portbench/models/``), on the CPU: the load stops at a
-model with no adapter, NL's judge reads what it read before the adapters
-existed, ``reference.mppi.tick`` threads a model's carry, and the files of
-the core name no model."""
+model with no adapter or with an adapter that lacks an entry, NL's judge
+reads what it read before the adapters existed, ``reference.mppi.tick``
+threads a model's carry, both drivers plan through what the adapter's
+``planner_apply`` names (the port's latent ODE carries its history as the
+port's own path does), and the files of the core name no model."""
 
 import json
 import re
+import types
 
 import pytest
 import torch
 
-from portbench import calibrate, drivers, harness, models, trace
+from portbench import calibrate, drivers, harness, inputs, models, trace
 from portbench import cell as cells
+from portbench.drivers import episodes, plant
 from portbench.reference import mppi
 
 from .test_portbench_run import TINY
@@ -32,7 +36,7 @@ def bench_with_model(tmp_path, model):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
 
 
-@pytest.mark.parametrize("model", ["latent_ode", "no.such"])
+@pytest.mark.parametrize("model", ["no_such_model", "no.such"])
 def test_a_model_without_an_adapter_stops_the_load(tmp_path, model):
     bench_with_model(tmp_path, model)
     with pytest.raises(SystemExit, match=re.escape(f"portbench/models/{model}.py is missing")):
@@ -44,10 +48,30 @@ def test_a_model_with_an_adapter_loads(tmp_path):
     assert cells.load("other-eval", root=tmp_path).model is models.adapter("nl")
 
 
+ADAPTERS = sorted(p.stem for p in models.MODELS_DIR.glob("*.py") if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("name", ADAPTERS)
+def test_each_adapter_defines_every_entry(name):
+    module = models.adapter(name)
+    for entry in models.ENTRIES:
+        value = getattr(module, entry, None)
+        assert value is not None, f"portbench/models/{name}.py lacks {entry}"
+        assert callable(value) or entry == "port_config_keys", entry
+
+
+def test_an_adapter_without_planner_apply_stops_the_load(monkeypatch):
+    monkeypatch.delattr(models.adapter("nl"), "planner_apply")
+    with pytest.raises(SystemExit, match="the adapter for the model 'nl' lacks planner_apply"):
+        models.adapter("nl")
+
+
 def test_nl_adapter():
     nl = models.adapter("nl")
     assert nl.__name__ == "portbench.models.nl"
     assert len(nl.port_config_keys) == 9 and len(set(nl.port_config_keys)) == 9
+    port_model = drivers.port_setup(cells.load("nl128-eval-s20"), torch.device("cpu"))[1]
+    assert nl.planner_apply(port_model) is port_model.apply
     assert cells.load("nl512-eval-s10").dims == {"n_obs": 5, "m_act": 1, "width": 512, "gru_hidden": 256,
                                                  "terms": 17, "actions": 4, "gru_layers": 2}
     dims = cells.load("nl128-eval-s20").dims
@@ -176,6 +200,153 @@ def test_a_model_without_a_kernel_reads_no_forward_time():
         assert harness.reader("metrics", name)(run) is None
     for name in ("device_ops_per_tick", "planner_device_ms", "device_idle", "mfu"):
         assert harness.reader("metrics", name)(run) > 0
+
+
+LODE_CHECKPOINT = ("artifacts/checkpoints/"
+                   "latent_ode_oderl-cartpole_delay-1_ts-grid-exp_0_train-with-expert-trajectories-True.npz")
+LODE_TINY = {"lode-eval": {"seeds": 2, "horizon": 4, "episode_ticks": 3, "warmup_ticks": 1},
+             "lode-serve": {"rollouts": 8, "horizon": 4, "episode_ticks": 3, "warmup_ticks": 1}}
+LODE_SEED = 3_000_000_007
+
+
+def lode_adapter(planner_apply=lambda port_model: port_model):
+    """A stand-in adapter for the port's latent ODE: the configuration's keys
+    of its ``Config`` (``mppi_roll_outs`` sets the rows of its fixed draw of
+    z0's noise), and ``planner_apply``, by default the model itself, as
+    ``run_exp_multi_torch._apply_of`` hands it over. It has no judge: its
+    ``reference`` raises. Its forward has no kernel and counts nothing."""
+    def reference(cell, params, device, dtype):
+        raise NotImplementedError("the stand-in has no judge's latent ODE")
+
+    def no_yardstick(*args, **kwargs):
+        raise NotImplementedError("the stand-in has no yardstick")
+
+    return types.SimpleNamespace(
+        reference=reference, planner_apply=planner_apply, dims=lambda config: {},
+        port_config_keys=("latent_ode_hidden_units", "action_buffer_size", "dt", "mppi_roll_outs",
+                          "mppi_lambda", "mppi_sigma"),
+        flops_per_row=no_yardstick, least_seconds=no_yardstick, counters=lambda: (0, 0),
+        is_forward_op=lambda name: False)
+
+
+def bench_with_lode(root, rollouts):
+    """A copy of ``BENCHMARK.json`` under ``root`` with the cells ``lode-eval``
+    (episodes) and ``lode-serve`` (plant) of the port's latent ODE on
+    cartpole d1 at ``rollouts`` rollouts, its tracked checkpoint and hidden
+    units 128."""
+    bench = cells.benchmark()
+    nl = bench["configs"][0]
+    config = json.loads((cells.ROOT / nl["file"]).read_text())
+    config.update(model="latent_ode", checkpoint=LODE_CHECKPOINT, latent_ode_hidden_units=128,
+                  mppi_roll_outs=rollouts)
+    (root / "lode.json").write_text(json.dumps(config))
+    bench["configs"].append(dict(nl, name="lode", file="lode.json"))
+    bench["workloads"] += [dict(name="lode-eval", config="lode", traffic="eval-s20", chips=1, why="stand-in"),
+                           dict(name="lode-serve", config="lode", traffic="serve-k32768", chips=1, why="stand-in")]
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def load_lode(tmp_path, monkeypatch, name, adapter):
+    bench_with_lode(tmp_path, 8)
+    real = models.adapter
+    monkeypatch.setattr(models, "adapter", lambda model: adapter if model == "latent_ode" else real(model))
+    return cells.load(name, root=tmp_path, traffic_overrides=LODE_TINY[name])
+
+
+def recording_builds(monkeypatch):
+    """Every planner the port's ``build_planner`` builds from here on."""
+    import neurallaplacecontrol_tpu_torch.training.eval as port_eval
+
+    built, real = [], port_eval.build_planner
+
+    def build_planner(*args, **kwargs):
+        built.append(real(*args, **kwargs))
+        return built[-1]
+
+    monkeypatch.setattr(port_eval, "build_planner", build_planner)
+    return built
+
+
+def driver_plans(cell, monkeypatch):
+    """(plans, observations, carry_init) of the cell's driver: ``setup()``
+    and ``window(0.0, None)``, the plans of the window's first batch or
+    episode, and the planner's ``dynamics_carry_init``."""
+    built = recording_builds(monkeypatch)
+    kind = episodes if cell.traffic["kind"] == "episodes" else plant
+    driver = kind.Driver(cell, LODE_SEED, "cpu")
+    driver.setup()
+    driver.window(0.0, None)
+    if kind is episodes:
+        _, records, plans = driver.batches[0]
+        return torch.stack(plans, dim=1), records.s0, built[-1][4]
+    _, obs, _, plans = driver.episodes[0]
+    assert driver.ctrl.dynamics_carry_init is built[-1][4]
+    return plans, obs, built[-1][4]
+
+
+def port_plans(cell, monkeypatch, observations):
+    """The plans of the port's own path on the same draws, the latent ODE
+    handed over as the model itself: ``build_planner`` and
+    ``make_episode_fn`` (its own call of the planner), or
+    ``make_controller``'s ``step`` on the driver's observations."""
+    import neurallaplacecontrol_tpu_torch as port
+    import neurallaplacecontrol_tpu_torch.training.rollout as rollout
+    from neurallaplacecontrol_tpu_torch.training.eval import build_planner
+
+    cpu = torch.device("cpu")
+    cfg = port.Config(latent_ode_hidden_units=128, action_buffer_size=4, dt=0.05, mppi_roll_outs=8,
+                      mppi_lambda=1.0, mppi_sigma=1.0)
+    model = port.make_model("latent_ode", "oderl-cartpole", 5, 1, 3.0, cfg, device=cpu)
+    params = inputs.params(cell, LODE_SEED, cpu)
+    if cell.traffic["kind"] == "plant":
+        ctrl = port.make_controller("latent_ode", "oderl-cartpole", 1, cfg, model_apply=model, params=params,
+                                    roll_outs=cell.rollouts, time_steps=cell.horizon, device=cpu)
+        draws = inputs.PlantDraws(cell, LODE_SEED, 0, cpu)
+        state, plans = ctrl.reset(0)._replace(U=draws.U0), []
+        for obs in observations:
+            state = ctrl.step(state, obs, noise=draws.noise())[1]
+            plans.append(state.U)
+        return torch.stack(plans)
+    env, mppi_cfg, mppi_params, dynamics, carry, _ = build_planner(
+        "latent_ode", "oderl-cartpole", 1, cfg, model_apply=model, params=params, roll_outs=cell.rollouts,
+        time_steps=cell.horizon, device=cpu)
+    plans, command = [], rollout.mppi_command
+
+    def recording_command(*args, **kwargs):
+        out = command(*args, **kwargs)
+        plans.append(out[1])
+        return out
+
+    monkeypatch.setattr(rollout, "mppi_command", recording_command)
+    settings = rollout.EpisodeSettings(delay=1, n_steps=int(cell.traffic["episode_ticks"]), action_buffer_size=4)
+    rollout.make_episode_fn(env, dynamics, mppi_cfg, mppi_params, settings, dynamics_carry_init=carry)(
+        inputs.EpisodeDraws(cell, LODE_SEED, 0, cpu))
+    return torch.stack(plans, dim=1)
+
+
+@pytest.mark.parametrize("name", sorted(LODE_TINY))
+def test_the_drivers_hand_over_what_the_adapter_names(tmp_path, monkeypatch, name):
+    """The latent ODE handed over as itself: the planner is built carried and
+    plans bit for bit as the port's own path does."""
+    cell = load_lode(tmp_path, monkeypatch, name, lode_adapter())
+    plans, observations, carry_init = driver_plans(cell, monkeypatch)
+    assert carry_init is not None
+    want = port_plans(cell, monkeypatch, observations)
+    assert plans.shape == want.shape and plans.shape[-2:] == (4, 1)
+    assert torch.equal(plans, want)
+
+
+@pytest.mark.parametrize("name", sorted(LODE_TINY))
+def test_a_planted_apply_plans_through_the_tiled_history(tmp_path, monkeypatch, name):
+    """An adapter that hands over the latent ODE's ``apply``: the planner is
+    built without a carry, and its plans part from the carried path's."""
+    cell = load_lode(tmp_path, monkeypatch, name, lode_adapter(lambda port_model: port_model.apply))
+    plans, observations, carry_init = driver_plans(cell, monkeypatch)
+    assert carry_init is None
+    want = port_plans(cell, monkeypatch, observations)
+    assert plans.shape == want.shape
+    assert not torch.equal(plans, want)
+    assert (plans - want).abs().max() > 1e-3
 
 
 CORE = ["harness.py", "cell.py", "check.py", "trace.py", "spans.py", "calibrate.py", "inputs.py", "run.py",
